@@ -1,0 +1,313 @@
+"""Configuration for trpo_torch (counterpart: ``trpo_tpu/config.py``).
+
+The port keeps its own copy of the training fields of ``TRPOConfig`` and of
+the preset ladder, so a preset name means the same run in both packages.
+Serving, fleet, chaos and observability fields are left out until those
+layers are ported.
+
+Two differences from the reference:
+
+* ``scan_backend`` is gone. The port has one reverse affine scan
+  (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
+  loop on a CPU tensor.
+* Paths that are not ported yet raise ``NotImplementedError`` naming the
+  ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
+  never silently ignored. The check runs where a path would be taken (agent
+  and update construction), not in ``__post_init__``, so the presets copied
+  from the reference (which arm the solve audit) stay constructible.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported"]
+
+
+@dataclasses.dataclass
+class TRPOConfig:
+    # --- environment -----------------------------------------------------
+    env: str = "cartpole"
+    n_envs: int = 8
+    max_pathlength: Optional[int] = None  # None → the env's own horizon
+    batch_timesteps: int = 1000    # total timesteps per iteration (T·N ≥ it)
+    fleet_n_envs: Optional[int] = None  # overrides n_envs when set
+    rollout_chunk: Optional[int] = None  # not ported (ROADMAP Queue 1 item 12)
+
+    # --- discounting / advantages ---------------------------------------
+    gamma: float = 0.95
+    lam: float = 1.0
+    standardize_advantages: bool = True
+
+    # --- trust region solve ----------------------------------------------
+    max_kl: float = 0.01
+    cg_iters: int = 10
+    cg_damping: float = 0.1
+    adaptive_damping: bool = False  # not ported (ROADMAP Queue 1 item 12)
+    cg_residual_tol: float = 1e-10
+    cg_residual_rtol: float = 0.0
+    cg_precondition: Any = False   # False or "head_block" ("jacobi" not ported)
+    precond_refresh_every: int = 1  # head_block: Gram/eigh refresh cadence
+    linesearch_backtracks: int = 10
+    linesearch_accept_ratio: float = 0.1
+    linesearch_kl_cap: bool = False
+    kl_rollback_factor: float = 2.0
+    fvp_subsample: Optional[float] = None  # FVPs on this fraction of the batch
+    fvp_dtype: str = "f32"         # "bf16" not ported (ROADMAP Queue 1 item 12)
+    solve_audit_every: int = 0     # >0 with a cheap rung: not ported
+    cg_budget_adaptive: bool = False  # not ported (ROADMAP Queue 1 item 12)
+    fvp_mode: str = "auto"         # "auto"/"fused" → the fused FVP kernel for a
+    #                                plain-MLP diagonal-Gaussian policy; "ggn"
+    #                                → the torch.func Gauss-Newton operator
+
+    # --- networks --------------------------------------------------------
+    policy_hidden: Tuple[int, ...] = (64,)
+    policy_activation: str = "tanh"
+    policy_gru: Optional[int] = None      # not ported (ROADMAP Queue 1 item 14)
+    policy_experts: Optional[int] = None  # not ported (ROADMAP Queue 1 item 14)
+    vf_hidden: Tuple[int, ...] = (64, 64)
+    vf_activation: str = "relu"
+    vf_train_steps: int = 50
+    vf_learning_rate: float = 1e-3
+    init_log_std: float = 0.0
+    compute_dtype: str = "float32"
+    normalize_obs: bool = False    # not ported (ROADMAP Queue 1 item 2)
+
+    # --- run control -----------------------------------------------------
+    seed: int = 1
+    n_iterations: int = 1000
+    train_overlap: int = 0         # not ported (ROADMAP Queue 1 item 15)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
+
+    def __post_init__(self):
+        if self.fleet_n_envs is not None and self.fleet_n_envs < 1:
+            raise ValueError(
+                f"fleet_n_envs must be >= 1, got {self.fleet_n_envs}"
+            )
+        if self.rollout_chunk is not None and self.rollout_chunk < 1:
+            raise ValueError(
+                f"rollout_chunk must be >= 1, got {self.rollout_chunk}"
+            )
+        if self.train_overlap not in (0, 1):
+            raise ValueError(
+                f"train_overlap must be 0 or 1, got {self.train_overlap}"
+            )
+        if self.fvp_mode not in ("auto", "fused", "ggn", "jvp_grad"):
+            raise ValueError(
+                'fvp_mode must be "auto", "fused", "ggn" or "jvp_grad", '
+                f"got {self.fvp_mode!r}"
+            )
+        if self.fvp_dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f'fvp_dtype must be "f32" or "bf16", got {self.fvp_dtype!r}'
+            )
+        if self.fvp_subsample is not None and not (
+            0.0 < self.fvp_subsample <= 1.0
+        ):
+            raise ValueError(
+                f"fvp_subsample must be in (0, 1], got {self.fvp_subsample}"
+            )
+        if self.solve_audit_every < 0:
+            raise ValueError(
+                "solve_audit_every must be >= 0 (0 = no auditing), got "
+                f"{self.solve_audit_every}"
+            )
+        if self.fvp_dtype == "bf16" and self.solve_audit_every < 1:
+            raise ValueError(
+                'fvp_dtype="bf16" requires solve_audit_every >= 1 — the '
+                "precision ladder is only safe under the solution-cosine "
+                'audit (set solve_audit_every, or keep fvp_dtype="f32")'
+            )
+        if self.cg_precondition not in (
+            False, True, "jacobi", "head_block"
+        ):
+            raise ValueError(
+                'cg_precondition must be False, "jacobi" (True), or '
+                f'"head_block", got {self.cg_precondition!r}'
+            )
+        if self.precond_refresh_every < 1:
+            raise ValueError(
+                "precond_refresh_every must be >= 1, got "
+                f"{self.precond_refresh_every}"
+            )
+
+    def resolved_n_envs(self) -> int:
+        """``fleet_n_envs`` when set, else ``n_envs``."""
+        return self.n_envs if self.fleet_n_envs is None else self.fleet_n_envs
+
+    def replace(self, **kw) -> "TRPOConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported to trpo_torch yet (ROADMAP.md Queue 1 "
+        f"{item}); use trpo_tpu for it, or turn it off"
+    )
+
+
+def check_ported(cfg: TRPOConfig) -> None:
+    """Raise ``NotImplementedError`` for every configured path the port
+    does not run yet, naming the ROADMAP item that ports it."""
+    cheap_rung = cfg.fvp_dtype == "bf16" or (
+        cfg.fvp_subsample is not None and cfg.fvp_subsample < 1.0
+    )
+    if cfg.solve_audit_every > 0 and cheap_rung:
+        _not_ported(
+            f"the solve audit (solve_audit_every={cfg.solve_audit_every} "
+            "with a cheap rung; pass solve_audit_every=0 / "
+            "--solve-audit-every 0)",
+            "item 12",
+        )
+    if cfg.fvp_dtype == "bf16":
+        _not_ported('fvp_dtype="bf16"', "item 12")
+    if cfg.cg_budget_adaptive:
+        _not_ported("cg_budget_adaptive", "item 12")
+    if cfg.adaptive_damping:
+        _not_ported("adaptive_damping", "item 12")
+    if cfg.rollout_chunk is not None:
+        _not_ported("rollout_chunk", "item 12")
+    if cfg.train_overlap:
+        _not_ported("train_overlap", "item 15")
+    if cfg.mesh_shape is not None:
+        _not_ported("mesh_shape", "item 16")
+    if cfg.normalize_obs:
+        _not_ported("normalize_obs", "item 2")
+    if cfg.policy_gru is not None or cfg.policy_experts is not None:
+        _not_ported("recurrent and mixture-of-experts policies", "item 14")
+    if cfg.cg_precondition in (True, "jacobi"):
+        _not_ported('cg_precondition="jacobi"', "item 3")
+    if cfg.fvp_mode == "jvp_grad":
+        _not_ported('fvp_mode="jvp_grad"', "item 3")
+
+
+# ---------------------------------------------------------------------------
+# Presets — copied from trpo_tpu/config.py for the training fields.
+# ---------------------------------------------------------------------------
+
+PRESETS = {
+    "cartpole": TRPOConfig(env="cartpole"),
+    "pendulum": TRPOConfig(
+        env="pendulum",
+        gamma=0.99,
+        lam=0.95,
+        batch_timesteps=4000,
+        max_pathlength=200,
+        n_envs=16,
+        policy_hidden=(64, 64),
+    ),
+    "halfcheetah": TRPOConfig(
+        env="gym:HalfCheetah-v4",
+        gamma=0.99,
+        lam=0.97,
+        batch_timesteps=5000,
+        max_pathlength=1000,
+        n_envs=8,
+        policy_hidden=(64, 64),
+        cg_damping=0.1,
+        cg_precondition="head_block",
+        precond_refresh_every=25,
+        fvp_subsample=0.75,
+        solve_audit_every=25,
+    ),
+    "humanoid": TRPOConfig(
+        env="gym:Humanoid-v4",
+        gamma=0.99,
+        lam=0.97,
+        batch_timesteps=50_000,
+        max_pathlength=1000,
+        n_envs=64,
+        policy_hidden=(256, 256),
+        cg_damping=0.1,
+        cg_precondition="head_block",
+        precond_refresh_every=25,
+        fvp_subsample=0.75,
+        solve_audit_every=25,
+    ),
+    "halfcheetah-sim": TRPOConfig(
+        env="halfcheetah-sim",
+        gamma=0.99,
+        lam=0.97,
+        batch_timesteps=5000,
+        max_pathlength=500,
+        n_envs=32,
+        policy_hidden=(64, 64),
+        cg_damping=0.1,
+        cg_precondition="head_block",
+        precond_refresh_every=25,
+        fvp_subsample=0.75,
+        solve_audit_every=25,
+    ),
+    "humanoid-sim": TRPOConfig(
+        env="humanoid-sim",
+        gamma=0.99,
+        lam=0.97,
+        batch_timesteps=50_000,
+        max_pathlength=500,
+        n_envs=128,
+        policy_hidden=(256, 256),
+        cg_damping=0.1,
+        cg_precondition="head_block",
+        precond_refresh_every=25,
+        fvp_subsample=0.75,
+        solve_audit_every=25,
+    ),
+    "cartpole-po": TRPOConfig(
+        env="cartpole-po",
+        policy_hidden=(64,),
+        policy_gru=64,
+        gamma=0.99,
+        lam=0.95,
+        batch_timesteps=2000,
+        n_envs=16,
+    ),
+    "catch": TRPOConfig(
+        env="catch",
+        gamma=0.99,
+        lam=0.95,
+        batch_timesteps=2048,
+        n_envs=8,
+        policy_hidden=(512,),
+    ),
+    "pong-sim": TRPOConfig(
+        env="pong-sim",
+        gamma=0.99,
+        lam=0.95,
+        batch_timesteps=2048,
+        n_envs=8,
+        policy_hidden=(512,),
+    ),
+    "pong": TRPOConfig(
+        env="gym:ALE/Pong-v5",
+        gamma=0.99,
+        lam=0.95,
+        batch_timesteps=8000,
+        max_pathlength=10_000,
+        n_envs=8,
+        policy_hidden=(512,),
+    ),
+}
+
+PRESETS.update({
+    "cartpole-fleet": PRESETS["cartpole"].replace(
+        batch_timesteps=8192,
+        fleet_n_envs=2048,
+        rollout_chunk=2,
+    ),
+    "halfcheetah-sim-fleet": PRESETS["halfcheetah-sim"].replace(
+        batch_timesteps=5120,
+        fleet_n_envs=1024,
+    ),
+    "humanoid-sim-fleet": PRESETS["humanoid-sim"].replace(
+        batch_timesteps=50_000,
+        fleet_n_envs=1024,
+        rollout_chunk=7,
+    ),
+})
+
+
+def get_preset(name: str) -> TRPOConfig:
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+    return dataclasses.replace(PRESETS[name])
