@@ -27,6 +27,7 @@ from trpo_torch.models.policy import BoxSpec, make_policy
 from trpo_torch.ops import _build
 from trpo_torch.ops.flat import flatten_params
 from trpo_torch.ops.fused_fvp import (
+    fused_fvp_net_plain,
     fused_fvp_supported,
     make_fused_gaussian_mlp_fvp,
 )
@@ -191,3 +192,69 @@ def test_auto_mode_routes_by_eligibility():
             params, _batch(policy, params))
         assert bool(torch.isfinite(stats.kl))
         assert (_build.LAUNCHES["fused_fvp_plain"] == 11) == fused
+
+
+# --- the kernel's precision plan, emulated on the CPU ----------------------
+# The CUDA kernel computes every product on TF32 tensor cores as 3xTF32:
+# hi = x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero,
+# as cvt.rna.tf32.f32), lo = x - hi read by the tensor cores as its top 19
+# bits (truncated), and a·b ≈ lo_a·hi_b + hi_a·lo_b + hi_a·hi_b.
+
+
+def _tf32_nearest(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    ah, bh = _tf32_nearest(a), _tf32_nearest(b)
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _matmul_1xtf32(a, b):
+    return _tf32_nearest(a) @ _tf32_nearest(b)
+
+
+def _plain_sweeps(matmul):
+    hidden, rows, obs_dim, act_dim = (64, 64), 256, 32, 6
+    _, params, obs, weight, v = _problem(hidden, batch=rows, obs_dim=obs_dim,
+                                         act_dim=act_dim, pad_tail=40)
+    p = policy_params_from_numpy(params)
+    op = make_fused_gaussian_mlp_fvp(p["net"], torch.from_numpy(obs),
+                                     torch.from_numpy(weight), p["log_std"],
+                                     DAMPING)
+    return fused_fvp_net_plain(op.obs, op.hs, op.ws, torch.from_numpy(v),
+                               op.wn, op.m, DAMPING, "tanh", matmul=matmul)
+
+
+def test_tf32_rounding_emulation():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    # ties go away from zero; below half an ulp (2^-10) rounds down
+    np.testing.assert_array_equal(
+        _tf32_nearest(x).numpy(),
+        np.array([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                  -(1.0 + 2.0 ** -10), 1.0], np.float32))
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=4096)
+                         .astype(np.float32))
+    # 3xTF32 splits carry x to ~2^-21 relative; one TF32 half to ~2^-11
+    hi = _tf32_nearest(r)
+    assert ((r - hi).abs() / r.abs()).max() <= 2.0 ** -11
+    two = hi + _tf32_truncated(r - hi)
+    assert ((r - two).abs() / r.abs()).max() <= 2.0 ** -21
+
+
+def test_3xtf32_products_hold_the_operator_tolerance():
+    want = _plain_sweeps(torch.matmul)
+    assert _rel(_plain_sweeps(_matmul_3xtf32), want) < RTOL
+
+
+def test_1xtf32_products_miss_the_operator_tolerance():
+    # why the kernel pays for three tensor-core passes per product
+    want = _plain_sweeps(torch.matmul)
+    assert _rel(_plain_sweeps(_matmul_1xtf32), want) > 10 * RTOL

@@ -36,7 +36,8 @@ def hopper():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape", [(391, 128), (1000, 300), (1, 1)])
+@pytest.mark.parametrize(
+    "shape", [(391, 128), (1000, 300), (1, 1), (17, 1), (392, 33)])
 def test_reverse_scan_kernel_matches_plain(hopper, shape):
     rng = np.random.default_rng(0)
     c = torch.as_tensor(rng.uniform(0, 1, shape), dtype=torch.float32,
@@ -51,28 +52,41 @@ def test_reverse_scan_kernel_matches_plain(hopper, shape):
                                rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize(
-    "rows, dims, activation",
-    [(300, (11, 96, 160, 5), "tanh"), (300, (11, 96, 160, 5), "relu"),
-     (257, (7, 33, 5), "elu"), (1000, (376, 256, 256, 17), "tanh")],
-)
-def test_fused_fvp_kernel_matches_plain_and_ggn(hopper, rows, dims,
-                                                activation):
+def _fvp_case(dev, rows, dims, activation):
     policy = make_policy((dims[0],), BoxSpec(dims[-1]), hidden=dims[1:-1],
                          activation=activation)
     params = policy.init(torch.Generator().manual_seed(0))
-    params = {"net": {"layers": [{k: t.to(hopper) for k, t in layer.items()}
+    params = {"net": {"layers": [{k: t.to(dev) for k, t in layer.items()}
                                  for layer in params["net"]["layers"]]},
-              "log_std": torch.linspace(-0.5, 0.2, dims[-1], device=hopper)}
-    g = torch.Generator(device=hopper).manual_seed(1)
-    obs = torch.randn(rows, dims[0], generator=g, device=hopper)
-    weight = torch.ones(rows, device=hopper)
-    weight[-rows // 6:] = 0.0
+              "log_std": torch.linspace(-0.5, 0.2, dims[-1], device=dev)}
+    g = torch.Generator(device=dev).manual_seed(1)
+    obs = torch.randn(rows, dims[0], generator=g, device=dev)
+    weight = torch.ones(rows, device=dev)
+    weight[rows - rows // 6:] = 0.0  # a zero-weight tail, as padding makes
     flat0, unravel = flatten_params(params)
-    v = torch.randn(flat0.shape, generator=g, device=hopper)
+    v = torch.randn(flat0.shape, generator=g, device=dev)
     op = make_fused_gaussian_mlp_fvp(params["net"], obs, weight,
                                      params["log_std"], 0.1,
                                      activation=activation)
+    return policy, obs, weight, flat0, unravel, v, op
+
+
+# tile edges of the kernel: rows around its 64- and 128-row tiles, hidden
+# widths around its 8-column fragments, 24-wide narrow and 128-wide tiles
+_EDGE_CASES = [(rows, (376, width, width, 17), "tanh")
+               for rows in (1, 127, 129, 1025) for width in (8, 17, 31, 33)]
+
+
+@pytest.mark.parametrize(
+    "rows, dims, activation",
+    [(300, (11, 96, 160, 5), "tanh"), (300, (11, 96, 160, 5), "relu"),
+     (257, (7, 33, 5), "elu"), (1000, (376, 256, 256, 17), "tanh")]
+    + _EDGE_CASES,
+)
+def test_fused_fvp_kernel_matches_plain_and_ggn(hopper, rows, dims,
+                                                activation):
+    policy, obs, weight, flat0, unravel, v, op = _fvp_case(
+        hopper, rows, dims, activation)
     _build.reset_launches()
     out = op.flat(v)
     assert _build.LAUNCHES["fused_fvp"] == 1
@@ -84,6 +98,14 @@ def test_fused_fvp_kernel_matches_plain_and_ggn(hopper, rows, dims,
     # 1e-5: the reference's operator tolerance (tests/test_fused_fvp.py:73)
     assert ((out - plain).norm() / plain.norm()).item() < 1e-5
     assert ((out - ggn).norm() / ggn.norm()).item() < 1e-5
+
+
+def test_fused_fvp_kernel_is_bitwise_deterministic(hopper):
+    # the weight gradients are summed in a fixed order, with no atomics
+    *_, v, op = _fvp_case(hopper, 1000, (376, 256, 256, 17), "tanh")
+    first = op.flat(v)
+    for _ in range(3):
+        assert torch.equal(op.flat(v), first)
 
 
 def test_small_iteration_on_the_card_goes_through_the_kernels(hopper):

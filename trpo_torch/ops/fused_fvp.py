@@ -9,33 +9,43 @@ Math (the same as ``ops/fvp.make_ggn_fvp``)::
 Per row the operator runs a tangent forward sweep through the torso, the
 Fisher weighting ``c = d_mean·(wₙ/Σw)·e^{-2 log σ}``, and a backward sweep
 that accumulates every layer's weight and bias cotangents. The ``log_std``
-block is the closed form ``(2Σwₙ + λ)v_σ``, outside the kernel.
+block is the closed form ``(2Σwₙ + λ)v_σ``, outside the products.
 Zero-weight rows contribute exactly nothing.
 
 Kernel: ``trpo_torch/csrc/fused_fvp.cu`` replaces
-``make_fused_gaussian_mlp_fvp`` (``trpo_tpu/ops/fused_fvp.py:298``). It is
-bound by f32 operations (472,064 multiply-adds per row against ~3.6 KB of
-compulsory reads per row — obs and the two stored activations — at the
-training shape). Its design — row-parallel sweeps writing the per-row
-cotangents to scratch, then parameter-parallel split-K weight gradients
-reduced in a fixed order — is in the source's header. :func:`fused_fvp_net` launches it for CUDA tensors and runs the
-plain version, :func:`fused_fvp_net_plain` (the same three sweeps as eager
-tensor ops), for CPU tensors. There is no other path: a CUDA tensor
-launches the kernel or raises. The activations ``h_k`` come from one
-``torch.matmul`` forward per operator build, outside the kernel, as the
-reference leaves that forward to XLA.
+``make_fused_gaussian_mlp_fvp`` (``trpo_tpu/ops/fused_fvp.py:298``). At the
+training shape (37,536 rows × 376→256→256→17) it does 35.44 GFLOP of
+products per call. It computes them on the tensor cores (``wgmma``) in
+3xTF32 (each f32 operand split into two TF32 halves, three products
+accumulated in f32; one TF32 pass misses the reference's 1e-5 tolerance),
+so its bound on an H100 SXM is 3 × 35.44 GFLOP at 495 TFLOP/s ≈ 0.215 ms,
+against ~135 MB of compulsory bytes (0.040 ms). Its design — row-parallel
+sweeps writing the per-row cotangents to scratch, then one launch of
+parameter-parallel split-K weight gradients reduced in a fixed order,
+bitwise reproducible — is in the source's header. Everything of a launch
+that does not depend on ``v`` (aligned copies of the fixed weights and
+their transposes, the buffers the tangent blocks of ``v`` are unpacked
+into, the scratch, the split-K partials) is prepared once per operator
+build (:class:`_CudaPlan`), so a matvec allocates only its result.
+
+:meth:`FusedGaussianMLPFVP.flat` launches the kernel for CUDA tensors and
+runs the plain version, :func:`fused_fvp_net_plain` (the same three sweeps
+as eager tensor ops), for CPU tensors. There is no other path: a CUDA
+tensor launches the kernel or raises. The activations ``h_k`` come from
+one ``torch.matmul`` forward per operator build, outside the kernel, as
+the reference leaves that forward to XLA.
 
 Flat layout: ``v`` and the result are the policy's flat vector in
 ``ravel_pytree`` order (``ops/flat.py``): ``log_std``, then per layer
-``b`` then ``w`` (row-major ``(in, out)``). The kernel reads the tangents
-straight out of that vector and writes the cotangents in the same
-layout.
+``b`` then ``w`` (row-major ``(in, out)``). The kernel reads the bias
+tangents straight out of that vector and unpacks the weight tangents into
+aligned buffers with one small kernel per call, so that every tile copy
+moves 16 bytes; it writes the cotangents in the same layout.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
@@ -45,7 +55,6 @@ from trpo_torch.ops.flat import flatten_params
 
 __all__ = [
     "FusedGaussianMLPFVP",
-    "fused_fvp_net",
     "fused_fvp_net_plain",
     "fused_fvp_supported",
     "make_fused_gaussian_mlp_fvp",
@@ -64,22 +73,24 @@ _ACT_FN = {
     "elu": torch.nn.functional.elu,
 }
 _EPI_DERIV, _EPI_FISHER = 0, 1
-# rows summed by one block of the weight-gradient phase (split-K)
-_ROWS_PER_SPLIT = 1024
+_BK = 32           # rows per k-step of the weight-gradient tiles
+_MAX_LAYERS = 8    # layers one weight-gradient launch takes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_ARGTYPES = (
-    [_I, _I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
+    [_I, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
      _P, _P, _P, _I, _P]
 )
-_WGRAD_ARGTYPES = [_I, _I, _I, _I, _I, _P, _I, _P, _I, _P, ctypes.c_longlong,
-                   _P]
-_REDUCE_ARGTYPES = [_I, _I, _P, _P, ctypes.c_float, _P, _P]
+_WGRAD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+                   ctypes.c_longlong, _P]
+_REDUCE_ARGTYPES = [_I, _I, _I, _P, _P, _P, ctypes.c_float, _P, _P]
+_TILES_ARGTYPES = [_I, _P, _P, _P]
+_UNPACK_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P]
 
 
 def fused_fvp_supported(activation: str, net_params: Any) -> bool:
     """Whether the fused operator covers this (activation, torso) pair:
-    tanh/relu/elu, at least one hidden layer, 2-D weights. Any widths: the
+    tanh/relu/elu, 1 to 7 hidden layers, 2-D weights. Any widths: the
     kernel masks its own edges."""
     if activation not in _ACT_DERIV:
         return False
@@ -87,7 +98,8 @@ def fused_fvp_supported(activation: str, net_params: Any) -> bool:
         layers = net_params["layers"]
     except (TypeError, KeyError):
         return False
-    if not isinstance(layers, (list, tuple)) or len(layers) < 2:
+    if not isinstance(layers, (list, tuple)) \
+            or not 2 <= len(layers) <= _MAX_LAYERS:
         return False
     for layer in layers:
         try:
@@ -111,9 +123,11 @@ def _layout(dims: Sequence[int]) -> Tuple[List[Tuple[int, int]], int]:
 
 
 def fused_fvp_net_plain(obs, hs, ws, v, wn, m, damping: float,
-                        activation: str) -> torch.Tensor:
+                        activation: str, matmul=torch.matmul) -> torch.Tensor:
     """The plain version: the three sweeps as eager tensor ops. Returns the
-    net part of ``(F + λI)v`` (everything after the ``log_std`` block)."""
+    net part of ``(F + λI)v`` (everything after the ``log_std`` block).
+    ``matmul`` computes every product (a test emulates the kernel's
+    arithmetic through it)."""
     _build.LAUNCHES["fused_fvp_plain"] += 1
     L = len(hs)
     dims = [obs.shape[1]] + [w.shape[1] for w in ws]
@@ -128,23 +142,23 @@ def fused_fvp_net_plain(obs, hs, ws, v, wn, m, damping: float,
                 v[b_off:b_off + d_out])
 
     V0, vb0 = tangent(0)
-    dh = ds[0] * (obs @ V0 + vb0)
+    dh = ds[0] * (matmul(obs, V0) + vb0)
     for k in range(1, L):
         Vk, vbk = tangent(k)
-        dh = ds[k] * (hs[k - 1] @ Vk + dh @ ws[k] + vbk)
+        dh = ds[k] * (matmul(hs[k - 1], Vk) + matmul(dh, ws[k]) + vbk)
     VL, vbL = tangent(L)
-    d_mean = dh @ ws[L] + hs[L - 1] @ VL + vbL
+    d_mean = matmul(dh, ws[L]) + matmul(hs[L - 1], VL) + vbL
     c = d_mean * wn[:, None] * m[None, :]
 
     cots = [None] * (L + 1)
-    cots[L] = (c.sum(0), hs[L - 1].T @ c)
-    ch = c @ ws[L].T
+    cots[L] = (c.sum(0), matmul(hs[L - 1].T, c))
+    ch = matmul(c, ws[L].T)
     for k in range(L - 1, 0, -1):
         g = ds[k] * ch
-        cots[k] = (g.sum(0), hs[k - 1].T @ g)
-        ch = g @ ws[k].T
+        cots[k] = (g.sum(0), matmul(hs[k - 1].T, g))
+        ch = matmul(g, ws[k].T)
     g = ds[0] * ch
-    cots[0] = (g.sum(0), obs.T @ g)
+    cots[0] = (g.sum(0), matmul(obs.T, g))
     net = torch.cat([t for cb, cw in cots for t in (cb, cw.reshape(-1))])
     return net + damping * v[dims[-1]:]
 
@@ -162,106 +176,184 @@ def _check_cuda(name: str, t: torch.Tensor, shape) -> None:
         )
 
 
-def _fused_fvp_net_cuda(obs, hs, ws, v, wn, m, damping: float,
-                        activation: str) -> torch.Tensor:
-    L = len(hs)
-    B = obs.shape[0]
-    dims = [obs.shape[1]] + [w.shape[1] for w in ws]
-    offs, total = _layout(dims)
-    A = dims[-1]
-    _check_cuda("obs", obs, (B, dims[0]))
-    for k in range(L):
-        _check_cuda(f"h[{k}]", hs[k], (B, dims[k + 1]))
-    for k in range(L + 1):
-        _check_cuda(f"w[{k}]", ws[k], (dims[k], dims[k + 1]))
-    _check_cuda("v", v, (total,))
-    _check_cuda("wn", wn, (B,))
-    _check_cuda("m", m, (A,))
-    if B < 1:
-        raise ValueError("fused FVP needs at least one row")
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
-    sweep = _build.kernel("trpo_fvp_sweep_gemm", _SWEEP_ARGTYPES)
-    wgrad = _build.kernel("trpo_fvp_wgrad", _WGRAD_ARGTYPES)
-    reduce = _build.kernel("trpo_fvp_reduce", _REDUCE_ARGTYPES)
-    stream = _build.stream_of(obs)
-    act = _ACT_CODE[activation]
-    vp = v.data_ptr()
-    f32 = 4  # bytes
 
-    def run_sweep(trans, N, a1, K1, b1, ldb1, a2, K2, b2, ldb2, bias, epi,
-                  H, out):
-        err = sweep(
-            trans, B, N, a1.data_ptr(), K1, K1, b1, ldb1,
-            a2.data_ptr() if a2 is not None else None, K2, K2, b2, ldb2,
-            bias, epi, act,
-            H.data_ptr() if H is not None else None, N,
-            wn.data_ptr(), m.data_ptr(), out.data_ptr(), N, stream,
-        )
-        _build.check("trpo_fvp_sweep_gemm", err)
-
-    def tangent_ptrs(k):
-        b_off, w_off = offs[k]
-        return vp + f32 * w_off, vp + f32 * b_off
-
-    # ---- phase A: row-parallel sweeps ----------------------------------
-    bufs = [torch.empty(B, dims[k + 1], device=obs.device) for k in range(L)]
-    c = torch.empty(B, A, device=obs.device)
-    V0, vb0 = tangent_ptrs(0)
-    run_sweep(0, dims[1], obs, dims[0], V0, dims[1], None, 0, None, 0,
-              vb0, _EPI_DERIV, hs[0], bufs[0])
-    for k in range(1, L):
-        Vk, vbk = tangent_ptrs(k)
-        run_sweep(0, dims[k + 1], hs[k - 1], dims[k], Vk, dims[k + 1],
-                  bufs[k - 1], dims[k], ws[k].data_ptr(), dims[k + 1],
-                  vbk, _EPI_DERIV, hs[k], bufs[k])
-    VL, vbL = tangent_ptrs(L)
-    run_sweep(0, A, bufs[L - 1], dims[L], ws[L].data_ptr(), A,
-              hs[L - 1], dims[L], VL, A, vbL, _EPI_FISHER, None, c)
-    # backward dgrad chain; g_k overwrites the spent tangent buffer k
-    run_sweep(1, dims[L], c, A, ws[L].data_ptr(), A, None, 0, None, 0,
-              None, _EPI_DERIV, hs[L - 1], bufs[L - 1])
-    for k in range(L - 1, 0, -1):
-        run_sweep(1, dims[k], bufs[k], dims[k + 1], ws[k].data_ptr(),
-                  dims[k + 1], None, 0, None, 0, None, _EPI_DERIV,
-                  hs[k - 1], bufs[k - 1])
-
-    # ---- phase B: parameter-parallel split-K weight gradients ---------
-    P = total - A
-    splits = math.ceil(B / _ROWS_PER_SPLIT)
-    partial = torch.empty(splits, P, device=obs.device)
-    for k in range(L + 1):
-        a = obs if k == 0 else hs[k - 1]
-        g = c if k == L else bufs[k]
-        err = wgrad(
-            B, _ROWS_PER_SPLIT, splits, dims[k], dims[k + 1],
-            a.data_ptr(), dims[k], g.data_ptr(), dims[k + 1],
-            partial.data_ptr() + f32 * (offs[k][0] - A), P, stream,
-        )
-        _build.check("trpo_fvp_wgrad", err)
-    out = torch.empty(P, device=obs.device)
-    err = reduce(P, splits, partial.data_ptr(), vp + f32 * A,
-                 float(damping), out.data_ptr(), stream)
-    _build.check("trpo_fvp_reduce", err)
-    _build.LAUNCHES["fused_fvp"] += 1
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A copy of the 2-D ``t`` whose row stride is a multiple of 4 floats
+    (16 bytes), so the kernel's tile copies can move 16 bytes at a time;
+    the extra columns are zeros the kernel never reads."""
+    rows, cols = t.shape
+    out = torch.zeros(rows, _cdiv(cols, 4) * 4, device=t.device,
+                      dtype=t.dtype)
+    out[:, :cols] = t
     return out
 
 
-def fused_fvp_net(obs, hs, ws, v, wn, m, damping: float,
-                  activation: str) -> torch.Tensor:
-    """The net part of ``(F + λI)v``: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it already starts on a 16-byte boundary with a row
+    stride of a multiple of 4 floats, else :func:`_padded`."""
+    if t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return _padded(t)
 
-    ``obs`` (B, D₀); ``hs`` the L stored activations (B, H_k); ``ws`` the
-    L+1 weights (in, out) (``ws[0]`` is not read); ``v`` the full flat
-    tangent; ``wn`` (B,) the normalized row weights; ``m`` (A,)
-    ``e^{-2 log σ}``; ``damping`` λ as a Python float."""
-    if obs.device.type == "cuda":
-        return _fused_fvp_net_cuda(obs, hs, ws, v, wn, m, damping,
-                                   activation)
-    if obs.device.type == "cpu":
-        return fused_fvp_net_plain(obs, hs, ws, v, wn, m, damping,
-                                   activation)
-    raise ValueError(f"no fused FVP for device {obs.device}")
+
+def _scratch(rows: int, cols: int, device) -> torch.Tensor:
+    return torch.empty(rows, _cdiv(cols, 4) * 4, device=device)
+
+
+class _CudaPlan:
+    """Everything of the kernel launch that does not depend on ``v``,
+    prepared once per operator build: checked inputs, 16-byte-aligned
+    copies of the fixed weights and of their transposes (and of ``obs`` and
+    ``h_k`` where their widths are not multiples of 4), the aligned buffers
+    the tangent blocks of ``v`` are unpacked into, the per-row scratch, the
+    split-K partials and the launch arguments."""
+
+    def __init__(self, obs, hs, ws, wn, m, coef, damping: float,
+                 activation: str):
+        L = len(hs)
+        B = obs.shape[0]
+        dims = [obs.shape[1]] + [w.shape[1] for w in ws]
+        offs, total = _layout(dims)
+        A = dims[-1]
+        _check_cuda("obs", obs, (B, dims[0]))
+        for k in range(L):
+            _check_cuda(f"h[{k}]", hs[k], (B, dims[k + 1]))
+        for k in range(L + 1):
+            _check_cuda(f"w[{k}]", ws[k], (dims[k], dims[k + 1]))
+        _check_cuda("wn", wn, (B,))
+        _check_cuda("m", m, (A,))
+        if B < 1:
+            raise ValueError("fused FVP needs at least one row")
+        if L + 1 > _MAX_LAYERS:
+            raise ValueError(
+                f"fused FVP covers at most {_MAX_LAYERS} layers, got {L + 1}"
+            )
+        dev = obs.device
+        self.B, self.L, self.dims, self.offs = B, L, dims, offs
+        self.total, self.A = total, A
+        obs, hs = _aligned(obs), [_aligned(h) for h in hs]
+        self.obs, self.hs, self.wn, self.m, self.coef = obs, hs, wn, m, coef
+        self.damping, self.act = float(damping), _ACT_CODE[activation]
+        # fixed weights: (in, out) for the tangent sweep, (out, in) for the
+        # backward sweep, both with 16-byte rows (k >= 1; W_0 is not read)
+        self.wf = [None] + [_padded(ws[k]) for k in range(1, L + 1)]
+        self.wt = [None] + [_padded(ws[k].t()) for k in range(1, L + 1)]
+        # the tangent blocks V_k of v, unpacked per matvec into aligned
+        # (in, out) buffers whose padding stays zero
+        n_l = L + 1
+        self.vpad = [torch.zeros(dims[k], _cdiv(dims[k + 1], 4) * 4,
+                                 device=dev) for k in range(n_l)]
+        self._unpack_arrays = (
+            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in self.vpad]),
+            (ctypes.c_longlong * n_l)(*[offs[k][1] for k in range(n_l)]),
+            (ctypes.c_int * n_l)(*dims[:-1]),
+            (ctypes.c_int * n_l)(*dims[1:]),
+            (ctypes.c_int * n_l)(*[t.stride(0) for t in self.vpad]),
+        )
+        self._unpack_ptrs = [ctypes.addressof(a) for a in self._unpack_arrays]
+        # per-row scratch: tangents, then (in place) the cotangents g_k; c
+        self.bufs = [_scratch(B, dims[k + 1], dev) for k in range(L)]
+        self.c = _scratch(B, A, dev)
+        # phase B: one launch over every layer's tiles, split-K sized to
+        # fill the card once
+        self.P = total - A
+        kins = (ctypes.c_int * n_l)(*dims[:-1])
+        outs = (ctypes.c_int * n_l)(*dims[1:])
+        per_sm = ctypes.c_int(0)
+        n_tiles = _build.kernel("trpo_fvp_wgrad_tiles", _TILES_ARGTYPES)(
+            n_l, ctypes.addressof(kins), ctypes.addressof(outs),
+            ctypes.addressof(per_sm))
+        if n_tiles < 1:
+            raise RuntimeError("fused FVP: no occupancy for the weight-"
+                               "gradient kernel")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        slots = per_sm.value * sms
+        splits = max(1, min(round(slots / n_tiles), _cdiv(B, _BK)))
+        self.rows_per_split = _cdiv(_cdiv(B, splits), _BK) * _BK
+        self.splits = _cdiv(B, self.rows_per_split)
+        self.partial = torch.empty(self.splits, self.P, device=dev)
+        a_ops = [obs] + list(hs)
+        g_ops = list(self.bufs) + [self.c]
+        self._wgrad_arrays = (
+            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in a_ops]),
+            (ctypes.c_int * n_l)(*[t.stride(0) for t in a_ops]),
+            kins,
+            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in g_ops]),
+            (ctypes.c_int * n_l)(*[t.stride(0) for t in g_ops]),
+            outs,
+            (ctypes.c_int * n_l)(*[offs[k][0] - A for k in range(n_l)]),
+        )
+        self._wgrad_ptrs = [ctypes.addressof(a) for a in self._wgrad_arrays]
+
+    def run(self, v: torch.Tensor) -> torch.Tensor:
+        """The full flat ``(F + λI)v`` on the current stream: the tangent
+        unpack, ``2L + 1`` sweeps, the weight gradients and the reduce; one
+        output allocation."""
+        _check_cuda("v", v, (self.total,))
+        sweep = _build.kernel("trpo_fvp_sweep", _SWEEP_ARGTYPES)
+        wgrad = _build.kernel("trpo_fvp_wgrad", _WGRAD_ARGTYPES)
+        reduce = _build.kernel("trpo_fvp_reduce", _REDUCE_ARGTYPES)
+        unpack = _build.kernel("trpo_fvp_unpack", _UNPACK_ARGTYPES)
+        stream = _build.stream_of(v)
+        B, L, dims, offs = self.B, self.L, self.dims, self.offs
+        hs, bufs, c = self.hs, self.bufs, self.c
+        vp = v.data_ptr()
+        f32 = 4  # bytes
+
+        def run_sweep(N, a1, K1, b1, ldb1, a2, K2, b2, bias, epi, H, out):
+            err = sweep(
+                B, N, a1.data_ptr(), a1.stride(0), K1, b1,
+                ldb1, a2.data_ptr() if a2 is not None else None,
+                a2.stride(0) if a2 is not None else 0, K2,
+                b2.data_ptr() if b2 is not None else None,
+                b2.stride(0) if b2 is not None else 0, bias, epi, self.act,
+                H.data_ptr() if H is not None else None,
+                H.stride(0) if H is not None else 0,
+                self.wn.data_ptr(), self.m.data_ptr(), out.data_ptr(),
+                out.stride(0), stream,
+            )
+            _build.check("trpo_fvp_sweep", err)
+
+        def tangent(k):  # (V_k pointer, its row stride, b_k pointer)
+            return (self.vpad[k].data_ptr(), self.vpad[k].stride(0),
+                    vp + f32 * offs[k][0])
+
+        err = unpack(L + 1, vp, *self._unpack_ptrs, stream)
+        _build.check("trpo_fvp_unpack", err)
+        # ---- phase A: row-parallel sweeps ------------------------------
+        V0, ld0, vb0 = tangent(0)
+        run_sweep(dims[1], self.obs, dims[0], V0, ld0, None, 0, None, vb0,
+                  _EPI_DERIV, hs[0], bufs[0])
+        for k in range(1, L):
+            Vk, ldk, vbk = tangent(k)
+            run_sweep(dims[k + 1], hs[k - 1], dims[k], Vk, ldk, bufs[k - 1],
+                      dims[k], self.wf[k], vbk, _EPI_DERIV, hs[k], bufs[k])
+        VL, ldL, vbL = tangent(L)
+        run_sweep(self.A, hs[L - 1], dims[L], VL, ldL, bufs[L - 1], dims[L],
+                  self.wf[L], vbL, _EPI_FISHER, None, c)
+        # backward dgrad chain; g_k overwrites the spent tangent buffer k
+        run_sweep(dims[L], c, self.A, self.wt[L].data_ptr(),
+                  self.wt[L].stride(0), None, 0, None, None, _EPI_DERIV,
+                  hs[L - 1], bufs[L - 1])
+        for k in range(L - 1, 0, -1):
+            run_sweep(dims[k], bufs[k], dims[k + 1], self.wt[k].data_ptr(),
+                      self.wt[k].stride(0), None, 0, None, None, _EPI_DERIV,
+                      hs[k - 1], bufs[k - 1])
+
+        # ---- phase B: every layer's weight gradients, then the reduce --
+        err = wgrad(L + 1, *self._wgrad_ptrs, B, self.rows_per_split,
+                    self.splits, self.partial.data_ptr(), self.P, stream)
+        _build.check("trpo_fvp_wgrad", err)
+        out = torch.empty(self.total, device=v.device)
+        err = reduce(self.A, self.P, self.splits, self.partial.data_ptr(), vp,
+                     self.coef.data_ptr(), self.damping, out.data_ptr(),
+                     stream)
+        _build.check("trpo_fvp_reduce", err)
+        _build.LAUNCHES["fused_fvp"] += 1
+        return out
 
 
 class FusedGaussianMLPFVP:
@@ -298,17 +390,29 @@ class FusedGaussianMLPFVP:
             self.wn = (weight / norm).contiguous()
             self.sum_wn = sum_w / norm
             self.m = torch.exp(-2.0 * log_std.detach().float()).contiguous()
+            self.sigma_coef = 2.0 * self.sum_wn + float(damping)
         self.obs, self.hs = obs, hs
         self.damping = float(damping)
         self.activation = activation
         self.act_dim = self.ws[-1].shape[1]
+        self._plan = None
+        if obs.device.type == "cuda":
+            with torch.no_grad():
+                self._plan = _CudaPlan(obs, hs, self.ws, self.wn, self.m,
+                                       self.sigma_coef.reshape(1),
+                                       self.damping, activation)
+        elif obs.device.type != "cpu":
+            raise ValueError(f"no fused FVP for device {obs.device}")
 
     def flat(self, v: torch.Tensor) -> torch.Tensor:
+        """``(F + λI)v`` on the flat vector: the CUDA kernel when the
+        operator was built on CUDA tensors, the plain version on CPU."""
         v = v.float().contiguous()
-        net = fused_fvp_net(self.obs, self.hs, self.ws, v, self.wn, self.m,
-                            self.damping, self.activation)
-        sigma = (2.0 * self.sum_wn + self.damping) * v[:self.act_dim]
-        return torch.cat([sigma, net])
+        if self._plan is not None:
+            return self._plan.run(v)
+        net = fused_fvp_net_plain(self.obs, self.hs, self.ws, v, self.wn,
+                                  self.m, self.damping, self.activation)
+        return torch.cat([self.sigma_coef * v[:self.act_dim], net])
 
     def __call__(self, v: Any) -> Any:
         flat, unravel = flatten_params(v)

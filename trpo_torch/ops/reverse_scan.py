@@ -6,9 +6,14 @@ time-major ``(T, N)`` f32 tensors (``ops/returns.py``).
 
 Kernel: ``trpo_torch/csrc/reverse_scan.cu`` replaces
 ``reverse_affine_scan_pallas`` (``trpo_tpu/ops/pallas_scan.py:75``). It is
-memory-bound — 12 bytes and two flops per element — and at the training
-shape launch-bound; one thread per env column walks time in reverse with
-the carry in a register, loads coalesced along N, the ragged edge masked.
+memory-bound in bytes (12 bytes and two flops per element: 0.18 µs for the
+0.6 MB of the training shape on an H100), so what a call costs is latency:
+the launch and its chain of dependent steps. It is a chunked parallel scan
+over the affine maps ``(c, x)``: a block owns 32 columns and splits time
+into 16 chunks, each thread composes its chunk's map from registers, the
+chunk maps are folded through shared memory, and each thread re-walks its
+chunk with its incoming carry. Loads and stores coalesce along N; ragged T
+and N are masked.
 
 :func:`reverse_affine_scan` launches the kernel for a CUDA tensor and runs
 the plain version, :func:`reverse_affine_scan_plain`, for a CPU tensor. There
@@ -58,7 +63,10 @@ def reverse_affine_scan_plain(coeffs: torch.Tensor,
 def _reverse_affine_scan_cuda(coeffs: torch.Tensor,
                               x: torch.Tensor) -> torch.Tensor:
     _check_inputs(coeffs, x)
-    coeffs, x = coeffs.contiguous(), x.contiguous()
+    if not coeffs.is_contiguous():
+        coeffs = coeffs.contiguous()
+    if not x.is_contiguous():
+        x = x.contiguous()
     T, N = x.shape
     y = torch.empty_like(x)
     if x.numel() == 0:
