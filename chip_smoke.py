@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
 """Chip smoke for trpo_torch: build the hand-written Hopper kernels, hold
-each against its plain PyTorch version on the card, drive full-width
-``humanoid-sim`` training iterations through them, and check the result.
+each against its plain PyTorch version on the card, drive the flagship and
+the other device-env presets through them as published, and check the
+result.
 
     python3 chip_smoke.py                 # needs one CUDA card
-    python3 chip_smoke.py --kernels-only  # phases 1-3 only
+    python3 chip_smoke.py --kernels-only  # phases 1-4 only
 
 Phases:
   1. build ``trpo_torch/csrc`` (nvcc, sm_90a) and name the card;
-  2. the reverse affine scan kernel against its plain version;
-  3. the fused Gauss-Newton FVP kernel against its plain version and the
-     ``torch.func`` GGN operator, at the training shape and small ragged
-     ones, with the device time of each of its sub-kernels (profiler);
-  4. the main path: 3 ``TRPOAgent.run_iteration`` calls on ``humanoid-sim``
-     at full width, with every kernel's launch count read around them;
-  5. one update on a small input, on the card against the CPU.
+  2. ``[scan]`` the reverse affine scan kernel (K2) against its plain
+     version;
+  3. ``[fvp]`` the fused Gauss-Newton FVP kernel (K1, f32) against its
+     plain version and the ``torch.func`` GGN operator, at the training
+     shape and small ragged ones, with the device time of each of its
+     sub-kernels (profiler);
+  4. ``[fvp-bf16]`` K1-bf16 against its plain bf16 version and against
+     K1, at the same shapes, beside the ``torch.func`` GGN at bf16;
+  5. ``[main]`` the main path: 3 ``TRPOAgent.run_iteration`` calls on the
+     ``humanoid-sim`` preset unchanged (its ¾ curvature subsample audited
+     every 25 updates), with every kernel's launch count read around them,
+     and the stage times of an audited and of an unaudited update;
+  6. ``[bf16]`` the same preset on the ladder's bf16 rung, 3 iterations;
+  7. ``[fleet]`` ``humanoid-sim-fleet`` unchanged (1,024 envs, 49-step
+     windows in 7-step chunks), 2 iterations;
+  8. ``[cartpole]`` ``cartpole`` and ``cartpole-fleet``, 2 iterations each;
+  9. ``[small]`` one audited update on a small input, on the card against
+     the CPU.
+Each path (5-8) is driven with the launch counts set to 0 just before it
+and read just after.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times by
 CUDA-graph replay: ``iters`` calls captured in one graph and replayed
@@ -38,12 +52,17 @@ import time
 # Peak rates of one H100 (NVIDIA data sheets, dense): f32 outside the
 # tensor cores, TF32 on the tensor cores, and device-memory bandwidth.
 _PEAKS = {
-    "sxm": {"f32_flops": 67e12, "tf32_flops": 495e12, "bytes": 3.35e12},
-    "pcie": {"f32_flops": 51e12, "tf32_flops": 378e12, "bytes": 2.0e12},
+    "sxm": {"f32_flops": 67e12, "tf32_flops": 495e12, "bf16_flops": 989e12,
+            "bytes": 3.35e12},
+    "pcie": {"f32_flops": 51e12, "tf32_flops": 378e12, "bf16_flops": 756e12,
+             "bytes": 2.0e12},
 }
 K1_PASSES = 3   # 3xTF32: hi·lo + lo·hi + hi·hi tensor-core products
 K2_TOL = 2e-5   # the reference's scan tolerance (tests/test_pallas_scan.py:32)
 K1_RTOL = 1e-5  # the reference's FVP tolerance (tests/test_fused_fvp.py:73)
+# K1-bf16 against its plain bf16 version: the same rounding points, sums in
+# another order, so a value may land one bf16 ulp away
+K1_BF16_RTOL = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -176,6 +195,27 @@ def _k1_design_bytes(rows: int, dims, splits: int) -> tuple:
     return 4.0 * a, 4.0 * b
 
 
+def _k1_bf16_design_bytes(rows: int, dims, splits: int) -> tuple:
+    """The same model for K1-bf16: ``obs`` and the ``h_k`` are bf16 (2 B);
+    the per-row scratch (``dh``, ``c32``, ``g32``) is f32, read as f32 by
+    the next product (which rounds it on load) and, for ``c32``/``g32``,
+    by both the weight-gradient and the bias-sum kernels."""
+    L = len(dims) - 2
+    h = [rows * d for d in dims[1:-1]]
+    obs, c = rows * dims[0], rows * dims[-1]
+    a = 2 * obs + 2 * h[0] + 4 * h[0]                   # obs @ V0 -> dh0
+    for k in range(1, L):
+        a += 2 * h[k - 1] + 4 * h[k - 1] + 2 * h[k] + 4 * h[k]
+    a += 2 * h[L - 1] + 4 * h[L - 1] + 4 * c            # Fisher -> c32
+    a += 4 * c + 2 * h[L - 1] + 4 * h[L - 1]            # c W^T -> g32
+    for k in range(L - 1, 0, -1):
+        a += 4 * h[k] + 2 * h[k - 1] + 4 * h[k - 1]     # g W^T -> g32
+    params = sum(x * y + y for x, y in zip(dims[:-1], dims[1:]))
+    b = (2 * (obs + sum(h)) + 2 * 4 * (sum(h) + c)
+         + 4 * 2 * splits * params + 4 * 2 * params)
+    return float(a), float(b)
+
+
 def phase_build(torch):
     from trpo_torch.ops import _build
 
@@ -261,10 +301,7 @@ def _fvp_problem(torch, np, dev, rows, dims, activation, zero_tail, seed):
 
 def phase_fvp(torch, np, peaks, dev):
     from trpo_torch.ops import _build
-    from trpo_torch.ops.fused_fvp import (
-        fused_fvp_net_plain,
-        make_fused_gaussian_mlp_fvp,
-    )
+    from trpo_torch.ops.fused_fvp import make_fused_gaussian_mlp_fvp
     from trpo_torch.ops.fvp import make_ggn_fvp
     from trpo_torch.trpo import _fvp_keep_indices
 
@@ -287,14 +324,8 @@ def phase_fvp(torch, np, peaks, dev):
                            policy.dist.fisher_weight, flat0, weight,
                            damping=damping)
 
-        def plain():
-            net = fused_fvp_net_plain(op.obs, op.hs, op.ws, v, op.wn, op.m,
-                                      damping, activation)
-            sigma = (2.0 * op.sum_wn + damping) * v[:dims[-1]]
-            return torch.cat([sigma, net])
-
         out = op.flat(v)
-        ref = plain()
+        ref = op.plain(v)
         oracle = ggn(v)
         torch.cuda.synchronize()
         rel_plain = ((out - ref).norm() / ref.norm()).item()
@@ -313,11 +344,9 @@ def phase_fvp(torch, np, peaks, dev):
             _check(torch.equal(out, again),
                    "fused FVP: two calls on the same v differ")
             ms, host_ms = _times(torch, lambda: op.flat(v), 20)
-            plain_ms, plain_host_ms = _times(torch, plain, 20)
+            plain_ms, plain_host_ms = _times(torch, lambda: op.plain(v), 20)
             ggn_ms, ggn_host_ms = _times(torch, lambda: ggn(v), 20)
-            macs = rows * (2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
-                           + sum(a * b for a, b in zip(dims[1:-1], dims[2:]))
-                           + sum(a * b for a, b in zip(dims[1:-1], dims[2:])))
+            macs = _fvp_macs(rows, dims)
             nbytes = 4.0 * (rows * (dims[0] + sum(dims[1:-1]) + 1)
                             + 2 * flat0.numel() + dims[-1]
                             + sum(a * b for a, b in zip(dims[1:-1], dims[2:])))
@@ -371,21 +400,122 @@ def phase_fvp(torch, np, peaks, dev):
     return rec
 
 
+def _fvp_macs(rows, dims) -> int:
+    """Multiply-adds of one FVP call: the tangent sweep (2 products a
+    layer but the first), the backward dgrads and the weight gradients."""
+    pairs = list(zip(dims[:-1], dims[1:]))
+    inner = sum(a * b for a, b in zip(dims[1:-1], dims[2:]))
+    return rows * (2 * sum(a * b for a, b in pairs) + 2 * inner)
+
+
+def phase_fvp_bf16(torch, np, peaks, dev):
+    """K1-bf16 against its plain bf16 version (same inputs, the card), and
+    against f32 K1; timed beside the ``torch.func`` GGN over the bf16
+    ``apply_cast`` forward (the library yardstick)."""
+    from trpo_torch.ops import _build
+    from trpo_torch.ops.fused_fvp import make_fused_gaussian_mlp_fvp
+    from trpo_torch.ops.fvp import make_ggn_fvp
+    from trpo_torch.trpo import _fvp_keep_indices
+
+    damping = 0.1
+    flagship_rows = len(_fvp_keep_indices(50_048, 0.75))
+    cases = [
+        (flagship_rows, (376, 256, 256, 17), "tanh", 0),
+        (300, (11, 96, 160, 5), "tanh", 50),
+        (300, (11, 96, 160, 5), "relu", 50),
+        (257, (7, 33, 5), "elu", 17),
+        (129, (376, 33, 33, 17), "tanh", 20),
+    ]
+    rec = {}
+    for rows, dims, activation, zero_tail in cases:
+        policy, params, obs, weight, flat0, unravel, v = _fvp_problem(
+            torch, np, dev, rows, dims, activation, zero_tail, seed=rows)
+        op = make_fused_gaussian_mlp_fvp(
+            params["net"], obs, weight, params["log_std"], damping,
+            activation=activation, compute_dtype=torch.bfloat16)
+        op32 = make_fused_gaussian_mlp_fvp(
+            params["net"], obs, weight, params["log_std"], damping,
+            activation=activation)
+        out = op.flat(v)
+        ref = op.plain(v)
+        out32 = op32.flat(v)
+        torch.cuda.synchronize()
+        _check(torch.isfinite(out).all().item(),
+               f"K1-bf16 {dims}: nonfinite")
+        rel_plain = ((out - ref).norm() / ref.norm()).item()
+        rel_f32 = ((out - out32).norm() / out32.norm()).item()
+        err = (out - ref).abs().max().item()
+        again = op.flat(v)
+        bitwise = bool(torch.equal(out, again))
+        _check(rel_plain <= K1_BF16_RTOL,
+               f"K1-bf16 {dims} {activation}: rel err vs plain {rel_plain}")
+        _check(bitwise, f"K1-bf16 {dims}: two calls on the same v differ")
+        line = (f"[fvp-bf16] {rows}x{'->'.join(map(str, dims))} {activation}"
+                f" rel_err_plain={rel_plain:.3e} max_abs_err={err:.3e} "
+                f"rel_err_vs_f32_k1={rel_f32:.3e} bitwise_repeat={bitwise}")
+        if rows == flagship_rows:
+            ggn = make_ggn_fvp(
+                lambda x: policy.apply_cast(unravel(x), obs, torch.bfloat16),
+                policy.dist.fisher_weight, flat0, weight, damping=damping)
+            ggn(v)
+            ms, host_ms = _times(torch, lambda: op.flat(v), 20)
+            plain_ms, plain_host_ms = _times(torch, lambda: op.plain(v), 20)
+            ggn_ms, ggn_host_ms = _times(torch, lambda: ggn(v), 20)
+            macs = _fvp_macs(rows, dims)
+            nbytes = (2.0 * rows * (dims[0] + sum(dims[1:-1])) + 4.0 * rows
+                      + 4.0 * (2 * flat0.numel() + dims[-1])
+                      + 2.0 * sum(a * b for a, b in zip(dims[1:-1],
+                                                        dims[2:])))
+            bound, by = _bound_ms(2.0 * macs, nbytes, peaks, "bf16_flops")
+            design = _k1_bf16_design_bytes(rows, dims, op._plan.splits)
+            line += (f" kernel_ms={ms:.4f} host_issued_ms={host_ms:.4f} "
+                     f"plain_ms={plain_ms:.4f} "
+                     f"plain_host_issued_ms={plain_host_ms:.4f} "
+                     f"ggn_bf16_ms={ggn_ms:.4f} "
+                     f"ggn_bf16_host_issued_ms={ggn_host_ms:.4f} "
+                     f"bound_ms={bound:.4f} ({by}: {2.0 * macs / 1e9:.2f} "
+                     f"GFLOP at the bf16 tensor rate, {nbytes / 1e6:.1f} MB)"
+                     f" share_of_bound={bound / ms:.3f} | bytes per call by "
+                     f"design (model from the shapes): phase A "
+                     f"{design[0] / 1e6:.1f} MB, phase B "
+                     f"{design[1] / 1e6:.1f} MB, total "
+                     f"{sum(design) / 1e6:.1f} MB = "
+                     f"{sum(design) / peaks['bytes'] * 1e3:.4f} ms")
+            rec = {"max_abs_err": err, "rel_err_plain": rel_plain,
+                   "rel_err_vs_f32_k1": rel_f32, "ms": ms,
+                   "host_issued_ms": host_ms, "plain_ms": plain_ms,
+                   "plain_host_issued_ms": plain_host_ms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": ggn_ms,
+                   "library_host_issued_ms": ggn_host_ms}
+            phases, _ = _kernel_phases(torch, lambda: op.flat(v))
+            if phases:
+                print("[fvp-bf16] phases (torch.profiler, device µs per "
+                      "call): " + "; ".join(f"{n} x{c:g} = {us:.1f}"
+                                            for n, c, us in phases),
+                      flush=True)
+            del ggn
+        print(line, flush=True)
+        del op, op32
+    _build.reset_launches()
+    return rec
+
+
 def _finite(torch, value) -> bool:
     if isinstance(value, torch.Tensor):
         return bool(torch.isfinite(value.float()).all().item())
     return math.isfinite(float(value))
 
 
-def phase_main_path(torch, dev):
+def _drive(torch, dev, tag, cfg, n_iter):
+    """``n_iter`` ``run_iteration`` calls on a fresh agent (seed 0), every
+    launch count set to 0 just before and read just after; checks the
+    stats. Returns (agent, state, per-iteration stats, counts)."""
     from trpo_torch.agent import TRPOAgent
-    from trpo_torch.config import get_preset
     from trpo_torch.ops import _build
 
-    cfg = get_preset("humanoid-sim").replace(solve_audit_every=0)
     agent = TRPOAgent(cfg.env, cfg, device=dev)
     state = agent.init_state(seed=0)
-    n_iter = 3
+    rows = []
     torch.cuda.synchronize()
     _build.reset_launches()
     for _ in range(n_iter):
@@ -395,30 +525,100 @@ def phase_main_path(torch, dev):
         ms = (time.perf_counter() - t0) * 1e3
         vals = {k: (v.item() if isinstance(v, torch.Tensor) else v)
                 for k, v in stats.items()}
-        print(f"[main] iter {state.iteration} ms={ms:.1f} "
+        rows.append(vals)
+        print(f"[{tag}] iter {state.iteration} ms={ms:.1f} "
               + json.dumps(vals), flush=True)
         episodes = vals["episodes_in_batch"] > 0
         for k, v in vals.items():
             if k in ("mean_episode_reward", "mean_episode_length") \
                     and not episodes:
                 continue  # NaN by contract when no episode ended
-            _check(_finite(torch, v), f"stat {k} = {v} is not finite")
+            if k == "solve_cosine" and not vals["solve_audited"]:
+                continue  # NaN by contract on an unaudited update
+            _check(_finite(torch, v), f"[{tag}] stat {k} = {v} is not finite")
         _check(vals["kl_old_new"] <= 2 * cfg.max_kl,
-               f"kl_old_new {vals['kl_old_new']} > 2·max_kl")
+               f"[{tag}] kl_old_new {vals['kl_old_new']} > 2·max_kl")
     counts = dict(_build.LAUNCHES)
-    print(f"[main] launches over {n_iter} iterations: {counts}", flush=True)
-    _check(counts.get("fused_fvp", 0) >= 11 * n_iter,
-           f"fused FVP launched {counts.get('fused_fvp', 0)} times")
+    print(f"[{tag}] launches over {n_iter} iterations: {counts}", flush=True)
     _check(counts.get("reverse_scan", 0) >= n_iter,
-           f"reverse scan launched {counts.get('reverse_scan', 0)} times")
-    _check(counts.get("fused_fvp_plain", 0) == 0
-           and counts.get("reverse_scan_plain", 0) == 0,
-           f"a plain version ran on the main path: {counts}")
-    _stage_breakdown(torch, agent, state)
+           f"[{tag}] reverse scan launched {counts.get('reverse_scan', 0)} "
+           "times")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[{tag}] a plain version ran: {plain}")
+    return agent, state, rows, counts
+
+
+def phase_main_path(torch, dev):
+    """``humanoid-sim`` as published: the audit fires on update 1."""
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("humanoid-sim")
+    n_iter = 3
+    agent, state, rows, counts = _drive(torch, dev, "main", cfg, n_iter)
+    _check(bool(rows[0]["solve_audited"]), "[main] update 1 was not audited")
+    _check(math.isfinite(rows[0]["solve_cosine"]),
+           f"[main] solve_cosine {rows[0]['solve_cosine']} is not finite")
+    _check(counts.get("fused_fvp", 0) >= cfg.cg_iters + 1
+           and counts.get("fused_fvp", 0) >= 11 * n_iter,
+           f"[main] K1 launched {counts.get('fused_fvp', 0)} times")
+    print(f"[main] update 1 audit: solve_cosine={rows[0]['solve_cosine']:.6f}"
+          f" fallback={rows[0]['solve_fallback']}", flush=True)
+    # the next update is unaudited (step 3 of 25); the audited one runs on
+    # the ladder advanced to the next audit step
+    plain_ms = _stage_breakdown(torch, agent, state, "main", "unaudited")
+    lad = state.ladder
+    step = -(-lad.step_host // cfg.solve_audit_every) * cfg.solve_audit_every
+    audited = state._replace(ladder=lad._replace(
+        step=torch.full_like(lad.step, step), step_host=step))
+    audit_ms = _stage_breakdown(torch, agent, audited, "main", "audited")
+    return counts, {"unaudited": plain_ms, "audited": audit_ms}
+
+
+def phase_bf16(torch, dev):
+    """``humanoid-sim`` on the ladder's bf16 rung: the cheap solve runs on
+    K1-bf16, the audit on the f32 ``torch.func`` GGN."""
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("humanoid-sim").replace(fvp_dtype="bf16")
+    n_iter = 3
+    agent, state, rows, counts = _drive(torch, dev, "bf16", cfg, n_iter)
+    unpinned = sum(1 for r in rows if not r["solve_pinned"])
+    print(f"[bf16] update 1 audit: solve_cosine={rows[0]['solve_cosine']:.6f}"
+          f" fallback={rows[0]['solve_fallback']} (floor "
+          f"{cfg.solve_cosine_floor})", flush=True)
+    _check(counts.get("fused_fvp_bf16", 0) >= (cfg.cg_iters + 1) * unpinned,
+           f"[bf16] K1-bf16 launched {counts.get('fused_fvp_bf16', 0)} times"
+           f" over {unpinned} unpinned iterations")
+    _check(counts.get("fused_fvp", 0) == 0,
+           f"[bf16] f32 K1 ran in the cheap solve: {counts}")
+    _stage_breakdown(torch, agent, state, "bf16", "unaudited")
     return counts
 
 
-def _stage_breakdown(torch, agent, state):
+def phase_fleet(torch, dev, main_stages):
+    """``humanoid-sim-fleet`` as published: 1,024 envs, 49-step windows,
+    rollout in 7-step chunks."""
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("humanoid-sim-fleet")
+    agent, state, _, counts = _drive(torch, dev, "fleet", cfg, 2)
+    _check(agent.n_envs == 1024 and agent.n_steps == 49,
+           f"[fleet] window {agent.n_steps}x{agent.n_envs}")
+    stages = _stage_breakdown(torch, agent, state, "fleet", "")
+    print(f"[fleet] rollout {agent.n_steps}x{agent.n_envs} "
+          f"ms={stages['rollout']:.1f} against the 391x128 rollout "
+          f"ms={main_stages['unaudited']['rollout']:.1f}", flush=True)
+    return counts
+
+
+def phase_cartpole(torch, dev):
+    from trpo_torch.config import get_preset
+
+    for name in ("cartpole", "cartpole-fleet"):
+        _drive(torch, dev, "cartpole", get_preset(name), 2)
+
+
+def _stage_breakdown(torch, agent, state, tag, label):
     """One more iteration, stage by stage, each stage ended by a
     synchronize: where the iteration's wall time goes (host clock)."""
     from trpo_torch.rollout import device_rollout
@@ -432,28 +632,31 @@ def _stage_breakdown(torch, agent, state):
 
     (carry, traj), roll_ms = timed(lambda: device_rollout(
         agent.env, agent.policy, state.policy_params, state.env_carry,
-        state.rng, agent.n_steps))
+        state.rng, agent.n_steps, chunk=agent.cfg.rollout_chunk))
     state = state._replace(env_carry=carry)
     _, gae_ms = timed(lambda: agent._advantages(state.vf_state, traj))
     (state, pack), policy_ms = timed(lambda: agent._policy_phase(state, traj))
     _, vf_ms = timed(lambda: agent._vf_stats_phase(state.vf_state, pack))
-    print(f"[main] stage ms: rollout={roll_ms:.1f} gae={gae_ms:.2f} "
+    print(f"[{tag}] stage ms{' (' + label + ' update)' if label else ''}: "
+          f"rollout={roll_ms:.1f} gae={gae_ms:.2f} "
           f"policy_phase(gae+update)={policy_ms:.1f} "
           f"update≈{policy_ms - gae_ms:.1f} vf_fit+stats={vf_ms:.1f}",
           flush=True)
+    return {"rollout": roll_ms, "gae": gae_ms, "update": policy_ms - gae_ms,
+            "vf_fit": vf_ms}
 
 
 def phase_small_reference(torch, dev):
     """One update on the same small trajectory, on the card (kernels) and
-    on the CPU (plain versions): the new params must agree."""
+    on the CPU (plain versions), with the preset's audit armed (update 1
+    is audited): the new params must agree."""
     from trpo_torch.agent import TRPOAgent
     from trpo_torch.config import get_preset
     from trpo_torch.ops.flat import flatten_params, tree_map
     from trpo_torch.rollout import device_rollout
 
     cfg = get_preset("humanoid-sim").replace(
-        solve_audit_every=0, n_envs=8, batch_timesteps=512,
-        policy_hidden=(32, 48))
+        n_envs=8, batch_timesteps=512, policy_hidden=(32, 48))
     cpu = TRPOAgent(cfg.env, cfg, device="cpu")
     gpu = TRPOAgent(cfg.env, cfg, device=dev)
     s_cpu = cpu.init_state(seed=3)
@@ -471,7 +674,13 @@ def phase_small_reference(torch, dev):
     kl_gap = abs(st_cpu["kl_old_new"].item() - st_gpu["kl_old_new"].item())
     print(f"[small] card vs CPU update: params rel_err={rel:.3e} "
           f"kl cpu={st_cpu['kl_old_new'].item():.6g} "
-          f"gpu={st_gpu['kl_old_new'].item():.6g}", flush=True)
+          f"gpu={st_gpu['kl_old_new'].item():.6g} audit cosine cpu="
+          f"{st_cpu['solve_cosine'].item():.6f} gpu="
+          f"{st_gpu['solve_cosine'].item():.6f}", flush=True)
+    _check(bool(st_gpu["solve_audited"]) and bool(st_cpu["solve_audited"]),
+           "[small] the update was not audited")
+    _check(bool(st_gpu["solve_fallback"]) == bool(st_cpu["solve_fallback"]),
+           "[small] card and CPU audits disagree")
     # CG amplifies f32 roundoff between the two operators' sum orders
     _check(rel < 1e-4, f"card vs CPU params rel err {rel}")
     _check(kl_gap < 1e-4, f"card vs CPU kl gap {kl_gap}")
@@ -498,22 +707,29 @@ def main() -> int:
     with torch.cuda.stream(torch.cuda.Stream()):  # capturable for graphs
         scan = phase_scan(torch, np, peaks, dev)
         fvp = phase_fvp(torch, np, peaks, dev)
+        fvp16 = phase_fvp_bf16(torch, np, peaks, dev)
     torch.cuda.synchronize()
-    if kernels_only:
-        counts = {}
-    else:
-        counts = phase_main_path(torch, dev)
+    main_counts, bf16_counts = {}, {}
+    if not kernels_only:
+        main_counts, stages = phase_main_path(torch, dev)
+        bf16_counts = phase_bf16(torch, dev)
+        phase_fleet(torch, dev, stages)
+        phase_cartpole(torch, dev)
         phase_small_reference(torch, dev)
 
     kernels = [
         {"name": "fused_gauss_newton_fvp", "route": "cuda",
          "source": "trpo_torch/csrc/fused_fvp.cu",
          "replaces": "trpo_tpu/ops/fused_fvp.py:298",
-         "launches": counts.get("fused_fvp", 0), **fvp},
+         "launches": main_counts.get("fused_fvp", 0), **fvp},
+        {"name": "fused_gauss_newton_fvp_bf16", "route": "cuda",
+         "source": "trpo_torch/csrc/fused_fvp_bf16.cu",
+         "replaces": "trpo_tpu/ops/fused_fvp.py:298",
+         "launches": bf16_counts.get("fused_fvp_bf16", 0), **fvp16},
         {"name": "reverse_affine_scan", "route": "cuda",
          "source": "trpo_torch/csrc/reverse_scan.cu",
          "replaces": "trpo_tpu/ops/pallas_scan.py:75",
-         "launches": counts.get("reverse_scan", 0), **scan},
+         "launches": main_counts.get("reverse_scan", 0), **scan},
     ]
     print(json.dumps({"kernels": kernels}))
     print(_card_line(), flush=True)

@@ -192,6 +192,22 @@ def test_auto_mode_routes_by_eligibility():
             params, _batch(policy, params))
         assert bool(torch.isfinite(stats.kl))
         assert (_build.LAUNCHES["fused_fvp_plain"] == 11) == fused
+    # a bfloat16 policy, and the ladder's bf16 rung on an f32 one, take
+    # K1-bf16 — never silently the GGN, and never the f32 kernel
+    for compute_dtype, cfg in (
+            (torch.bfloat16, TRPOConfig()),
+            (torch.float32, TRPOConfig(fvp_dtype="bf16",
+                                       solve_audit_every=1)),
+            (torch.bfloat16, TRPOConfig(fvp_mode="fused"))):
+        policy = make_policy((11,), BoxSpec(5), hidden=(16,),
+                             compute_dtype=compute_dtype)
+        params = policy.init(torch.Generator().manual_seed(0))
+        _build.reset_launches()
+        _, stats = make_trpo_update(policy, cfg)(
+            params, _batch(policy, params))
+        assert bool(torch.isfinite(stats.kl))
+        assert _build.LAUNCHES["fused_fvp_bf16_plain"] == 11
+        assert _build.LAUNCHES["fused_fvp_plain"] == 0
 
 
 # --- the kernel's precision plan, emulated on the CPU ----------------------

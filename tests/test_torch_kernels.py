@@ -52,7 +52,7 @@ def test_reverse_scan_kernel_matches_plain(hopper, shape):
                                rtol=2e-5, atol=2e-5)
 
 
-def _fvp_case(dev, rows, dims, activation):
+def _fvp_case(dev, rows, dims, activation, compute_dtype=torch.float32):
     policy = make_policy((dims[0],), BoxSpec(dims[-1]), hidden=dims[1:-1],
                          activation=activation)
     params = policy.init(torch.Generator().manual_seed(0))
@@ -67,7 +67,8 @@ def _fvp_case(dev, rows, dims, activation):
     v = torch.randn(flat0.shape, generator=g, device=dev)
     op = make_fused_gaussian_mlp_fvp(params["net"], obs, weight,
                                      params["log_std"], 0.1,
-                                     activation=activation)
+                                     activation=activation,
+                                     compute_dtype=compute_dtype)
     return policy, obs, weight, flat0, unravel, v, op
 
 
@@ -108,10 +109,38 @@ def test_fused_fvp_kernel_is_bitwise_deterministic(hopper):
         assert torch.equal(op.flat(v), first)
 
 
+# K1-bf16 against its plain version (the same rounding points, products of
+# bf16 values in f32): 1e-2 relative L2, the bound the port holds the bf16
+# operator to; a value that lands on the other side of a bf16 rounding
+# boundary (the sums run in another order) moves by one bf16 ulp
+@pytest.mark.parametrize(
+    "rows, dims, activation",
+    [(300, (11, 96, 160, 5), "tanh"), (300, (11, 96, 160, 5), "relu"),
+     (257, (7, 33, 5), "elu"), (1000, (376, 256, 256, 17), "tanh")]
+    + _EDGE_CASES,
+)
+def test_fused_fvp_bf16_kernel_matches_plain(hopper, rows, dims, activation):
+    *_, v, op = _fvp_case(hopper, rows, dims, activation, torch.bfloat16)
+    _build.reset_launches()
+    out = op.flat(v)
+    assert _build.LAUNCHES["fused_fvp_bf16"] == 1
+    plain = op.plain(v)
+    assert torch.isfinite(out).all()
+    assert ((out - plain).norm() / plain.norm()).item() < 1e-2
+
+
+def test_fused_fvp_bf16_kernel_is_bitwise_deterministic(hopper):
+    *_, v, op = _fvp_case(hopper, 1000, (376, 256, 256, 17), "tanh",
+                          torch.bfloat16)
+    first = op.flat(v)
+    for _ in range(3):
+        assert torch.equal(op.flat(v), first)
+
+
 def test_small_iteration_on_the_card_goes_through_the_kernels(hopper):
     cfg = get_preset("humanoid-sim").replace(
         solve_audit_every=0, n_envs=16, batch_timesteps=512,
-        policy_hidden=(64, 64))
+        policy_hidden=(64, 64))  # unaudited: every matvec is K1
     from trpo_torch.agent import TRPOAgent
 
     agent = TRPOAgent("humanoid-sim", cfg, device=hopper)

@@ -134,10 +134,10 @@ def test_presets_match_reference_training_fields():
 @pytest.mark.parametrize(
     "override",
     [
-        {"fvp_subsample": 0.75, "solve_audit_every": 25},
-        {"cg_budget_adaptive": True},
-        {"adaptive_damping": True},
-        {"rollout_chunk": 2},
+        {"train_overlap": 1, "rollout_chunk": 1},
+        {"policy_experts": 4},
+        {"cg_precondition": True},
+        {"env": "pong-sim"},
         {"normalize_obs": True},
         {"policy_gru": 8},
         {"cg_precondition": "jacobi"},
@@ -149,6 +149,21 @@ def test_unported_paths_raise(override):
     cfg = port_config.TRPOConfig(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_config.check_ported(cfg)
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        {"fvp_subsample": 0.75, "solve_audit_every": 25},
+        {"fvp_dtype": "bf16", "solve_audit_every": 25},
+        {"cg_budget_adaptive": True},
+        {"adaptive_damping": True},
+        {"rollout_chunk": 2, "n_envs": 8, "batch_timesteps": 64},
+        {"compute_dtype": "bfloat16"},
+    ],
+)
+def test_ladder_and_fleet_paths_are_ported(override):
+    port_config.check_ported(port_config.TRPOConfig(**override))
 
 
 def _spd(n, seed):

@@ -1,11 +1,14 @@
 """``TRPOAgent`` — one training iteration on a device env (counterpart:
 ``trpo_tpu/agent.py``, the device-env feedforward path).
 
-An iteration is: on-device rollout (``rollout.device_rollout``) → GAE over
+An iteration is: on-device rollout (``rollout.device_rollout``, in
+time-chunks with ``cfg.rollout_chunk``) → GAE over
 the critic's values (``ops/returns.gae_from_next_values``, through the
 reverse-scan kernel) → the TRPO update (``trpo.make_trpo_update``, whose
 CG matvec is the fused FVP kernel) → the critic fit (``vf.py``) → the
-stats dict, with the keys of the reference's ``_vf_stats_phase``.
+stats dict, with the keys of the reference's ``_vf_stats_phase``. The
+damping λ (``cfg.adaptive_damping``) and the solver ladder's state ride
+``TrainState.cg_damping`` and ``TrainState.ladder`` from update to update.
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -28,6 +31,8 @@ from trpo_torch.ops.returns import gae_from_next_values
 from trpo_torch.rollout import Trajectory, device_rollout, init_env_states
 from trpo_torch.trpo import (
     TRPOBatch,
+    init_ladder,
+    ladder_stateful,
     make_trpo_update,
     standardize_advantages,
 )
@@ -61,6 +66,8 @@ class TrainState(NamedTuple):
     total_episodes: torch.Tensor   # int64 scalar on the device
     total_timesteps: int
     precond: Any = None            # ops.precond.PrecondState or None
+    cg_damping: Any = None         # f32 device scalar with adaptive_damping
+    ladder: Any = None             # trpo.LadderState when the ladder is on
 
 
 def _to(tree, device):
@@ -107,6 +114,7 @@ class TRPOAgent:
             cfg.cg_precondition == "head_block"
             and cfg.precond_refresh_every > 1
         )
+        self._ladder_stateful = ladder_stateful(cfg)
         # steps per env per iteration, so T·N ≥ batch_timesteps
         self.n_steps = max(1, -(-cfg.batch_timesteps // self.n_envs))
 
@@ -129,6 +137,11 @@ class TRPOAgent:
             total_timesteps=0,
             precond=init_gaussian_head_precond(policy_params)
             if self._precond_stateful else None,
+            cg_damping=torch.full((), float(self.cfg.cg_damping),
+                                  device=self.device)
+            if self.cfg.adaptive_damping else None,
+            ladder=init_ladder(self.cfg, self.device)
+            if self._ladder_stateful else None,
         )
 
     def _vf_features(self, traj: Trajectory):
@@ -170,7 +183,8 @@ class TRPOAgent:
             weight=weight,
         )
         new_policy_params, trpo_stats = self.trpo_update(
-            train_state.policy_params, batch, train_state.precond
+            train_state.policy_params, batch, train_state.cg_damping,
+            train_state.precond, train_state.ladder,
         )
 
         done_f = traj.done.float()
@@ -193,17 +207,25 @@ class TRPOAgent:
             precond=trpo_stats.precond_next
             if trpo_stats.precond_next is not None
             else train_state.precond,
+            cg_damping=trpo_stats.damping_next
+            if cfg.adaptive_damping else train_state.cg_damping,
+            ladder=trpo_stats.ladder_next
+            if trpo_stats.ladder_next is not None
+            else train_state.ladder,
         )
         fit_pack = {
             "vf_in": vf_in,
             "vtarg": flat(vtarg),
             "values": flat(values),
             "weight": weight,
-            "trpo_stats": trpo_stats._replace(precond_next=None),
+            "trpo_stats": trpo_stats._replace(precond_next=None,
+                                              ladder_next=None),
             "total_episodes": new_state.total_episodes,
             "mean_episode_reward": mean_ep_reward,
             "mean_episode_length": mean_ep_length,
             "episodes_in_batch": n_episodes.to(torch.int32),
+            # the post-update ladder: its counters surface in the stats
+            "ladder": new_state.ladder,
         }
         return new_state, fit_pack
 
@@ -241,6 +263,18 @@ class TRPOAgent:
             "cg_early_exit": s.cg_iterations < s.cg_budget,
             "nan_guard": s.nan_guard,
         }
+        lad = fit_pack.get("ladder")
+        if lad is not None:
+            stats.update({
+                "solve_cosine": s.solve_cosine,
+                "solve_audited": s.solve_audited,
+                "solve_fallback": s.solve_fallback,
+                "solve_pinned": lad.pinned,  # post-update pin state
+                "cg_budget": lad.cg_budget,
+                "solve_cosine_min": lad.cosine_min,
+                "audit_runs": lad.audit_runs,
+                "fallbacks": lad.fallbacks,
+            })
         return new_vf_state, stats
 
     def _process_trajectory(self, train_state: TrainState, traj: Trajectory):
@@ -255,6 +289,7 @@ class TRPOAgent:
         new_carry, traj = device_rollout(
             self.env, self.policy, train_state.policy_params,
             train_state.env_carry, train_state.rng, self.n_steps,
+            chunk=self.cfg.rollout_chunk,
         )
         train_state = train_state._replace(env_carry=new_carry)
         return self._process_trajectory(train_state, traj)

@@ -13,8 +13,8 @@ Two differences from the reference:
 * Paths that are not ported yet raise ``NotImplementedError`` naming the
   ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
   never silently ignored. The check runs where a path would be taken (agent
-  and update construction), not in ``__post_init__``, so the presets copied
-  from the reference (which arm the solve audit) stay constructible.
+  and update construction), not in ``__post_init__``, so every preset
+  copied from the reference stays constructible.
 """
 
 from __future__ import annotations
@@ -33,7 +33,9 @@ class TRPOConfig:
     max_pathlength: Optional[int] = None  # None → the env's own horizon
     batch_timesteps: int = 1000    # total timesteps per iteration (T·N ≥ it)
     fleet_n_envs: Optional[int] = None  # overrides n_envs when set
-    rollout_chunk: Optional[int] = None  # not ported (ROADMAP Queue 1 item 12)
+    rollout_chunk: Optional[int] = None  # time-chunked device rollout:
+    #                                steps per chunk, a divisor of the
+    #                                steps per window (rollout.py)
 
     # --- discounting / advantages ---------------------------------------
     gamma: float = 0.95
@@ -44,7 +46,14 @@ class TRPOConfig:
     max_kl: float = 0.01
     cg_iters: int = 10
     cg_damping: float = 0.1
-    adaptive_damping: bool = False  # not ported (ROADMAP Queue 1 item 12)
+    adaptive_damping: bool = False  # grow λ after a failed line search or
+    #                                a KL rollback, shrink it after a clean
+    #                                step (trpo._next_damping); λ rides
+    #                                TrainState.cg_damping as a device scalar
+    damping_grow: float = 2.0
+    damping_shrink: float = 0.95
+    damping_min: float = 1e-3
+    damping_max: float = 10.0
     cg_residual_tol: float = 1e-10
     cg_residual_rtol: float = 0.0
     cg_precondition: Any = False   # False or "head_block" ("jacobi" not ported)
@@ -54,9 +63,22 @@ class TRPOConfig:
     linesearch_kl_cap: bool = False
     kl_rollback_factor: float = 2.0
     fvp_subsample: Optional[float] = None  # FVPs on this fraction of the batch
-    fvp_dtype: str = "f32"         # "bf16" not ported (ROADMAP Queue 1 item 12)
-    solve_audit_every: int = 0     # >0 with a cheap rung: not ported
-    cg_budget_adaptive: bool = False  # not ported (ROADMAP Queue 1 item 12)
+    fvp_dtype: str = "f32"         # "bf16": the cheap solve's matvec runs
+    #                                its products in bf16 (kernel K1-bf16)
+    solve_audit_every: int = 0     # every k-th update, re-solve at full
+    #                                precision / full batch and gate the
+    #                                cheap solution on the solution cosine
+    solve_cosine_floor: float = 0.999  # below it the update falls back to
+    #                                the full-precision solution
+    solve_fallback_limit: int = 3  # consecutive failed audits that pin the
+    #                                ladder at the full-precision solve
+    cg_budget_adaptive: bool = False  # shrink the CG iteration cap toward
+    #                                the residual rule's exit point (+1),
+    #                                grow it (+2) after an unconverged solve
+    cg_budget_floor: int = 2
+    cg_budget_ceiling: Optional[int] = None  # None = cg_iters
+    solve_fault_skew: float = 0.0  # test lever: solve a skewed system
+    #                                D·F·D in the cheap solve only
     fvp_mode: str = "auto"         # "auto"/"fused" → the fused FVP kernel for a
     #                                plain-MLP diagonal-Gaussian policy; "ggn"
     #                                → the torch.func Gauss-Newton operator
@@ -71,7 +93,7 @@ class TRPOConfig:
     vf_train_steps: int = 50
     vf_learning_rate: float = 1e-3
     init_log_std: float = 0.0
-    compute_dtype: str = "float32"
+    compute_dtype: str = "float32"  # or "bfloat16": the policy's matmuls
     normalize_obs: bool = False    # not ported (ROADMAP Queue 1 item 2)
 
     # --- run control -----------------------------------------------------
@@ -85,10 +107,22 @@ class TRPOConfig:
             raise ValueError(
                 f"fleet_n_envs must be >= 1, got {self.fleet_n_envs}"
             )
-        if self.rollout_chunk is not None and self.rollout_chunk < 1:
-            raise ValueError(
-                f"rollout_chunk must be >= 1, got {self.rollout_chunk}"
+        if self.rollout_chunk is not None:
+            if self.rollout_chunk < 1:
+                raise ValueError(
+                    f"rollout_chunk must be >= 1, got {self.rollout_chunk}"
+                )
+            n_steps = max(
+                1, -(-self.batch_timesteps // self.resolved_n_envs())
             )
+            if self.rollout_chunk > n_steps or n_steps % self.rollout_chunk:
+                raise ValueError(
+                    f"rollout_chunk={self.rollout_chunk} must divide the "
+                    f"steps per rollout window ({n_steps} = "
+                    f"ceil(batch_timesteps={self.batch_timesteps} / "
+                    f"n_envs={self.resolved_n_envs()})) — pick a divisor "
+                    "or adjust batch_timesteps/the fleet width"
+                )
         if self.train_overlap not in (0, 1):
             raise ValueError(
                 f"train_overlap must be 0 or 1, got {self.train_overlap}"
@@ -119,6 +153,38 @@ class TRPOConfig:
                 "precision ladder is only safe under the solution-cosine "
                 'audit (set solve_audit_every, or keep fvp_dtype="f32")'
             )
+        if not 0.0 < self.solve_cosine_floor <= 1.0:
+            raise ValueError(
+                "solve_cosine_floor must be in (0, 1], got "
+                f"{self.solve_cosine_floor}"
+            )
+        if self.solve_fallback_limit < 1:
+            raise ValueError(
+                "solve_fallback_limit must be >= 1, got "
+                f"{self.solve_fallback_limit}"
+            )
+        if self.solve_fault_skew < 0:
+            raise ValueError(
+                f"solve_fault_skew must be >= 0, got {self.solve_fault_skew}"
+            )
+        if self.cg_budget_adaptive:
+            ceiling = self.resolved_cg_budget_ceiling()
+            if not 1 <= self.cg_budget_floor <= ceiling:
+                raise ValueError(
+                    "need 1 <= cg_budget_floor <= cg_budget_ceiling, got "
+                    f"({self.cg_budget_floor}, {ceiling})"
+                )
+            if not (self.cg_residual_tol > 0 or self.cg_residual_rtol > 0):
+                raise ValueError(
+                    "cg_budget_adaptive needs a residual rule to observe "
+                    "early exits — set cg_residual_tol or "
+                    "cg_residual_rtol > 0"
+                )
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                'compute_dtype must be "float32" or "bfloat16", got '
+                f"{self.compute_dtype!r}"
+            )
         if self.cg_precondition not in (
             False, True, "jacobi", "head_block"
         ):
@@ -131,10 +197,31 @@ class TRPOConfig:
                 "precond_refresh_every must be >= 1, got "
                 f"{self.precond_refresh_every}"
             )
+        if self.adaptive_damping:
+            if not self.damping_grow > 1.0:
+                raise ValueError(
+                    f"damping_grow must be > 1, got {self.damping_grow}"
+                )
+            if not 0.0 < self.damping_shrink <= 1.0:
+                raise ValueError(
+                    "damping_shrink must be in (0, 1], got "
+                    f"{self.damping_shrink}"
+                )
+            if not 0.0 < self.damping_min <= self.damping_max:
+                raise ValueError(
+                    "need 0 < damping_min <= damping_max, got "
+                    f"({self.damping_min}, {self.damping_max})"
+                )
 
     def resolved_n_envs(self) -> int:
         """``fleet_n_envs`` when set, else ``n_envs``."""
         return self.n_envs if self.fleet_n_envs is None else self.fleet_n_envs
+
+    def resolved_cg_budget_ceiling(self) -> int:
+        """The adaptive CG budget's ceiling: ``cg_budget_ceiling``, or
+        ``cg_iters`` when it is None."""
+        return (self.cg_iters if self.cg_budget_ceiling is None
+                else self.cg_budget_ceiling)
 
     def replace(self, **kw) -> "TRPOConfig":
         return dataclasses.replace(self, **kw)
@@ -150,24 +237,6 @@ def _not_ported(what: str, item: str):
 def check_ported(cfg: TRPOConfig) -> None:
     """Raise ``NotImplementedError`` for every configured path the port
     does not run yet, naming the ROADMAP item that ports it."""
-    cheap_rung = cfg.fvp_dtype == "bf16" or (
-        cfg.fvp_subsample is not None and cfg.fvp_subsample < 1.0
-    )
-    if cfg.solve_audit_every > 0 and cheap_rung:
-        _not_ported(
-            f"the solve audit (solve_audit_every={cfg.solve_audit_every} "
-            "with a cheap rung; pass solve_audit_every=0 / "
-            "--solve-audit-every 0)",
-            "item 12",
-        )
-    if cfg.fvp_dtype == "bf16":
-        _not_ported('fvp_dtype="bf16"', "item 12")
-    if cfg.cg_budget_adaptive:
-        _not_ported("cg_budget_adaptive", "item 12")
-    if cfg.adaptive_damping:
-        _not_ported("adaptive_damping", "item 12")
-    if cfg.rollout_chunk is not None:
-        _not_ported("rollout_chunk", "item 12")
     if cfg.train_overlap:
         _not_ported("train_overlap", "item 15")
     if cfg.mesh_shape is not None:
@@ -180,6 +249,11 @@ def check_ported(cfg: TRPOConfig) -> None:
         _not_ported('cg_precondition="jacobi"', "item 3")
     if cfg.fvp_mode == "jvp_grad":
         _not_ported('fvp_mode="jvp_grad"', "item 3")
+    from trpo_torch.envs import DEVICE_ENVS
+
+    if cfg.env not in DEVICE_ENVS:
+        _not_ported(f"env {cfg.env!r} (have {sorted(DEVICE_ENVS)})",
+                    "items 7 and 13")
 
 
 # ---------------------------------------------------------------------------

@@ -584,12 +584,15 @@ __global__ void __launch_bounds__(THREADS, 1) fvp_wgrad_kernel(
 }
 
 // out[p] = coef * v[p] for the log_std block (p < A), and
-// out[p] = sum_{s < S} partial[s][p - A] + damping * v[p] after it.
+// out[p] = sum_{s < S} partial[s][p - A] + damping * v[p] after it, with
+// coef and damping read from device memory (damping may be adapted on the
+// device between updates). K1-bf16 (fused_fvp_bf16.cu) shares it.
 __global__ void fvp_reduce_kernel(int A, int P, int S,
                                   const float* __restrict__ partial,
                                   const float* __restrict__ v,
                                   const float* __restrict__ coef,
-                                  float damping, float* __restrict__ out) {
+                                  const float* __restrict__ damping,
+                                  float* __restrict__ out) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < A + P;
        i += gridDim.x * blockDim.x) {
     if (i < A) {
@@ -599,7 +602,7 @@ __global__ void fvp_reduce_kernel(int A, int P, int S,
     const int q = i - A;
     float s = 0.f;
     for (int k = 0; k < S; ++k) s += partial[(size_t)k * P + q];
-    out[i] = s + damping * v[i];
+    out[i] = s + damping[0] * v[i];
   }
 }
 
@@ -755,7 +758,7 @@ extern "C" int trpo_fvp_wgrad(int n_layers, const float* const* A,
 
 extern "C" int trpo_fvp_reduce(int A, int P, int S, const float* partial,
                                const float* v, const float* coef,
-                               float damping, float* out,
+                               const float* damping, float* out,
                                cudaStream_t stream) {
   const int threads = 256;
   int blocks = cdiv(A + P, threads);

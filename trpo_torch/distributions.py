@@ -1,9 +1,8 @@
 """Policy action distributions (counterpart: ``trpo_tpu/distributions.py``).
 
-The diagonal Gaussian only; the categorical head waits for the cartpole
-slice (ROADMAP.md Queue 1 item 2). Distribution parameters are plain dicts
-of tensors, ``{"mean": (..., D), "log_std": (..., D)}``, and every op
-returns per-sample values over the leading axes.
+Distribution parameters are plain dicts of tensors — Categorical
+``{"logits": (..., K)}``, DiagGaussian ``{"mean": (..., D), "log_std":
+(..., D)}`` — and every op returns per-sample values over the leading axes.
 """
 
 from __future__ import annotations
@@ -13,9 +12,60 @@ from typing import Optional
 
 import torch
 
-__all__ = ["DiagGaussian"]
+__all__ = ["Categorical", "DiagGaussian"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+class Categorical:
+    """Categorical distribution over ``K`` actions, parameterized by
+    logits, in log space throughout."""
+
+    name = "categorical"
+
+    @staticmethod
+    def logp(params, actions):
+        """Log π(a|s) for integer ``actions`` of shape (...,)."""
+        lp = torch.log_softmax(params["logits"], dim=-1)
+        return torch.gather(lp, -1, actions.long()[..., None])[..., 0]
+
+    @staticmethod
+    def kl(params_old, params_new):
+        lp_old = torch.log_softmax(params_old["logits"], dim=-1)
+        lp_new = torch.log_softmax(params_new["logits"], dim=-1)
+        return torch.sum(torch.exp(lp_old) * (lp_old - lp_new), dim=-1)
+
+    @staticmethod
+    def entropy(params):
+        lp = torch.log_softmax(params["logits"], dim=-1)
+        return -torch.sum(torch.exp(lp) * lp, dim=-1)
+
+    @staticmethod
+    def sample(params, noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+        """Gumbel-max sampling, ``argmax(logits + g)``. ``noise`` passes
+        pre-drawn standard Gumbel draws shaped like the logits (the tests
+        hand both packages the same numbers); otherwise they are drawn
+        from ``generator``."""
+        logits = params["logits"]
+        if noise is None:
+            u = torch.rand(logits.shape, generator=generator,
+                           device=logits.device, dtype=logits.dtype)
+            u = torch.clamp(u, min=torch.finfo(logits.dtype).tiny)
+            noise = -torch.log(-torch.log(u))
+        return torch.argmax(logits + noise, dim=-1)
+
+    @staticmethod
+    def mode(params):
+        return torch.argmax(params["logits"], dim=-1)
+
+    @staticmethod
+    def fisher_weight(params0, tangent):
+        """Dist-space Fisher action ``M·d`` at ``params0``: ``diag(p) −
+        p pᵀ`` per sample, the Hessian of ``KL(π₀ ‖ π)`` in the logits."""
+        p = torch.softmax(params0["logits"], dim=-1)
+        d = tangent["logits"]
+        return {"logits": p * d - p * torch.sum(p * d, dim=-1, keepdim=True)}
 
 
 class DiagGaussian:

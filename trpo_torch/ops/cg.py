@@ -10,13 +10,19 @@ iteration waits on the host (no ``.item()``), so the solve can later be
 captured as a CUDA graph. The price is that the operator still runs on the
 iterations after convergence.
 
+``cg_iters`` may be a device int tensor, the ladder's adaptive iteration
+budget (``cfg.cg_budget_adaptive``): the budget joins the mask
+(``i < budget``) and the loop runs ``max_iters`` times. So the adaptive
+budget changes the solution and the iteration count as in the reference,
+but saves no matvecs yet: the operator still runs up to the ceiling.
+
 Everything this module owns — ``x``, ``r``, ``p``, the dot products and
 the residual test — is f32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -32,15 +38,23 @@ class CGResult(NamedTuple):
 def conjugate_gradient(
     f_Ax: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
-    cg_iters: int = 10,
+    cg_iters: Union[int, torch.Tensor] = 10,
     residual_tol: float = 1e-10,
     M_inv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     residual_rtol: float = 0.0,
+    max_iters: Optional[int] = None,
 ) -> CGResult:
     """Solve ``A x = b`` for SPD ``A`` given the matvec ``f_Ax``: x₀ = 0,
     r₀ = b, exit when ``rᵀr ≤ max(residual_tol, residual_rtol²·bᵀb)``.
     ``M_inv`` (a callable ``r ↦ M⁻¹r``) makes it preconditioned CG; the exit
-    test stays on the true residual ``rᵀr``."""
+    test stays on the true residual ``rᵀr``. A tensor ``cg_iters`` needs
+    ``max_iters``, the host bound of the loop (the budget's ceiling)."""
+    if isinstance(cg_iters, torch.Tensor):
+        if max_iters is None:
+            raise ValueError("a tensor cg_iters needs max_iters")
+        n_loop = int(max_iters)
+    else:
+        n_loop = int(cg_iters)
     b = b.float()
     x = torch.zeros_like(b)
     r = b
@@ -52,8 +66,10 @@ def conjugate_gradient(
         float(residual_rtol) ** 2 * rdotr, min=float(residual_tol)
     )
     iterations = torch.zeros((), dtype=torch.int32, device=b.device)
-    for _ in range(int(cg_iters)):
+    for i in range(n_loop):
         active = rdotr > stop
+        if isinstance(cg_iters, torch.Tensor):
+            active = active & (cg_iters > i)
         w = f_Ax(p).float()
         alpha = rdotz / torch.dot(p, w)
         x_new = x + alpha * p

@@ -1,7 +1,6 @@
 """Command-line training entry point (counterpart: ``trpo_tpu/train.py``).
 
-    python -m trpo_torch.train --preset humanoid-sim --solve-audit-every 0 \\
-        --iterations 3
+    python -m trpo_torch.train --preset humanoid-sim --iterations 3
 
 Runs on CUDA unless ``--device cpu`` is given, and prints one stats line
 per iteration.
@@ -25,6 +24,8 @@ _PRINTED = (
     "surrogate_loss", "vf_explained_variance", "cg_iterations",
     "linesearch_success", "kl_rolled_back",
 )
+_LADDER_PRINTED = ("solve_cosine", "solve_fallback", "solve_pinned",
+                   "cg_budget")
 
 
 def _hidden(text: str):
@@ -38,11 +39,36 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--seed", type=int)
     p.add_argument("--n-envs", type=int)
     p.add_argument("--batch-timesteps", type=int)
+    p.add_argument("--fleet-n-envs", type=int,
+                   help="wide env fleet (overrides --n-envs) at the same "
+                   "total batch")
+    p.add_argument("--rollout-chunk", type=int,
+                   help="time-chunked rollout: steps per chunk, a divisor "
+                   "of ceil(batch-timesteps / n-envs)")
     p.add_argument("--policy-hidden", type=_hidden,
                    help="comma-separated widths, e.g. 256,256")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   help="the policy's matmul dtype (the CG solve stays f32)")
     p.add_argument("--cg-precondition", choices=["off", "head_block"])
+    p.add_argument("--adaptive-damping", action="store_true",
+                   help="grow the CG damping after a failed line search or "
+                   "a KL rollback, shrink it after a clean step")
     p.add_argument("--fvp-subsample", type=float)
-    p.add_argument("--solve-audit-every", type=int)
+    p.add_argument("--fvp-dtype", choices=["f32", "bf16"],
+                   help="the cheap solve's matvec dtype; bf16 needs "
+                   "--solve-audit-every >= 1")
+    p.add_argument("--solve-audit-every", type=int,
+                   help="every k-th update, re-solve at full precision and "
+                   "gate the cheap solution on the solution cosine (0 = off)")
+    p.add_argument("--solve-cosine-floor", type=float)
+    p.add_argument("--cg-budget-adaptive", action="store_true",
+                   help="adapt the CG iteration cap toward the residual "
+                   "rule's exit point")
+    p.add_argument("--cg-budget-floor", type=int)
+    p.add_argument("--cg-budget-ceiling", type=int)
+    p.add_argument("--solve-fault-skew", type=float,
+                   help="test lever: skew the cheap matvec so it solves a "
+                   "wrong system")
     p.add_argument("--device", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -54,10 +80,22 @@ def build_config(args):
         "n_envs": args.n_envs,
         "batch_timesteps": args.batch_timesteps,
         "policy_hidden": args.policy_hidden,
+        "fleet_n_envs": args.fleet_n_envs,
+        "rollout_chunk": args.rollout_chunk,
+        "compute_dtype": args.compute_dtype,
         "fvp_subsample": args.fvp_subsample,
+        "fvp_dtype": args.fvp_dtype,
         "solve_audit_every": args.solve_audit_every,
+        "solve_cosine_floor": args.solve_cosine_floor,
+        "cg_budget_floor": args.cg_budget_floor,
+        "cg_budget_ceiling": args.cg_budget_ceiling,
+        "solve_fault_skew": args.solve_fault_skew,
         "n_iterations": args.iterations,
     }
+    if args.adaptive_damping:
+        overrides["adaptive_damping"] = True
+    if args.cg_budget_adaptive:
+        overrides["cg_budget_adaptive"] = True
     if args.cg_precondition is not None:
         overrides["cg_precondition"] = (
             False if args.cg_precondition == "off" else args.cg_precondition
@@ -84,7 +122,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for _ in range(cfg.n_iterations):
         t0 = time.perf_counter()
         state, stats = agent.run_iteration(state)
-        line = " ".join(f"{k}={_fmt(stats[k])}" for k in _PRINTED)
+        line = " ".join(f"{k}={_fmt(stats[k])}" for k in _PRINTED
+                        + _LADDER_PRINTED if k in stats)
         if agent.device.type == "cuda":
             torch.cuda.synchronize(agent.device)
         ms = (time.perf_counter() - t0) * 1e3

@@ -1,7 +1,8 @@
 """The TRPO natural-gradient update (counterpart: ``trpo_tpu/trpo.py``).
 
-``make_trpo_update`` returns ``(params, batch) -> (params, stats)``:
-policy gradient → conjugate-gradient solve of ``F·s = −g`` over
+``make_trpo_update`` returns ``update(params, batch, damping=None,
+precond=None, ladder=None) -> (params, stats)`` (the reference's argument
+order): policy gradient → conjugate-gradient solve of ``F·s = −g`` over
 Fisher-vector products → step scaling ``√(2δ/sᵀFs)`` → backtracking line
 search → KL rollback. It works in the flat-vector domain in
 ``ravel_pytree`` order (``ops/flat.py``), so iterates and step norms
@@ -9,14 +10,31 @@ compare one-for-one with the reference.
 
 As in the reference, nothing in the update waits on the host: the CG exit
 and the line-search acceptance are device-side predicates
-(``ops/cg.py``, ``ops/linesearch.py``), and the head-block refresh cadence
-is a Python counter.
+(``ops/cg.py``, ``ops/linesearch.py``), the damping λ is a device scalar
+(adapted on the device with ``cfg.adaptive_damping``), and the head-block
+refresh cadence is a Python counter.
 
 The Fisher operator under ``fvp_mode="auto"`` or ``"fused"`` is the fused
-kernel (``ops/fused_fvp.py``) for a plain-MLP diagonal-Gaussian policy. An
+kernel (``ops/fused_fvp.py``: K1 in f32, K1-bf16 for the ladder's bf16
+rung or a bfloat16 policy) for a plain-MLP diagonal-Gaussian policy. An
 ineligible policy under ``"auto"`` gets the ``torch.func`` Gauss-Newton
-operator (``ops/fvp.make_ggn_fvp``) — a choice made when the operator is
-selected, before anything is built — and under ``"fused"`` raises.
+operator (``ops/fvp.make_ggn_fvp``, over ``policy.apply_cast`` at the
+ladder's dtype) — a choice made when the operator is selected — and under
+``"fused"`` raises.
+
+The solver precision ladder (a :class:`LadderState` passed in): every
+``cfg.solve_audit_every`` updates the same system is re-solved at full
+precision on the full batch with the ``torch.func`` GGN (never the cheap
+operator's kernel: the audit is what catches a broken cheap operator),
+and the solution cosine gates the cheap solution; ``solve_fallback_limit``
+consecutive failures pin the ladder at the full solve. Where the
+reference skips work under ``lax.cond`` (the cheap solve when pinned, the
+full solve on updates that are neither audited nor pinned), the port
+skips it too, on host mirrors of the ladder: the update count is a host
+integer, and ``pinned`` can change only on an audited update, so it is
+read back once after each audited update — one sync per
+``solve_audit_every`` updates, none on the others. The ``LadderState``
+tensors stay the source of the stats and of ``convert.py``.
 """
 
 from __future__ import annotations
@@ -47,9 +65,13 @@ from trpo_torch.ops.precond import (
 from trpo_torch.ops.treemath import tree_where
 
 __all__ = [
+    "LadderState",
     "SolvePack",
     "TRPOBatch",
     "TRPOStats",
+    "init_ladder",
+    "ladder_enabled",
+    "ladder_stateful",
     "make_trpo_update",
     "standardize_advantages",
     "surrogate_and_dist",
@@ -78,11 +100,68 @@ class TRPOStats(NamedTuple):
     linesearch_success: torch.Tensor
     step_fraction: torch.Tensor
     rolled_back: torch.Tensor
-    damping: float
+    damping: Any                     # λ used this update (device scalar)
     linesearch_trials: torch.Tensor
     nan_guard: torch.Tensor
-    cg_budget: int
+    cg_budget: Any                   # the CG cap the used solve ran under
     precond_next: Any = None  # PrecondState for the next update, or None
+    damping_next: Any = None  # λ for the next update
+    # solver precision ladder: populated when a LadderState is passed in
+    solve_cosine: Any = float("nan")  # audit cosine; NaN when not audited
+    solve_audited: Any = False
+    solve_fallback: Any = False      # the update used the full solution
+    solve_pinned: Any = False        # the ladder was pinned this update
+    ladder_next: Any = None          # LadderState for the next update
+
+
+class LadderState(NamedTuple):
+    """The solver precision ladder's state between updates (the
+    reference's seven device scalars), and two host mirrors the update
+    keeps so that it never waits on the device to choose its branches."""
+    step: torch.Tensor         # int32: updates performed (audit cadence)
+    cg_budget: torch.Tensor    # int32: current adaptive CG iteration cap
+    fail_streak: torch.Tensor  # int32: consecutive failed audits
+    pinned: torch.Tensor       # bool: full precision from now on
+    cosine_min: torch.Tensor   # f32: worst audit cosine (init 1.0)
+    audit_runs: torch.Tensor   # int32: full-precision re-solves executed
+    fallbacks: torch.Tensor    # int32: per-update fallbacks taken
+    step_host: int = 0         # host mirror of ``step``
+    pinned_host: bool = False  # host mirror of ``pinned``
+
+
+LADDER_FIELDS = LadderState._fields[:7]
+
+
+def ladder_enabled(cfg: TRPOConfig) -> bool:
+    """True when a cheap-solve rung is on (bf16 matvec and/or curvature
+    subsampling): there is something for the audit to check."""
+    return cfg.fvp_dtype == "bf16" or (
+        cfg.fvp_subsample is not None and cfg.fvp_subsample < 1.0
+    )
+
+
+def ladder_stateful(cfg: TRPOConfig) -> bool:
+    """True when the update needs a ``LadderState`` threaded through it:
+    the audit machine (cheap rung + audit cadence) or the adaptive CG
+    budget."""
+    return (
+        ladder_enabled(cfg) and cfg.solve_audit_every > 0
+    ) or cfg.cg_budget_adaptive
+
+
+def init_ladder(cfg: TRPOConfig, device="cpu") -> LadderState:
+    i32 = lambda v: torch.full((), v, dtype=torch.int32,  # noqa: E731
+                               device=device)
+    ceiling = cfg.resolved_cg_budget_ceiling()
+    return LadderState(
+        step=i32(0),
+        cg_budget=i32(ceiling if cfg.cg_budget_adaptive else cfg.cg_iters),
+        fail_streak=i32(0),
+        pinned=torch.zeros((), dtype=torch.bool, device=device),
+        cosine_min=torch.ones((), device=device),
+        audit_runs=i32(0),
+        fallbacks=i32(0),
+    )
 
 
 class SolvePack(NamedTuple):
@@ -95,8 +174,14 @@ class SolvePack(NamedTuple):
     grad_norm: torch.Tensor
     cg_iterations: torch.Tensor
     cg_residual: torch.Tensor
-    damping: float
+    damping: torch.Tensor
     precond_next: Any
+    ladder_next: Any
+    solve_cosine: Any
+    solve_audited: Any
+    solve_fallback: Any
+    solve_pinned: Any
+    cg_budget: Any
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -146,10 +231,11 @@ def _fvp_batch(batch: TRPOBatch, fraction: Optional[float]) -> TRPOBatch:
 
 
 def _maybe_fused_fvp(policy: Policy, cfg: TRPOConfig, params0,
-                     fb: TRPOBatch, damping: float):
+                     fb: TRPOBatch, damping, dtype=None):
     """The fused kernel's flat operator when the policy qualifies, else
     None (``"auto"``); an explicit ``"fused"`` raises instead of falling
-    back."""
+    back. ``dtype`` (the ladder's bf16 rung) overrides the policy's own
+    compute dtype: float32 builds K1, bfloat16 K1-bf16."""
     explicit = cfg.fvp_mode == "fused"
     if cfg.fvp_mode not in ("auto", "fused"):
         return None
@@ -166,8 +252,9 @@ def _maybe_fused_fvp(policy: Policy, cfg: TRPOConfig, params0,
         return bail("the fused FVP covers the diagonal-Gaussian head only")
     if not (isinstance(params0, dict) and set(params0) == {"net", "log_std"}):
         return bail("unexpected params structure")
-    if spec["compute_dtype"] != torch.float32:
-        return bail("the fused FVP kernel computes in float32 only")
+    kernel_dtype = spec["compute_dtype"] if dtype is None else dtype
+    if kernel_dtype not in (torch.float32, torch.bfloat16):
+        return bail(f"no fused FVP kernel computes in {kernel_dtype}")
     if not fused_fvp_supported(spec["activation"], params0["net"]):
         return bail(
             f"activation {spec['activation']!r} / torso shape not "
@@ -175,8 +262,29 @@ def _maybe_fused_fvp(policy: Policy, cfg: TRPOConfig, params0,
         )
     return make_fused_gaussian_mlp_fvp(
         params0["net"], fb.obs, fb.weight, params0["log_std"], damping,
-        activation=spec["activation"],
+        activation=spec["activation"], compute_dtype=kernel_dtype,
     ).flat
+
+
+def _next_damping(cfg: TRPOConfig, damping, ls_success, rollback):
+    """Levenberg–Marquardt-style feedback on the CG damping: a failed line
+    search or a KL rollback grows λ for the next update, a clean step
+    shrinks it, clipped to ``[damping_min, damping_max]``; all on the
+    device."""
+    grow = rollback | ~ls_success
+    factor = torch.where(grow, cfg.damping_grow, cfg.damping_shrink)
+    return torch.clamp(damping * factor, cfg.damping_min, cfg.damping_max)
+
+
+def _skewed_operator(op, skew: float, n: int, device):
+    """Test lever (``cfg.solve_fault_skew``): ``v ↦ D·op(D·v)`` with ``D``
+    the alternating diagonal (1 on even coordinates, 1 + skew on odd). The
+    operator stays symmetric positive definite, so CG converges, but to a
+    wrong system, which the audit's full-precision re-solve sees as a low
+    solution cosine."""
+    idx = torch.arange(n, dtype=torch.float32, device=device)
+    d = 1.0 + float(skew) * (idx % 2.0)
+    return lambda v: d * op(d * v)
 
 
 def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
@@ -224,11 +332,13 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
 
 
 def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
-                 x0: torch.Tensor, batch: TRPOBatch,
-                 precond: Optional[PrecondState] = None) -> SolvePack:
-    """Gradient and surrogate in one pass → damped-Fisher operator → CG
-    solve → KL-radius step scaling."""
+                 x0: torch.Tensor, batch: TRPOBatch, damping=None,
+                 precond: Optional[PrecondState] = None,
+                 ladder: Optional[LadderState] = None) -> SolvePack:
+    """Gradient and surrogate in one pass → damped-Fisher operator →
+    (audited / budget-adaptive) CG solve → KL-radius step scaling."""
     x0 = x0.detach()
+    dev = x0.device
     with torch.no_grad():
         logp_old = policy.dist.logp(batch.old_dist, batch.actions)
     xg = x0.clone().requires_grad_(True)
@@ -242,15 +352,37 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     grad_norm = torch.linalg.vector_norm(g)
     neg_g = -1.0 * g
 
-    damping = float(cfg.cg_damping)
+    if damping is None:
+        damping = torch.full((), float(cfg.cg_damping), device=dev)
+    damping = torch.as_tensor(damping, dtype=torch.float32, device=dev)
     fb = _fvp_batch(batch, cfg.fvp_subsample)
     params0 = to_params(x0)
-    fvp = _maybe_fused_fvp(policy, cfg, params0, fb, damping)
-    if fvp is None:
-        fvp = make_ggn_fvp(
-            lambda x: policy.apply(to_params(x), fb.obs),
-            policy.dist.fisher_weight, x0, fb.weight, damping=damping,
-        )
+
+    def build_fvp(b: TRPOBatch, dtype, fused_ok: bool, skew: float):
+        """``v ↦ (F + λI)v`` over batch ``b`` with the products in
+        ``dtype`` (None: the policy's own compute dtype)."""
+        if dtype is None:
+            apply_b = lambda x: policy.apply(to_params(x), b.obs)  # noqa
+        else:
+            if getattr(policy, "apply_cast", None) is None:
+                raise ValueError(
+                    'fvp_dtype="bf16" needs a policy with a dtype-castable '
+                    'forward (apply_cast) — use fvp_dtype="f32" here'
+                )
+            apply_b = lambda x: policy.apply_cast(  # noqa: E731
+                to_params(x), b.obs, dtype)
+        op = None
+        if fused_ok:
+            op = _maybe_fused_fvp(policy, cfg, params0, b, damping, dtype)
+        if op is None:
+            op = make_ggn_fvp(apply_b, policy.dist.fisher_weight, x0,
+                              b.weight, damping=damping)
+        if skew:
+            op = _skewed_operator(op, skew, x0.shape[0], dev)
+        return op
+
+    fvp = build_fvp(fb, torch.bfloat16 if cfg.fvp_dtype == "bf16" else None,
+                    True, cfg.solve_fault_skew)
 
     M_inv, precond_next = None, None
     if cfg.cg_precondition == "head_block":
@@ -258,14 +390,114 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             policy, cfg, params0, fb, damping, to_params, precond
         )
 
-    with torch.no_grad():
+    audit_on = (ladder is not None and cfg.solve_audit_every > 0
+                and ladder_enabled(cfg))
+    budget_on = ladder is not None and cfg.cg_budget_adaptive
+    ceiling = int(cfg.resolved_cg_budget_ceiling())
+
+    def solve(op, iters):
+        """One CG solve and the step-scale FVP ``shs = ½ sᵀ(F+λI)s`` on the
+        operator that produced it."""
         cg = conjugate_gradient(
-            fvp, neg_g, cg_iters=cfg.cg_iters,
-            residual_tol=cfg.cg_residual_tol, M_inv=M_inv,
-            residual_rtol=cfg.cg_residual_rtol,
+            op, neg_g, cg_iters=iters, residual_tol=cfg.cg_residual_tol,
+            M_inv=M_inv, residual_rtol=cfg.cg_residual_rtol,
+            max_iters=max(ceiling, cfg.cg_iters),
         )
-        stepdir = cg.x
-        shs = 0.5 * torch.dot(stepdir, fvp(stepdir))
+        shs = 0.5 * torch.dot(cg.x, op(cg.x))
+        return cg.x, shs, cg.iterations, cg.residual_norm_sq
+
+    with torch.no_grad():
+        ladder_next = None
+        if not (audit_on or budget_on):
+            stepdir, shs, cg_iterations, cg_residual = solve(fvp,
+                                                             cfg.cg_iters)
+            solve_cosine, audited, fallback, pinned = (float("nan"), False,
+                                                       False, False)
+            budget_used = cfg.cg_iters
+        else:
+            flag = lambda v: torch.full((), v, dtype=torch.bool,  # noqa
+                                        device=dev)
+            i32 = lambda v: torch.full((), v, dtype=torch.int32,  # noqa
+                                       device=dev)
+            budget = (torch.clamp(ladder.cg_budget, cfg.cg_budget_floor,
+                                  ceiling) if budget_on else cfg.cg_iters)
+            budget_used = torch.as_tensor(budget, dtype=torch.int32,
+                                          device=dev)
+            do_audit = False
+            if audit_on:
+                pinned = ladder.pinned
+                do_audit = (not ladder.pinned_host
+                            and ladder.step_host % cfg.solve_audit_every == 0)
+                # pinned updates pay only the full solve; updates that are
+                # neither audited nor pinned pay only the cheap one
+                if ladder.pinned_host:
+                    cheap = (torch.zeros_like(neg_g), torch.zeros((),
+                             device=dev), i32(0), torch.zeros((), device=dev))
+                else:
+                    cheap = solve(fvp, budget)
+                x_c, shs_c, it_c, res_c = cheap
+                if ladder.pinned_host or do_audit:
+                    full = solve(build_fvp(batch, None, False, 0.0),
+                                 cfg.cg_iters)
+                else:
+                    full = cheap
+                x_f, shs_f, it_f, res_f = full
+                if do_audit:
+                    cos_raw = torch.dot(x_c, x_f) / torch.clamp(
+                        torch.linalg.vector_norm(x_c)
+                        * torch.linalg.vector_norm(x_f), min=1e-30)
+                    solve_cosine = cos_raw
+                    fallback = cos_raw < cfg.solve_cosine_floor
+                else:
+                    solve_cosine = torch.full((), float("nan"), device=dev)
+                    fallback = flag(False)
+                audited = flag(do_audit)
+                use_full = pinned | fallback
+                stepdir = torch.where(use_full, x_f, x_c)
+                shs = torch.where(use_full, shs_f, shs_c)
+                cg_iterations = torch.where(use_full, it_f, it_c)
+                cg_residual = torch.where(use_full, res_f, res_c)
+                # the cap of the solve that produced the used solution
+                budget_used = torch.where(use_full, i32(cfg.cg_iters),
+                                          budget_used)
+            else:
+                stepdir, shs, cg_iterations, cg_residual = solve(fvp, budget)
+                it_c = cg_iterations
+                solve_cosine = torch.full((), float("nan"), device=dev)
+                audited = fallback = pinned = flag(False)
+
+            if budget_on:
+                # shrink to the residual rule's exit (+1); grow +2 toward
+                # the ceiling after an unconverged solve; hold when pinned
+                early = it_c < budget_used
+                shrink = torch.clamp(it_c + 1, cfg.cg_budget_floor, ceiling)
+                grow = torch.clamp(budget_used + 2, max=ceiling)
+                budget_next = torch.where(
+                    pinned, budget_used, torch.where(early, shrink, grow))
+            else:
+                budget_next = budget_used
+            streak_next = torch.where(
+                fallback, ladder.fail_streak + 1,
+                torch.where(audited, torch.zeros_like(ladder.fail_streak),
+                            ladder.fail_streak))
+            pinned_next = pinned | (streak_next >= cfg.solve_fallback_limit)
+            ladder_next = LadderState(
+                step=ladder.step + 1,
+                cg_budget=budget_next.to(torch.int32),
+                fail_streak=streak_next.to(torch.int32),
+                pinned=pinned_next,
+                cosine_min=torch.minimum(
+                    ladder.cosine_min,
+                    torch.where(audited, solve_cosine,
+                                torch.ones_like(ladder.cosine_min))),
+                audit_runs=ladder.audit_runs + audited.to(torch.int32),
+                fallbacks=ladder.fallbacks + fallback.to(torch.int32),
+                step_host=ladder.step_host + 1,
+                # pinned changes only on an audited update: one read-back
+                pinned_host=bool(pinned_next.item()) if do_audit
+                else ladder.pinned_host,
+            )
+
         shs = torch.clamp(shs, min=1e-12)
         lm = torch.sqrt(shs / cfg.max_kl)
         fullstep = (1.0 / lm) * stepdir
@@ -277,10 +509,16 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         dist0=dist0,
         logp_old=logp_old,
         grad_norm=grad_norm,
-        cg_iterations=cg.iterations,
-        cg_residual=cg.residual_norm_sq,
+        cg_iterations=cg_iterations,
+        cg_residual=cg_residual,
         damping=damping,
         precond_next=precond_next,
+        ladder_next=ladder_next,
+        solve_cosine=solve_cosine,
+        solve_audited=audited,
+        solve_fallback=fallback,
+        solve_pinned=pinned,
+        cg_budget=budget_used,
     )
 
 
@@ -325,6 +563,10 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         ratio_new = torch.exp(logp_new - logp_old)
         surr_after = -_wmean(ratio_new * batch.advantages, batch.weight)
         entropy = _wmean(policy.dist.entropy(final_dist), batch.weight)
+        damping_next = (
+            _next_damping(cfg, pack.damping, ls.success, rollback)
+            if cfg.adaptive_damping else pack.damping
+        )
         nan_guard = ~(
             torch.isfinite(pack.grad_norm)
             & torch.isfinite(surr_after)
@@ -346,24 +588,34 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             damping=pack.damping,
             linesearch_trials=ls.trials,
             nan_guard=nan_guard,
-            cg_budget=cfg.cg_iters,
+            cg_budget=pack.cg_budget,
             precond_next=pack.precond_next,
+            damping_next=damping_next,
+            solve_cosine=pack.solve_cosine,
+            solve_audited=pack.solve_audited,
+            solve_fallback=pack.solve_fallback,
+            solve_pinned=pack.solve_pinned,
+            ladder_next=pack.ladder_next,
         )
     return to_params(x_new), stats
 
 
 def make_trpo_update(policy: Policy, cfg: TRPOConfig):
     """The update in the flat-vector domain: ``update(params, batch,
-    precond=None) -> (new_params, stats)``. ``precond`` (a
-    ``PrecondState``) arms the amortized head-block refresh; without it the
-    factors are recomputed every update."""
+    damping=None, precond=None, ladder=None) -> (new_params, stats)``.
+    ``damping`` (a device scalar) overrides ``cfg.cg_damping``;
+    ``precond`` (a ``PrecondState``) arms the amortized head-block refresh;
+    ``ladder`` (a :class:`LadderState`) arms the solve audit and the
+    adaptive CG budget, and without it the cheap path runs unaudited."""
     check_ported(cfg)
 
-    def update(params, batch: TRPOBatch,
-               precond: Optional[PrecondState] = None):
+    def update(params, batch: TRPOBatch, damping=None,
+               precond: Optional[PrecondState] = None,
+               ladder: Optional[LadderState] = None):
         flat0, unravel = flatten_params(params)
         flat0 = flat0.float().detach()
-        pack = _solve_stage(policy, cfg, unravel, flat0, batch, precond)
+        pack = _solve_stage(policy, cfg, unravel, flat0, batch, damping,
+                            precond, ladder)
         return _finish_stage(policy, cfg, unravel, flat0, batch, pack)
 
     return update
