@@ -16,12 +16,18 @@ Phases:
      shape and small ragged ones, with the device time of each of its
      sub-kernels (profiler);
   4. ``[fvp-bf16]`` K1-bf16 against its plain bf16 version and against
-     K1, at the same shapes, beside the ``torch.func`` GGN at bf16;
+     K1, at the same shapes and at torsos past 256 wide, beside the
+     ``torch.func`` GGN at bf16, with its phase split and bytes by design;
+     at the flagship shape it must be faster than both that GGN and f32
+     K1;
   5. ``[main]`` the main path: 3 ``TRPOAgent.run_iteration`` calls on the
      ``humanoid-sim`` preset unchanged (its ¾ curvature subsample audited
      every 25 updates), with every kernel's launch count read around them,
-     and the stage times of an audited and of an unaudited update;
-  6. ``[bf16]`` the same preset on the ladder's bf16 rung, 3 iterations;
+     and the stage times of an audited and of an unaudited update, with
+     the device's idle share in each;
+  6. ``[bf16]`` the same preset on the ladder's bf16 rung, 3 iterations,
+     and its unaudited update timed against ``[main]``'s (main, bf16,
+     bf16, main);
   7. ``[fleet]`` ``humanoid-sim-fleet`` unchanged (1,024 envs, 49-step
      windows in 7-step chunks), 2 iterations;
   8. ``[cartpole]`` ``cartpole`` and ``cartpole-fleet``, 2 iterations each;
@@ -63,6 +69,13 @@ K1_RTOL = 1e-5  # the reference's FVP tolerance (tests/test_fused_fvp.py:73)
 # K1-bf16 against its plain bf16 version: the same rounding points, sums in
 # another order, so a value may land one bf16 ulp away
 K1_BF16_RTOL = 1e-2
+# ... and a tighter limit on the rounding points themselves: sound runs read
+# 1e-5 or less, f32 K1 on the same inputs (it rounds nowhere) 1e-3 or more,
+# and that control must fail it
+K1_BF16_TIGHT = 1e-4
+# a bf16 torso past one accumulator's 256 columns, at the flagship's rows:
+# K1-bf16 runs its chain product by product there
+WIDE_DIMS = (376, 512, 512, 17)
 
 
 class SmokeFailure(RuntimeError):
@@ -196,23 +209,24 @@ def _k1_design_bytes(rows: int, dims, splits: int) -> tuple:
 
 
 def _k1_bf16_design_bytes(rows: int, dims, splits: int) -> tuple:
-    """The same model for K1-bf16: ``obs`` and the ``h_k`` are bf16 (2 B);
-    the per-row scratch (``dh``, ``c32``, ``g32``) is f32, read as f32 by
-    the next product (which rounds it on load) and, for ``c32``/``g32``,
-    by both the weight-gradient and the bias-sum kernels."""
-    L = len(dims) - 2
-    h = [rows * d for d in dims[1:-1]]
+    """The same model for K1-bf16's design: (phase A with the tangent
+    unpack, phase B with the reduce). Phase A reads ``obs`` and each ``h_k``
+    once in bf16 (an epilogue's re-read of a tile the block has just
+    streamed is counted as an L2 hit), the bf16 weight and tangent blocks,
+    and writes the rounded ``g_k`` and ``c`` (bf16) and its per-tile column
+    sums (f32); the unpack reads the f32 weight tangents and writes them in
+    bf16. Phase B reads ``obs``, the ``h_k``, ``g_k``, ``c`` and the column
+    sums again and writes its split partials, which the reduce reads back
+    with ``v`` before writing the result."""
+    h = sum(rows * d for d in dims[1:-1])
     obs, c = rows * dims[0], rows * dims[-1]
-    a = 2 * obs + 2 * h[0] + 4 * h[0]                   # obs @ V0 -> dh0
-    for k in range(1, L):
-        a += 2 * h[k - 1] + 4 * h[k - 1] + 2 * h[k] + 4 * h[k]
-    a += 2 * h[L - 1] + 4 * h[L - 1] + 4 * c            # Fisher -> c32
-    a += 4 * c + 2 * h[L - 1] + 4 * h[L - 1]            # c W^T -> g32
-    for k in range(L - 1, 0, -1):
-        a += 4 * h[k] + 2 * h[k - 1] + 4 * h[k - 1]     # g W^T -> g32
-    params = sum(x * y + y for x, y in zip(dims[:-1], dims[1:]))
-    b = (2 * (obs + sum(h)) + 2 * 4 * (sum(h) + c)
-         + 4 * 2 * splits * params + 4 * 2 * params)
+    weights = sum(x * y for x, y in zip(dims[:-1], dims[1:]))
+    total = weights + sum(dims[1:]) + dims[-1]
+    colsum = 4 * -(-rows // 128) * sum(dims[1:])
+    a = (2 * (obs + h) + 2 * 2 * weights + 2 * (h + c) + colsum
+         + (4 + 2) * weights)
+    b = (2 * (obs + 2 * h + c) + colsum + 2 * 4 * splits * (total - dims[-1])
+         + 2 * 4 * total)
     return float(a), float(b)
 
 
@@ -408,10 +422,12 @@ def _fvp_macs(rows, dims) -> int:
     return rows * (2 * sum(a * b for a, b in pairs) + 2 * inner)
 
 
-def phase_fvp_bf16(torch, np, peaks, dev):
+def phase_fvp_bf16(torch, np, peaks, dev, k1_ms):
     """K1-bf16 against its plain bf16 version (same inputs, the card), and
     against f32 K1; timed beside the ``torch.func`` GGN over the bf16
-    ``apply_cast`` forward (the library yardstick)."""
+    ``apply_cast`` forward (the library yardstick). At the flagship shape
+    it must be faster than that GGN and than f32 K1 (``k1_ms``, the same
+    run)."""
     from trpo_torch.ops import _build
     from trpo_torch.ops.fused_fvp import make_fused_gaussian_mlp_fvp
     from trpo_torch.ops.fvp import make_ggn_fvp
@@ -425,8 +441,10 @@ def phase_fvp_bf16(torch, np, peaks, dev):
         (300, (11, 96, 160, 5), "relu", 50),
         (257, (7, 33, 5), "elu", 17),
         (129, (376, 33, 33, 17), "tanh", 20),
+        (300, (376, 512, 17), "tanh", 50),  # past 256: product by product
+        (flagship_rows, WIDE_DIMS, "tanh", 0),
     ]
-    rec = {}
+    rec, wide = {}, {}
     for rows, dims, activation, zero_tail in cases:
         policy, params, obs, weight, flat0, unravel, v = _fvp_problem(
             torch, np, dev, rows, dims, activation, zero_tail, seed=rows)
@@ -444,16 +462,42 @@ def phase_fvp_bf16(torch, np, peaks, dev):
                f"K1-bf16 {dims}: nonfinite")
         rel_plain = ((out - ref).norm() / ref.norm()).item()
         rel_f32 = ((out - out32).norm() / out32.norm()).item()
+        control = ((out32 - ref).norm() / ref.norm()).item()
         err = (out - ref).abs().max().item()
         again = op.flat(v)
         bitwise = bool(torch.equal(out, again))
         _check(rel_plain <= K1_BF16_RTOL,
                f"K1-bf16 {dims} {activation}: rel err vs plain {rel_plain}")
+        _check(rel_plain <= K1_BF16_TIGHT,
+               f"K1-bf16 {dims} {activation}: rel err vs plain {rel_plain} "
+               f"past the rounding-point limit {K1_BF16_TIGHT}")
+        _check(control > K1_BF16_TIGHT,
+               f"K1-bf16 {dims} {activation}: f32 K1 reads {control} "
+               f"against the bf16 plain version, within {K1_BF16_TIGHT}")
         _check(bitwise, f"K1-bf16 {dims}: two calls on the same v differ")
         line = (f"[fvp-bf16] {rows}x{'->'.join(map(str, dims))} {activation}"
                 f" rel_err_plain={rel_plain:.3e} max_abs_err={err:.3e} "
-                f"rel_err_vs_f32_k1={rel_f32:.3e} bitwise_repeat={bitwise}")
-        if rows == flagship_rows:
+                f"rel_err_vs_f32_k1={rel_f32:.3e} "
+                f"f32_k1_vs_plain={control:.3e} bitwise_repeat={bitwise}")
+        if rows == flagship_rows and dims == WIDE_DIMS:
+            ggn = make_ggn_fvp(
+                lambda x: policy.apply_cast(unravel(x), obs, torch.bfloat16),
+                policy.dist.fisher_weight, flat0, weight, damping=damping)
+            ggn(v)
+            ms, _ = _times(torch, lambda: op.flat(v), 20)
+            ggn_ms, _ = _times(torch, lambda: ggn(v), 20)
+            macs = _fvp_macs(rows, dims)
+            wide = {"ms_wide": ms, "library_ms_wide": ggn_ms}
+            line += (f" kernel_ms={ms:.4f} ggn_bf16_ms={ggn_ms:.4f} "
+                     f"achieved {2.0 * macs / ms / 1e9:.1f} TFLOP/s")
+            phases, _ = _kernel_phases(torch, lambda: op.flat(v))
+            if phases:
+                print("[fvp-bf16] wide phases (torch.profiler, device µs per "
+                      "call): " + "; ".join(f"{n} x{c:g} = {us:.1f}"
+                                            for n, c, us in phases),
+                      flush=True)
+            del ggn
+        elif rows == flagship_rows:
             ggn = make_ggn_fvp(
                 lambda x: policy.apply_cast(unravel(x), obs, torch.bfloat16),
                 policy.dist.fisher_weight, flat0, weight, damping=damping)
@@ -468,6 +512,8 @@ def phase_fvp_bf16(torch, np, peaks, dev):
                                                         dims[2:])))
             bound, by = _bound_ms(2.0 * macs, nbytes, peaks, "bf16_flops")
             design = _k1_bf16_design_bytes(rows, dims, op._plan.splits)
+            tflops = 2.0 * macs / ms / 1e9
+            gbps = sum(design) / ms / 1e6
             line += (f" kernel_ms={ms:.4f} host_issued_ms={host_ms:.4f} "
                      f"plain_ms={plain_ms:.4f} "
                      f"plain_host_issued_ms={plain_host_ms:.4f} "
@@ -475,7 +521,9 @@ def phase_fvp_bf16(torch, np, peaks, dev):
                      f"ggn_bf16_host_issued_ms={ggn_host_ms:.4f} "
                      f"bound_ms={bound:.4f} ({by}: {2.0 * macs / 1e9:.2f} "
                      f"GFLOP at the bf16 tensor rate, {nbytes / 1e6:.1f} MB)"
-                     f" share_of_bound={bound / ms:.3f} | bytes per call by "
+                     f" share_of_bound={bound / ms:.3f} achieved "
+                     f"{tflops:.1f} TFLOP/s, {gbps:.0f} GB/s by design | "
+                     f"f32_k1_ms={k1_ms:.4f} | bytes per call by "
                      f"design (model from the shapes): phase A "
                      f"{design[0] / 1e6:.1f} MB, phase B "
                      f"{design[1] / 1e6:.1f} MB, total "
@@ -483,20 +531,35 @@ def phase_fvp_bf16(torch, np, peaks, dev):
                      f"{sum(design) / peaks['bytes'] * 1e3:.4f} ms")
             rec = {"max_abs_err": err, "rel_err_plain": rel_plain,
                    "rel_err_vs_f32_k1": rel_f32, "ms": ms,
+                   "tflops": tflops, "design_mb": sum(design) / 1e6,
                    "host_issued_ms": host_ms, "plain_ms": plain_ms,
                    "plain_host_issued_ms": plain_host_ms,
                    "bound_ms": bound, "bound_by": by, "library_ms": ggn_ms,
                    "library_host_issued_ms": ggn_host_ms}
             phases, _ = _kernel_phases(torch, lambda: op.flat(v))
             if phases:
+                split = {"A": 0.0, "B": 0.0, "other": 0.0}
+                for name, _, us in phases:
+                    key = ("A" if "phase_a" in name else
+                           "B" if ("phase_b" in name or "reduce" in name)
+                           else "other")
+                    split[key] += us
                 print("[fvp-bf16] phases (torch.profiler, device µs per "
                       "call): " + "; ".join(f"{n} x{c:g} = {us:.1f}"
-                                            for n, c, us in phases),
-                      flush=True)
+                                            for n, c, us in phases)
+                      + f" | phase A (the chain) {split['A']:.1f}, phase B "
+                      f"(weight gradients + reduce) {split['B']:.1f}, other "
+                      f"{split['other']:.1f}", flush=True)
             del ggn
         print(line, flush=True)
         del op, op32
     _build.reset_launches()
+    rec.update(wide)
+    _check(rec["ms"] < rec["library_ms"],
+           f"K1-bf16 {rec['ms']:.4f} ms is not below the bf16 GGN "
+           f"{rec['library_ms']:.4f} ms")
+    _check(rec["ms"] < k1_ms,
+           f"K1-bf16 {rec['ms']:.4f} ms is not below f32 K1 {k1_ms:.4f} ms")
     return rec
 
 
@@ -571,12 +634,15 @@ def phase_main_path(torch, dev):
     audited = state._replace(ladder=lad._replace(
         step=torch.full_like(lad.step, step), step_host=step))
     audit_ms = _stage_breakdown(torch, agent, audited, "main", "audited")
-    return counts, {"unaudited": plain_ms, "audited": audit_ms}
+    return counts, {"unaudited": plain_ms, "audited": audit_ms}, (agent, state)
 
 
-def phase_bf16(torch, dev):
+def phase_bf16(torch, dev, main_run):
     """``humanoid-sim`` on the ladder's bf16 rung: the cheap solve runs on
-    K1-bf16, the audit on the f32 ``torch.func`` GGN."""
+    K1-bf16, the audit on the f32 ``torch.func`` GGN. Its unaudited update
+    is then timed against ``[main]``'s (``main_run``: that path's agent and
+    state) in the order main, bf16, bf16, main: the host clock drifts over
+    a process, and the update is host-bound."""
     from trpo_torch.config import get_preset
 
     cfg = get_preset("humanoid-sim").replace(fvp_dtype="bf16")
@@ -591,7 +657,17 @@ def phase_bf16(torch, dev):
            f" over {unpinned} unpinned iterations")
     _check(counts.get("fused_fvp", 0) == 0,
            f"[bf16] f32 K1 ran in the cheap solve: {counts}")
-    _stage_breakdown(torch, agent, state, "bf16", "unaudited")
+    runs = [("main", *main_run), ("bf16", agent, state)]
+    update = {"main": [], "bf16": []}
+    for tag, run_agent, run_state in runs + runs[::-1]:
+        update[tag].append(_stage_breakdown(
+            torch, run_agent, run_state, tag, "unaudited")["update"])
+    mean = {k: sum(v) / len(v) for k, v in update.items()}
+    print(f"[bf16] unaudited update ms in the order main, bf16, bf16, main:"
+          f" bf16 {mean['bf16']:.1f} (medians "
+          f"{', '.join(f'{x:.1f}' for x in update['bf16'])}) against main "
+          f"{mean['main']:.1f} (medians "
+          f"{', '.join(f'{x:.1f}' for x in update['main'])})", flush=True)
     return counts
 
 
@@ -618,9 +694,15 @@ def phase_cartpole(torch, dev):
         _drive(torch, dev, "cartpole", get_preset(name), 2)
 
 
-def _stage_breakdown(torch, agent, state, tag, label):
+def _stage_breakdown(torch, agent, state, tag, label, reps: int = 3):
     """One more iteration, stage by stage, each stage ended by a
-    synchronize: where the iteration's wall time goes (host clock)."""
+    synchronize: where the iteration's wall time goes (host clock). The
+    same iteration runs ``reps`` times from the same state, and each stage
+    reads the median: one host-clock sample spreads by several ms on a
+    shared host, as much as the update's kernels differ between rungs.
+    Then one more policy phase (GAE + update) under the profiler: the
+    device time of its kernels, against the phase's median host time,
+    gives the device's idle share there."""
     from trpo_torch.rollout import device_rollout
 
     def timed(fn):
@@ -630,20 +712,32 @@ def _stage_breakdown(torch, agent, state, tag, label):
         torch.cuda.synchronize()
         return out, (time.perf_counter() - t0) * 1e3
 
-    (carry, traj), roll_ms = timed(lambda: device_rollout(
-        agent.env, agent.policy, state.policy_params, state.env_carry,
-        state.rng, agent.n_steps, chunk=agent.cfg.rollout_chunk))
-    state = state._replace(env_carry=carry)
-    _, gae_ms = timed(lambda: agent._advantages(state.vf_state, traj))
-    (state, pack), policy_ms = timed(lambda: agent._policy_phase(state, traj))
-    _, vf_ms = timed(lambda: agent._vf_stats_phase(state.vf_state, pack))
-    print(f"[{tag}] stage ms{' (' + label + ' update)' if label else ''}: "
-          f"rollout={roll_ms:.1f} gae={gae_ms:.2f} "
-          f"policy_phase(gae+update)={policy_ms:.1f} "
-          f"update≈{policy_ms - gae_ms:.1f} vf_fit+stats={vf_ms:.1f}",
-          flush=True)
-    return {"rollout": roll_ms, "gae": gae_ms, "update": policy_ms - gae_ms,
-            "vf_fit": vf_ms}
+    samples = []
+    for _ in range(reps):
+        (carry, traj), roll_ms = timed(lambda: device_rollout(
+            agent.env, agent.policy, state.policy_params, state.env_carry,
+            state.rng, agent.n_steps, chunk=agent.cfg.rollout_chunk))
+        st = state._replace(env_carry=carry)
+        _, gae_ms = timed(lambda: agent._advantages(st.vf_state, traj))
+        (st, pack), policy_ms = timed(lambda: agent._policy_phase(st, traj))
+        _, vf_ms = timed(lambda: agent._vf_stats_phase(st.vf_state, pack))
+        samples.append({"rollout": roll_ms, "gae": gae_ms,
+                        "update": policy_ms - gae_ms, "policy": policy_ms,
+                        "vf_fit": vf_ms})
+    med = {k: sorted(x[k] for x in samples)[reps // 2] for k in samples[0]}
+    st = state._replace(env_carry=carry)
+    _, launches = _kernel_phases(
+        torch, lambda: agent._policy_phase(st, traj), reps=1)
+    med["policy_device"] = sum(us for _, us in launches) / 1e3
+    updates = ", ".join(f"{x['update']:.1f}" for x in samples)
+    print(f"[{tag}] stage ms{' (' + label + ' update)' if label else ''}, "
+          f"median of {reps}: rollout={med['rollout']:.1f} "
+          f"gae={med['gae']:.2f} update≈{med['update']:.1f} "
+          f"(runs: {updates}) vf_fit+stats={med['vf_fit']:.1f} | policy "
+          f"phase {med['policy']:.1f}, its kernels' device time "
+          f"{med['policy_device']:.1f} (profiler), device idle "
+          f"{1.0 - med['policy_device'] / med['policy']:.2f}", flush=True)
+    return med
 
 
 def phase_small_reference(torch, dev):
@@ -707,12 +801,13 @@ def main() -> int:
     with torch.cuda.stream(torch.cuda.Stream()):  # capturable for graphs
         scan = phase_scan(torch, np, peaks, dev)
         fvp = phase_fvp(torch, np, peaks, dev)
-        fvp16 = phase_fvp_bf16(torch, np, peaks, dev)
+        fvp16 = phase_fvp_bf16(torch, np, peaks, dev, fvp["ms"])
     torch.cuda.synchronize()
     main_counts, bf16_counts = {}, {}
     if not kernels_only:
-        main_counts, stages = phase_main_path(torch, dev)
-        bf16_counts = phase_bf16(torch, dev)
+        main_counts, stages, main_run = phase_main_path(torch, dev)
+        bf16_counts = phase_bf16(torch, dev, main_run)
+        del main_run
         phase_fleet(torch, dev, stages)
         phase_cartpole(torch, dev)
         phase_small_reference(torch, dev)

@@ -163,6 +163,27 @@ def test_eligibility():
     assert not fused_fvp_supported("tanh", {"layers": p["net"]["layers"][:1]})
 
 
+# K1 and K1-bf16 take any width (past 256, K1-bf16 runs its chain product
+# by product through device memory): a wide torso stays eligible
+@pytest.mark.parametrize("width", [256, 257, 512])
+def test_eligibility_any_width(width):
+    policy = make_policy((11,), BoxSpec(5), hidden=(width,))
+    params = policy.init(torch.Generator().manual_seed(0))
+    assert fused_fvp_supported("tanh", params["net"])
+
+
+def test_bf16_rung_on_a_wide_torso_takes_k1_bf16():
+    policy = make_policy((11,), BoxSpec(5), hidden=(264,))
+    params = policy.init(torch.Generator().manual_seed(0))
+    _build.reset_launches()
+    _, stats = make_trpo_update(
+        policy, TRPOConfig(fvp_dtype="bf16", solve_audit_every=1))(
+            params, _batch(policy, params, n=16))
+    assert bool(torch.isfinite(stats.kl))
+    assert _build.LAUNCHES["fused_fvp_bf16_plain"] == 11
+    assert _build.LAUNCHES["fused_fvp_plain"] == 0
+
+
 def _batch(policy, params, n=96, seed=3):
     rng = np.random.default_rng(seed)
     obs = torch.from_numpy(rng.normal(size=(n, 11)).astype(np.float32))

@@ -109,29 +109,63 @@ def test_fused_fvp_kernel_is_bitwise_deterministic(hopper):
         assert torch.equal(op.flat(v), first)
 
 
+# K1-bf16's tile edges: rows around its 64-row warpgroup halves and 128-row
+# tiles, and past 132 x 128 rows (the card's SMs each take several tiles);
+# widths around its 8-column fragments, 32-wide (head and backward) and
+# 64-wide (tangent) products, and a width past one 64-column swizzle atom
+# that is not a multiple of 64
+_BF16_EDGE_CASES = (
+    [(rows, (376, width, width, 17), "tanh")
+     for rows in (1, 63, 65, 127, 129, 1025)
+     for width in (8, 17, 31, 33, 200)]
+    + [(20000, (376, 33, 33, 17), "tanh")])
+
+# Torsos past one accumulator's 256 columns, where phase A runs product by
+# product in 256-column tiles: hidden widths 264 and 512 (the Atari-style
+# presets' torso), and a head wider than 256
+_BF16_WIDE_CASES = [
+    (300, (376, 264, 17), "tanh"), (129, (376, 264, 264, 17), "relu"),
+    (1000, (128, 512, 6), "tanh"), (300, (11, 512, 512, 17), "elu"),
+    (65, (11, 64, 300), "tanh")]
+
 # K1-bf16 against its plain version (the same rounding points, products of
 # bf16 values in f32): 1e-2 relative L2, the bound the port holds the bf16
 # operator to; a value that lands on the other side of a bf16 rounding
-# boundary (the sums run in another order) moves by one bf16 ulp
+# boundary (the sums run in another order) moves by one bf16 ulp. A second,
+# tighter limit checks the rounding points themselves: sound runs read
+# 1e-5 or less, while f32 K1 on the same inputs (a kernel that rounds
+# nowhere) reads 1e-3 or more and must fail it. Depths one and three show
+# the on-chip chain at other lengths.
+K1_BF16_TIGHT = 1e-4
+
+
 @pytest.mark.parametrize(
     "rows, dims, activation",
     [(300, (11, 96, 160, 5), "tanh"), (300, (11, 96, 160, 5), "relu"),
-     (257, (7, 33, 5), "elu"), (1000, (376, 256, 256, 17), "tanh")]
-    + _EDGE_CASES,
+     (257, (7, 33, 5), "elu"), (1000, (376, 256, 256, 17), "tanh"),
+     (300, (11, 96, 5), "tanh"), (300, (20, 64, 40, 130, 6), "relu")]
+    + _BF16_EDGE_CASES + _BF16_WIDE_CASES,
 )
 def test_fused_fvp_bf16_kernel_matches_plain(hopper, rows, dims, activation):
     *_, v, op = _fvp_case(hopper, rows, dims, activation, torch.bfloat16)
+    *_, op32 = _fvp_case(hopper, rows, dims, activation)
     _build.reset_launches()
     out = op.flat(v)
     assert _build.LAUNCHES["fused_fvp_bf16"] == 1
     plain = op.plain(v)
     assert torch.isfinite(out).all()
-    assert ((out - plain).norm() / plain.norm()).item() < 1e-2
+    rel = ((out - plain).norm() / plain.norm()).item()
+    control = ((op32.flat(v) - plain).norm() / plain.norm()).item()
+    assert rel < 1e-2
+    assert rel < K1_BF16_TIGHT
+    assert control > K1_BF16_TIGHT
 
 
-def test_fused_fvp_bf16_kernel_is_bitwise_deterministic(hopper):
-    *_, v, op = _fvp_case(hopper, 1000, (376, 256, 256, 17), "tanh",
-                          torch.bfloat16)
+# the on-chip chain (one phase-A launch) and a wide torso's product-by-
+# product launches
+@pytest.mark.parametrize("dims", [(376, 256, 256, 17), (376, 512, 17)])
+def test_fused_fvp_bf16_kernel_is_bitwise_deterministic(hopper, dims):
+    *_, v, op = _fvp_case(hopper, 1000, dims, "tanh", torch.bfloat16)
     first = op.flat(v)
     for _ in range(3):
         assert torch.equal(op.flat(v), first)

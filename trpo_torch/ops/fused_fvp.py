@@ -44,7 +44,12 @@ they feed the next product, while the bias cotangents sum the unrounded
 f32 values. Its plain version rounds at the same places and multiplies
 bf16 values as f32 (``preferred_element_type=f32``), never with a bf16
 ``matmul`` (which would round each product's result). Its bound at the
-training shape is 35.44 GFLOP at 989 TFLOP/s dense bf16 ≈ 0.036 ms.
+training shape is 35.44 GFLOP at 989 TFLOP/s dense bf16 ≈ 0.036 ms. Its
+design (the source's header): one block per 128-row tile runs the whole
+chain of products on ``wgmma`` with the tangents kept in shared memory
+(product by product through device memory when a width passes 256), then
+split-K weight gradients. Its TMA descriptors are built once per operator
+build (:class:`_CudaPlanBF16`).
 
 The damping λ is a device scalar (a float is moved to the device once per
 operator build), read by the kernels from device memory, so an adapted λ
@@ -99,13 +104,9 @@ _SWEEP_ARGTYPES = (
 _WGRAD_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                    ctypes.c_longlong, _P]
 _REDUCE_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P]
-_SWEEP16_ARGTYPES = (
-    [_I, _I, _P, _I, _I, _I, _P, _I, _P, _I, _I, _P, _I, _P, _I, _I, _P, _I,
-     _P, _P, _P, _I, _P]
-)
-_WGRAD16_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
-                     ctypes.c_longlong, _P]
-_BM16 = 64  # K1-bf16's tile edge
+_PLAN16_ARGTYPES = [_P, _I, _P, _I, _I, _I, _P, _P, _P, _P,
+                    ctypes.c_longlong, _P]
+_BM16 = 128  # K1-bf16's row tile
 _TILES_ARGTYPES = [_I, _P, _P, _P]
 _UNPACK_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P]
 
@@ -393,12 +394,13 @@ class _CudaPlan:
 
 
 class _CudaPlanBF16:
-    """K1-bf16's launch plan, prepared once per operator build: 8-aligned
-    bf16 copies of ``obs``, the ``h_k`` and the fixed weights (``W_k`` for
-    the backward sweeps, ``W_kᵀ`` for the tangent sweeps), the bf16 buffers
-    the weight tangents of ``v`` are unpacked into (transposed), the f32
-    per-row scratch (``dh``, then ``g32``; ``c32``), the split-K partials
-    and the launch arguments."""
+    """K1-bf16's launch plan, prepared once per operator build: bf16 copies
+    of ``obs``, the ``h_k`` and the fixed weights with 16-byte rows (and
+    ``W_Lᵀ`` for the head), the buffers the weight tangents of ``v`` are
+    unpacked into, the rounded cotangents ``g_k`` and ``c`` that phase A
+    hands to phase B, the per-tile bias sums, the TMA descriptors of the
+    bf16 ones (built in C, held in one opaque plan buffer, which also sizes
+    phase B's row splits), and the split partials."""
 
     def __init__(self, obs, hs, ws, wn, m, coef, damping: torch.Tensor,
                  activation: str):
@@ -422,112 +424,68 @@ class _CudaPlanBF16:
                 f"fused FVP covers at most {_MAX_LAYERS} layers, got {L + 1}"
             )
         dev = obs.device
-        self.B, self.L, self.dims, self.offs = B, L, dims, offs
-        self.total, self.A = total, A
+        self.B, self.total, self.A = B, total, A
+        self.damping, self.coef = damping, coef
+
+        def buf(rows, cols, dtype=torch.bfloat16):
+            return torch.zeros(rows, _cdiv(cols, 8) * 8, device=dev,
+                               dtype=dtype)
+
         self.obs = _padded(obs, 8)
         self.hs = [_padded(h, 8) for h in hs]
-        self.wn, self.m, self.coef, self.damping = wn, m, coef, damping
-        self.act = _ACT_CODE[activation]
-        # (out, in) for the tangent sweeps, (in, out) for the backward ones
-        self.wt = [None] + [_padded(ws[k].t(), 8) for k in range(1, L + 1)]
-        self.wf = [None] + [_padded(ws[k], 8) for k in range(1, L + 1)]
-        n_l = L + 1
-        self.vt = [torch.zeros(dims[k + 1], _cdiv(dims[k], 8) * 8,
-                               device=dev, dtype=torch.bfloat16)
-                   for k in range(n_l)]
-        self._unpack_arrays = (
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in self.vt]),
-            (ctypes.c_longlong * n_l)(*[offs[k][1] for k in range(n_l)]),
-            (ctypes.c_int * n_l)(*dims[:-1]),
-            (ctypes.c_int * n_l)(*dims[1:]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in self.vt]),
-        )
-        self._unpack_ptrs = [ctypes.addressof(a) for a in self._unpack_arrays]
-        self.bufs = [torch.zeros(B, _cdiv(dims[k + 1], 8) * 8, device=dev)
-                     for k in range(L)]
-        self.c = torch.zeros(B, _cdiv(A, 8) * 8, device=dev)
+        self.wf = [_padded(ws[k], 8) for k in range(1, L + 1)]
+        self.wlt = _padded(ws[L].t(), 8)
+        # the tangent blocks: V_k as they lie, V_L transposed for the head
+        self.vbuf = [buf(dims[k], dims[k + 1]) for k in range(L)] \
+            + [buf(A, dims[L])]
+        self.g = [buf(B, dims[k + 1]) for k in range(L)] + [buf(B, A)]
+        self.colsum = torch.empty(_cdiv(B, _BM16), sum(dims[1:]),
+                                  device=dev)
         self.P = total - A
-        n_tiles = sum(_cdiv(dims[k], _BM16) * _cdiv(dims[k + 1], _BM16)
-                      for k in range(n_l))
+        n_l = L + 1
+        dims_c = (ctypes.c_int * (n_l + 1))(*dims)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        # about eight weight-gradient blocks per SM: each block's k-loop is
-        # latency-bound, so the more of them wait at once the better
-        splits = max(1, min(_cdiv(8 * sms, n_tiles), _cdiv(B, _BK)))
-        self.rows_per_split = _cdiv(_cdiv(B, splits), _BK) * _BK
-        self.splits = _cdiv(B, self.rows_per_split)
-        self.partial = torch.empty(self.splits, self.P, device=dev)
-        a_ops = [self.obs] + list(self.hs)
-        g_ops = list(self.bufs) + [self.c]
-        self._wgrad_arrays = (
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in a_ops]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in a_ops]),
-            (ctypes.c_int * n_l)(*dims[:-1]),
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in g_ops]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in g_ops]),
-            (ctypes.c_int * n_l)(*dims[1:]),
-            (ctypes.c_int * n_l)(*[offs[k][0] - A for k in range(n_l)]),
+        tensors = ([self.obs] + self.hs + self.wf + [self.wlt] + self.vbuf
+                   + self.g + [self.colsum, wn, m])
+        ptrs = (ctypes.c_void_p * len(tensors))(
+            *[t.data_ptr() for t in tensors])
+        self.wn, self.m = wn, m  # the plan holds their pointers
+        size = _build.kernel("trpo_fvp16_plan_bytes", [])()
+        self._plan = ctypes.create_string_buffer(size + 64)
+        self._plan_ptr = -(-ctypes.addressof(self._plan) // 64) * 64
+        boff = (ctypes.c_longlong * n_l)(*[offs[k][0] for k in range(n_l)])
+        woff = (ctypes.c_longlong * n_l)(*[offs[k][1] for k in range(n_l)])
+        outs = (ctypes.c_int * n_l)(*[offs[k][0] - A for k in range(n_l)])
+        splits = ctypes.c_int(0)
+        err = _build.kernel("trpo_fvp16_plan", _PLAN16_ARGTYPES)(
+            self._plan_ptr, n_l, ctypes.addressof(dims_c), B,
+            _ACT_CODE[activation], sms, ctypes.addressof(ptrs),
+            ctypes.addressof(boff), ctypes.addressof(woff),
+            ctypes.addressof(outs), self.P, ctypes.addressof(splits),
         )
-        self._wgrad_ptrs = [ctypes.addressof(a) for a in self._wgrad_arrays]
+        if err != 0:
+            raise RuntimeError(
+                f"K1-bf16 launch plan failed: error {err} (a CUresult from "
+                "cuTensorMapEncodeTiled, -1 when the runtime found no "
+                "encoder, else a cudaError_t)"
+            )
+        self.splits = splits.value
+        self.partial = torch.empty(self.splits, self.P, device=dev)
 
     def run(self, v: torch.Tensor) -> torch.Tensor:
         """The full flat ``(F + λI)v`` on the current stream: the tangent
-        unpack, ``2L + 1`` sweeps, the weight and bias gradients and the
-        reduce; one output allocation."""
+        unpack, phase A, phase B and the reduce; one output allocation."""
         _check_cuda("v", v, (self.total,))
-        sweep = _build.kernel("trpo_fvp16_sweep", _SWEEP16_ARGTYPES)
-        wgrad = _build.kernel("trpo_fvp16_wgrad", _WGRAD16_ARGTYPES)
-        unpack = _build.kernel("trpo_fvp16_unpack", _UNPACK_ARGTYPES)
+        run = _build.kernel("trpo_fvp16_run", [_P, _P, _P, _P])
         reduce = _build.kernel("trpo_fvp_reduce", _REDUCE_ARGTYPES)
         stream = _build.stream_of(v)
-        B, L, dims, offs = self.B, self.L, self.dims, self.offs
-        hs, bufs, c = self.hs, self.bufs, self.c
-        vp = v.data_ptr()
-        f32 = 4  # bytes
-
-        def run_sweep(N, a1, K1, b1, a2, K2, b2, bias, epi, H, out):
-            err = sweep(
-                B, N, a1.data_ptr(), int(a1.dtype == torch.float32),
-                a1.stride(0), K1, b1.data_ptr(), b1.stride(0),
-                a2.data_ptr() if a2 is not None else None,
-                a2.stride(0) if a2 is not None else 0, K2,
-                b2.data_ptr() if b2 is not None else None,
-                b2.stride(0) if b2 is not None else 0, bias, epi, self.act,
-                H.data_ptr() if H is not None else None,
-                H.stride(0) if H is not None else 0,
-                self.wn.data_ptr(), self.m.data_ptr(), out.data_ptr(),
-                out.stride(0), stream,
-            )
-            _build.check("trpo_fvp16_sweep", err)
-
-        def vb(k):
-            return vp + f32 * offs[k][0]
-
-        err = unpack(L + 1, vp, *self._unpack_ptrs, stream)
-        _build.check("trpo_fvp16_unpack", err)
-        # ---- phase A: row-parallel sweeps ------------------------------
-        run_sweep(dims[1], self.obs, dims[0], self.vt[0], None, 0, None,
-                  vb(0), _EPI_DERIV, hs[0], bufs[0])
-        for k in range(1, L):
-            run_sweep(dims[k + 1], hs[k - 1], dims[k], self.vt[k],
-                      bufs[k - 1], dims[k], self.wt[k], vb(k), _EPI_DERIV,
-                      hs[k], bufs[k])
-        run_sweep(self.A, hs[L - 1], dims[L], self.vt[L], bufs[L - 1],
-                  dims[L], self.wt[L], vb(L), _EPI_FISHER, None, c)
-        # backward dgrad chain; g_k overwrites the spent tangent buffer k
-        run_sweep(dims[L], c, self.A, self.wf[L], None, 0, None, None,
-                  _EPI_DERIV, hs[L - 1], bufs[L - 1])
-        for k in range(L - 1, 0, -1):
-            run_sweep(dims[k], bufs[k], dims[k + 1], self.wf[k], None, 0,
-                      None, None, _EPI_DERIV, hs[k - 1], bufs[k - 1])
-
-        # ---- phase B: weight and bias gradients, then the reduce -------
-        err = wgrad(L + 1, *self._wgrad_ptrs, B, self.rows_per_split,
-                    self.splits, self.partial.data_ptr(), self.P, stream)
-        _build.check("trpo_fvp16_wgrad", err)
+        _build.check("trpo_fvp16_run",
+                     run(self._plan_ptr, v.data_ptr(),
+                         self.partial.data_ptr(), stream))
         out = torch.empty(self.total, device=v.device)
-        err = reduce(self.A, self.P, self.splits, self.partial.data_ptr(), vp,
-                     self.coef.data_ptr(), self.damping.data_ptr(),
-                     out.data_ptr(), stream)
+        err = reduce(self.A, self.P, self.splits, self.partial.data_ptr(),
+                     v.data_ptr(), self.coef.data_ptr(),
+                     self.damping.data_ptr(), out.data_ptr(), stream)
         _build.check("trpo_fvp_reduce", err)
         _build.LAUNCHES["fused_fvp_bf16"] += 1
         return out
