@@ -32,9 +32,23 @@ Phases:
      windows in 7-step chunks), 2 iterations;
   8. ``[cartpole]`` ``cartpole`` and ``cartpole-fleet``, 2 iterations each;
   9. ``[small]`` one audited update on a small input, on the card against
-     the CPU.
-Each path (5-8) is driven with the launch counts set to 0 just before it
-and read just after.
+     the CPU;
+ 10. ``[learn]`` the trainer as users run it, ``train.main`` in this
+     process on ``humanoid-sim`` as published: 4 iterations with a
+     checkpoint every 2, a JSONL log and a greedy evaluation, then a
+     second run resumed from step 2 for 2 iterations, whose step-4 state
+     must equal the first run's leaf by leaf (bitwise) and whose rows 3-4
+     must equal the first run's; the checkpoint's save and restore ms, and
+     ``learn``'s iteration against a bare ``run_iteration`` from one state
+     (bare, learn, learn, bare);
+ 11. ``[norm]`` ``halfcheetah-sim`` with ``normalize_obs``, 2 iterations:
+     the update still goes through K1;
+ 12. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
+     SIGTERM after its first checkpoint: it must exit 75 with its last
+     finished iteration as the newest complete checkpoint;
+ 13. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-12) is driven with the launch counts set to 0 just
+before it and read just after.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times by
 CUDA-graph replay: ``iters`` calls captured in one graph and replayed
@@ -49,11 +63,17 @@ before the last line. Without CUDA it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Peak rates of one H100 (NVIDIA data sheets, dense): f32 outside the
 # tensor cores, TF32 on the tensor cores, and device-memory bandwidth.
@@ -780,6 +800,261 @@ def phase_small_reference(torch, dev):
     _check(kl_gap < 1e-4, f"card vs CPU kl gap {kl_gap}")
 
 
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"   # .gitignore lists build/
+
+
+def _state_diff(torch, a, b) -> list:
+    """Paths of the leaves where two states differ (NaN equals NaN; the
+    rollout generator by its state bytes)."""
+    from trpo_torch.ops.flat import tree_leaves
+
+    def leaves(state):
+        return [x.get_state() if isinstance(x, torch.Generator) else x
+                for x in tree_leaves(state)]
+
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        return [f"leaf count {len(la)} != {len(lb)}"]
+    bad = []
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Tensor):
+            same = x.dtype == y.dtype and x.shape == y.shape and (
+                torch.equal(x, y) or (x.is_floating_point() and torch.equal(
+                    torch.isnan(x), torch.isnan(y)) and torch.equal(
+                        torch.nan_to_num(x), torch.nan_to_num(y))))
+            if not same:
+                err = ((x.double() - y.double()).abs().max().item()
+                       if x.shape == y.shape else float("nan"))
+                bad.append(f"leaf {i} {tuple(x.shape)} max|diff|={err:.3e}")
+        elif x != y:
+            bad.append(f"leaf {i}: {x!r} != {y!r}")
+    return bad
+
+
+def _main_quiet(argv) -> tuple:
+    """``trpo_torch.train.main(argv)`` with its stdout captured: (exit
+    code, the lines a reader needs)."""
+    from trpo_torch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = train.main(argv)
+    keep = [line for line in buf.getvalue().splitlines()
+            if line.startswith(("trpo_torch:", "resumed from", "iter ",
+                                "done:", "greedy eval:", "preempted"))]
+    return code, keep
+
+
+def phase_learn(torch, dev):
+    """``humanoid-sim`` through ``train.main``: 4 iterations, then a
+    resumed run from step 2 that must land on the same state."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.ops.flat import tree_leaves
+    from trpo_torch.resilience.recovery import copy_state
+    from trpo_torch.utils.checkpoint import Checkpointer
+    from trpo_torch.utils.metrics import StatsLogger
+
+    work = WORK / "learn"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck_a, ck_b = work / "a", work / "b"
+    base = ["--preset", "humanoid-sim", "--device", str(dev),
+            "--checkpoint-every", "2"]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    code, lines = _main_quiet(base + [
+        "--iterations", "4", "--checkpoint-dir", str(ck_a),
+        "--log-jsonl", str(work / "a.jsonl"), "--evaluate", "500"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    for line in lines:
+        print(f"[learn] {line}", flush=True)
+    _check(code == 0, f"[learn] train.main exited {code}")
+    rows_a = [json.loads(x) for x in
+              (work / "a.jsonl").read_text().splitlines()]
+    print(f"[learn] launches during learn (4 iterations + eval, {wall:.1f} s"
+          f"): {counts}; JSONL rows {len(rows_a)}; per-iteration ms "
+          f"{[round(r['iteration_ms'], 1) for r in rows_a]}", flush=True)
+    _check([r["iteration"] for r in rows_a] == [1, 2, 3, 4],
+           f"[learn] JSONL iterations {[r['iteration'] for r in rows_a]}")
+    _check(counts.get("fused_fvp", 0) >= 11 * 4,
+           f"[learn] K1 launched {counts.get('fused_fvp', 0)} times")
+    _check(counts.get("reverse_scan", 0) >= 4,
+           f"[learn] K2 launched {counts.get('reverse_scan', 0)} times")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[learn] a plain version ran: {plain}")
+    _check(any(line.startswith("greedy eval:") for line in lines),
+           "[learn] no greedy eval line")
+    _check(Checkpointer(str(ck_a)).all_steps() == [2, 4],
+           f"[learn] steps {Checkpointer(str(ck_a)).all_steps()}")
+
+    # the second run starts from a directory that holds step 2 only
+    ck_b.mkdir()
+    shutil.copytree(ck_a / "step_2", ck_b / "step_2")
+    for name in ("step_2.complete", ".markers_enabled"):
+        shutil.copy(ck_a / name, ck_b / name)
+    code, lines = _main_quiet(base + [
+        "--iterations", "2", "--checkpoint-dir", str(ck_b), "--resume",
+        "--log-jsonl", str(work / "b.jsonl")])
+    for line in lines:
+        print(f"[learn] resumed run: {line}", flush=True)
+    _check(code == 0 and "resumed from step 2" in lines,
+           f"[learn] the resumed run exited {code}: {lines}")
+
+    cfg = get_preset("humanoid-sim")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final_a = Checkpointer(str(ck_a)).restore(agent.init_state())
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    final_b = Checkpointer(str(ck_b)).restore(agent.init_state())
+    diff = _state_diff(torch, final_a, final_b)
+    rows_b = [json.loads(x) for x in
+              (work / "b.jsonl").read_text().splitlines()]
+    clock = ("time_elapsed_min", "iteration_ms", "reward_running")
+    row_diff = [
+        (ra["iteration"], k) for ra, rb in zip(rows_a[2:], rows_b)
+        for k in ra if k not in clock and ra[k] != rb[k]
+        and not (ra[k] != ra[k] and rb[k] != rb[k])]
+    print(f"[learn] resume from step 2 against the uninterrupted run at "
+          f"step 4: {'bitwise equal' if not diff else diff} over "
+          f"{len(tree_leaves(final_a))} leaves; rows 3-4 "
+          f"{'equal' if not row_diff else row_diff}", flush=True)
+    _check(not diff, f"[learn] resumed state differs: {diff}")
+    _check(len(rows_b) == 2 and not row_diff,
+           f"[learn] resumed rows differ: {row_diff}")
+
+    t0 = time.perf_counter()
+    Checkpointer(str(work / "timing")).save(4, final_a)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = os.path.getsize(work / "timing" / "step_4" / "tensors.pt")
+
+    # learn's iteration against a bare run_iteration, from one state, in
+    # the order bare, learn, learn, bare (the host clock drifts)
+    def bare():
+        st = copy_state(final_a)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            st, _ = agent.run_iteration(st)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / 2
+
+    every = TRPOAgent(cfg.env, cfg.replace(checkpoint_every=1), device=dev)
+
+    def learned(tag):
+        st = copy_state(final_a)
+        ck = Checkpointer(str(work / f"cadence_{tag}"))
+        logger = StatsLogger(jsonl_path=str(work / f"cadence_{tag}.jsonl"),
+                             stream=io.StringIO())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            every.learn(n_iterations=2, state=st, logger=logger,
+                        checkpointer=ck)
+        finally:
+            logger.close()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / 2
+
+    times = [bare(), learned("1"), learned("2"), bare()]
+    print(f"[learn] checkpoint of the flagship state ({nbytes / 1e6:.2f} MB "
+          f"of tensors): save {save_ms:.1f} ms, restore {restore_ms:.1f} ms"
+          f" | iteration ms, bare run_iteration against learn() with JSONL "
+          f"and a checkpoint every iteration (bare, learn, learn, bare): "
+          f"{', '.join(f'{x:.1f}' for x in times)}; learn adds "
+          f"{(times[1] + times[2] - times[0] - times[3]) / 2:.1f} ms",
+          flush=True)
+    return counts
+
+
+def phase_norm(torch, dev):
+    """``halfcheetah-sim`` with running observation normalization: the
+    update replays normalized observations through the raw policy, so it
+    must still launch K1."""
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("halfcheetah-sim").replace(normalize_obs=True)
+    agent, state, _, counts = _drive(torch, dev, "norm", cfg, 2)
+    _check(counts.get("fused_fvp", 0) >= 11 * 2,
+           f"[norm] K1 launched {counts.get('fused_fvp', 0)} times")
+    stats = state.obs_norm
+    batch = agent.n_steps * agent.n_envs
+    _check(float(stats.count) == 2 * batch,
+           f"[norm] obs_norm count {float(stats.count)} != {2 * batch}")
+    finite = all(bool(torch.isfinite(t).all()) for t in stats)
+    _check(finite, "[norm] obs_norm statistics are not finite")
+    std = torch.sqrt(stats.m2 / stats.count)
+    print(f"[norm] obs_norm after 2 iterations: count {float(stats.count):g}"
+          f", |mean| max {stats.mean.abs().max().item():.4g}, std range "
+          f"[{std.min().item():.4g}, {std.max().item():.4g}]", flush=True)
+    return counts
+
+
+def phase_preempt(torch, dev):
+    """A child ``python -m trpo_torch.train`` is sent SIGTERM once its
+    first checkpoint is complete: it finishes the iteration in flight,
+    writes a final checkpoint and exits 75."""
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    work = WORK / "preempt"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck, jsonl = work / "ck", work / "run.jsonl"
+    child = subprocess.Popen(
+        [sys.executable, "-m", "trpo_torch.train", "--preset",
+         "humanoid-sim", "--iterations", "1000", "--device", str(dev),
+         "--checkpoint-dir", str(ck), "--checkpoint-every", "1",
+         "--log-jsonl", str(jsonl)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not (ck / "step_1.complete").exists():
+            _check(child.poll() is None,
+                   f"[preempt] the child exited {child.returncode} early")
+            _check(time.monotonic() < deadline,
+                   "[preempt] no checkpoint within 300 s")
+            time.sleep(0.05)
+        t0 = time.perf_counter()
+        child.send_signal(signal.SIGTERM)
+        out, _ = child.communicate(timeout=300)
+        exit_s = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    step = Checkpointer(str(ck)).latest_step()
+    rows = [json.loads(x) for x in jsonl.read_text().splitlines()]
+    said = [line for line in out.splitlines()
+            if line.startswith("preempted")]
+    print(f"[preempt] exit code {child.returncode} {exit_s:.2f} s after "
+          f"SIGTERM; newest complete checkpoint {step}; last JSONL row "
+          f"{rows[-1]['iteration']}; {said}", flush=True)
+    _check(child.returncode == 75,
+           f"[preempt] exit code {child.returncode}:\n{out[-3000:]}")
+    _check(step == rows[-1]["iteration"] and step >= 1,
+           f"[preempt] checkpoint {step} against last row "
+           f"{rows[-1]['iteration']}")
+
+
+def phase_bench(torch):
+    from trpo_torch import bench
+
+    res = bench.run("cuda")
+    print(f"[bench] {json.dumps(res)}", flush=True)
+    values = [res["value"], res["update_ms"], res["vs_baseline"],
+              *res["paths"].values()]
+    _check(all(math.isfinite(v) and v > 0 for v in values),
+           f"[bench] not every number is finite and positive: {res}")
+
+
 def main() -> int:
     import torch
 
@@ -811,6 +1086,10 @@ def main() -> int:
         phase_fleet(torch, dev, stages)
         phase_cartpole(torch, dev)
         phase_small_reference(torch, dev)
+        phase_learn(torch, dev)
+        phase_norm(torch, dev)
+        phase_preempt(torch, dev)
+        phase_bench(torch)
 
     kernels = [
         {"name": "fused_gauss_newton_fvp", "route": "cuda",

@@ -138,7 +138,7 @@ def test_presets_match_reference_training_fields():
         {"policy_experts": 4},
         {"cg_precondition": True},
         {"env": "pong-sim"},
-        {"normalize_obs": True},
+        {"env": "gym:Humanoid-v4"},
         {"policy_gru": 8},
         {"cg_precondition": "jacobi"},
         {"fvp_mode": "jvp_grad"},
@@ -160,6 +160,7 @@ def test_unported_paths_raise(override):
         {"adaptive_damping": True},
         {"rollout_chunk": 2, "n_envs": 8, "batch_timesteps": 64},
         {"compute_dtype": "bfloat16"},
+        {"normalize_obs": True},
     ],
 )
 def test_ladder_and_fleet_paths_are_ported(override):

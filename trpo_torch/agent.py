@@ -1,5 +1,6 @@
-"""``TRPOAgent`` — one training iteration on a device env (counterpart:
-``trpo_tpu/agent.py``, the device-env feedforward path).
+"""``TRPOAgent`` — training on a device env (counterpart:
+``trpo_tpu/agent.py``, the device-env feedforward path and its serial
+``learn`` loop).
 
 An iteration is: on-device rollout (``rollout.device_rollout``, in
 time-chunks with ``cfg.rollout_chunk``) → GAE over
@@ -9,6 +10,22 @@ CG matvec is the fused FVP kernel) → the critic fit (``vf.py``) → the
 stats dict, with the keys of the reference's ``_vf_stats_phase``. The
 damping λ (``cfg.adaptive_damping``) and the solver ladder's state ride
 ``TrainState.cg_damping`` and ``TrainState.ladder`` from update to update.
+
+With ``cfg.normalize_obs`` the rollout's policy normalizes its inputs with
+``TrainState.obs_norm`` as of the start of the iteration; the update and
+the critic replay the trajectory's observations normalized with the same
+statistics, through the raw policy (so the update still reaches the fused
+FVP kernel), and the raw observations are folded into the statistics for
+the next iteration.
+
+``learn`` is the reference's serial training loop: chunks of
+``cfg.fuse_iterations`` iterations (``run_iterations``), the chunk's stats
+brought to the host in one transfer, a JSONL row per iteration
+(``utils/metrics.StatsLogger``), the stop rules, a checkpoint every
+``cfg.checkpoint_every`` iterations, the preemption exit and the NaN
+recovery (``resilience``). The reference's overlapped and host-async
+loops, its telemetry and its fault injector are not ported (ROADMAP.md
+Queue 1 items 13, 15 and 18).
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -24,6 +41,7 @@ import torch
 
 from trpo_torch import envs as envs_lib
 from trpo_torch.config import TRPOConfig, check_ported
+from trpo_torch.envs.episode_stats import RunningEpisodeMean
 from trpo_torch.models.policy import make_policy
 from trpo_torch.ops.flat import tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
@@ -36,7 +54,10 @@ from trpo_torch.trpo import (
     make_trpo_update,
     standardize_advantages,
 )
-from trpo_torch.utils.metrics import explained_variance
+from trpo_torch.resilience import Preempted, PreemptionGuard, RecoveryPolicy
+from trpo_torch.utils.metrics import StatsLogger, explained_variance
+from trpo_torch.utils.normalize import init_stats, normalize, update_stats
+from trpo_torch.utils.timers import PhaseTimer
 from trpo_torch.vf import VFState, create_value_function
 
 __all__ = ["TRPOAgent", "TrainState", "resolve_device"]
@@ -68,6 +89,8 @@ class TrainState(NamedTuple):
     precond: Any = None            # ops.precond.PrecondState or None
     cg_damping: Any = None         # f32 device scalar with adaptive_damping
     ladder: Any = None             # trpo.LadderState when the ladder is on
+    obs_norm: Any = None           # utils.normalize.RunningStats with
+    #                                cfg.normalize_obs
 
 
 def _to(tree, device):
@@ -142,6 +165,24 @@ class TRPOAgent:
             if self.cfg.adaptive_damping else None,
             ladder=init_ladder(self.cfg, self.device)
             if self._ladder_stateful else None,
+            obs_norm=init_stats(self.obs_shape, self.device)
+            if self.cfg.normalize_obs else None,
+        )
+
+    def _normed_policy(self, stats):
+        """The policy with ``stats``-normalization in front of it (the
+        policy itself when ``stats`` is None), for the rollout. It drops
+        ``mlp_spec``: the fused FVP kernel reads raw inputs, so this
+        wrapper must never pass for a plain MLP. The update runs the raw
+        policy on normalized data instead."""
+        if stats is None:
+            return self.policy
+        pol = self.policy
+        return pol._replace(
+            apply=lambda p, o: pol.apply(p, normalize(stats, o)),
+            apply_cast=lambda p, o, dt: pol.apply_cast(
+                p, normalize(stats, o), dt),
+            mlp_spec=None,
         )
 
     def _vf_features(self, traj: Trajectory):
@@ -168,6 +209,15 @@ class TRPOAgent:
         cfg = self.cfg
         T, N = traj.rewards.shape
         flat = lambda x: x.reshape((T * N,) + x.shape[2:])  # noqa: E731
+
+        new_obs_norm = stats = train_state.obs_norm
+        if stats is not None:
+            # the statistics the rollout used, so the replayed
+            # distributions match old_dist; the raw observations are
+            # folded in afterwards, for the next iteration
+            new_obs_norm = update_stats(stats, flat(traj.obs))
+            traj = traj._replace(obs=normalize(stats, traj.obs),
+                                 next_obs=normalize(stats, traj.next_obs))
 
         adv, vtarg, values = self._advantages(train_state.vf_state, traj)
         weight = torch.ones(T * N, device=adv.device)
@@ -212,6 +262,7 @@ class TRPOAgent:
             ladder=trpo_stats.ladder_next
             if trpo_stats.ladder_next is not None
             else train_state.ladder,
+            obs_norm=new_obs_norm,
         )
         fit_pack = {
             "vf_in": vf_in,
@@ -287,9 +338,264 @@ class TRPOAgent:
         """One training iteration; returns ``(new_state, stats)`` with the
         stats as 0-d tensors (read them on the host when needed)."""
         new_carry, traj = device_rollout(
-            self.env, self.policy, train_state.policy_params,
-            train_state.env_carry, train_state.rng, self.n_steps,
-            chunk=self.cfg.rollout_chunk,
+            self.env, self._normed_policy(train_state.obs_norm),
+            train_state.policy_params, train_state.env_carry,
+            train_state.rng, self.n_steps, chunk=self.cfg.rollout_chunk,
         )
         train_state = train_state._replace(env_carry=new_carry)
         return self._process_trajectory(train_state, traj)
+
+    def run_iterations(self, train_state: TrainState, n: int):
+        """``n`` iterations back to back with no host read in between
+        (beyond an audited update's one read of the ladder's pin flag);
+        returns ``(state, stats)`` with every stat stacked on the device
+        along a leading ``(n,)`` axis."""
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        rows = []
+        for _ in range(n):
+            train_state, stats = self.run_iteration(train_state)
+            rows.append(stats)
+        return train_state, {
+            k: torch.stack([torch.as_tensor(r[k], device=self.device)
+                            for r in rows])
+            for k in rows[0]
+        }
+
+    # ------------------------------------------------------------------
+    # act and greedy evaluation
+    # ------------------------------------------------------------------
+
+    def act(self, state: TrainState, obs, generator=None,
+            eval_mode: bool = False):
+        """Sample (train) or take the mode (eval: the Gaussian mean, the
+        categorical argmax) of the policy at ``obs``, one observation or a
+        batch, normalized with ``state.obs_norm``. Returns ``(action,
+        dist_params)``. Train mode needs an explicit ``generator``: a
+        silent default would sample the same action on every call."""
+        if generator is None and not eval_mode:
+            raise ValueError(
+                "act(eval_mode=False) needs an explicit torch.Generator; "
+                "pass generator=... or use eval_mode=True"
+            )
+        obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
+        if state.obs_norm is not None:
+            obs = normalize(state.obs_norm, obs)
+        squeeze = obs.ndim == len(self.obs_shape)
+        if squeeze:
+            obs = obs[None]
+        with torch.no_grad():
+            dist = self.policy.apply(state.policy_params, obs)
+            if eval_mode:
+                action = self.policy.dist.mode(dist)
+            else:
+                action = self.policy.dist.sample(dist, generator=generator)
+        if squeeze:
+            action = action[0]
+            dist = {k: v[0] for k, v in dist.items()}
+        return action, dist
+
+    def evaluate(self, train_state: TrainState,
+                 n_steps: Optional[int] = None, seed: int = 0):
+        """Greedy evaluation: ``n_steps`` per env (default: one training
+        window) of mode actions on a fresh carry from a generator seeded
+        by ``seed``; the training carry and generator are untouched.
+        Returns ``(mean_episode_reward, episodes_completed)`` over the
+        episodes that finish in the window; with none finished, the mean
+        partial-episode return (a lower bound) and 0."""
+        n_steps = self.n_steps if n_steps is None else n_steps
+        if n_steps < 1:
+            raise ValueError(f"n_steps must be >= 1, got {n_steps}")
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        carry = init_env_states(self.env, self.n_envs, gen)
+        _, traj = device_rollout(
+            self.env, self._normed_policy(train_state.obs_norm),
+            train_state.policy_params, carry, gen, n_steps,
+            deterministic=True,
+        )
+        done = traj.done
+        n_done = done.sum()
+        mean_done = torch.sum(traj.episode_return * done) / torch.clamp(
+            n_done, min=1)
+        n_done, mean_done, mean_partial = torch.stack([
+            n_done.double(), mean_done.double(),
+            traj.episode_return[-1].mean().double()]).tolist()
+        if n_done:
+            return mean_done, int(n_done)
+        return mean_partial, 0
+
+    # ------------------------------------------------------------------
+    # learn: the serial training loop
+    # ------------------------------------------------------------------
+
+    def learn(self, n_iterations: Optional[int] = None,
+              state: Optional[TrainState] = None,
+              logger: Optional[StatsLogger] = None, checkpointer=None,
+              callback=None) -> TrainState:
+        """Train for ``n_iterations`` more iterations (``cfg.n_iterations``
+        by default) from ``state`` (a fresh ``init_state()`` by default);
+        returns the final state.
+
+        Stops early on ``cfg.reward_target`` or
+        ``cfg.stop_on_explained_variance``, checked per iteration but
+        acted on at the end of a chunk; raises ``FloatingPointError`` on
+        NaN entropy after logging the row, unless
+        ``cfg.recover_on_nan="restore"`` (``resilience.recovery``). With
+        ``cfg.on_preempt="checkpoint"`` a SIGTERM/SIGINT ends the run at
+        the next chunk boundary with a final checkpoint and
+        ``resilience.Preempted``. ``callback(state, stats)`` runs once per
+        chunk with the chunk's last row; ``checkpointer`` (a
+        ``utils.checkpoint.Checkpointer``) saves whenever a chunk crosses
+        a multiple of ``cfg.checkpoint_every``."""
+        cfg = self.cfg
+        n_iterations = n_iterations or cfg.n_iterations
+        state = self.init_state() if state is None else state
+        own_logger = logger is None
+        logger = logger or StatsLogger(jsonl_path=cfg.log_jsonl)
+        timer = PhaseTimer()
+        recovery = (RecoveryPolicy(cfg) if cfg.recover_on_nan == "restore"
+                    else None)
+        guard = PreemptionGuard(enabled=cfg.on_preempt == "checkpoint")
+        chunk = max(1, cfg.fuse_iterations)
+        steps_per_iter = self.n_steps * self.n_envs
+        reward_running = RunningEpisodeMean()
+        # absolute iteration base: the recovery rewind counts in absolute
+        # iterations, across a resume
+        it0 = state.iteration
+        try:
+            with guard:
+                done = 0
+                while done < n_iterations:
+                    if guard.triggered:
+                        # every finished chunk's rows are processed, so
+                        # the state is clean to persist
+                        self._preempt_shutdown(state, checkpointer, guard)
+                    if recovery is not None:
+                        recovery.snapshot(it0 + done + 1, state)
+                    k = min(chunk, n_iterations - done)
+                    with timer.phase("iteration"):
+                        state, stack = self.run_iterations(state, k)
+                        rows = _host_rows(stack)
+                    done += k
+                    it_end = state.iteration
+                    per_iter_ms = timer.last_ms("iteration") / k
+                    ts_end = state.total_timesteps
+                    stop = False
+                    host_stats = None
+                    flagged_j = None
+                    if recovery is not None:
+                        # the chunk's first nonfinite row: the whole chunk
+                        # re-runs from its snapshot, so its other rows are
+                        # neither logged nor folded
+                        flagged_j = next(
+                            (j for j, r in enumerate(rows)
+                             if r["entropy"] != r["entropy"]
+                             or r.get("nan_guard")), None)
+                    for j, host_stats in enumerate(rows):
+                        if flagged_j is not None and j != flagged_j:
+                            continue
+                        stop = self._finish_iteration_stats(
+                            host_stats, reward_running, logger,
+                            iteration=it_end - k + 1 + j,
+                            iteration_ms=per_iter_ms,
+                            timesteps_total=ts_end
+                            - (k - 1 - j) * steps_per_iter,
+                            recovery=recovery,
+                        ) or stop
+                    if recovery is not None and recovery.pending is not None:
+                        # before the callback and the checkpoint, so
+                        # neither ever sees the poisoned state
+                        restored_at, state = recovery.recover()
+                        done = restored_at - 1 - it0
+                        continue
+                    if callback is not None:
+                        callback(state, host_stats)
+                    if checkpointer is not None and (
+                        it_end // cfg.checkpoint_every
+                        > (it_end - k) // cfg.checkpoint_every
+                    ):
+                        checkpointer.save(it_end, state)
+                    if stop:
+                        break
+        finally:
+            if own_logger:
+                logger.close()
+        return state
+
+    def _finish_iteration_stats(self, host_stats, reward_running, logger, *,
+                                iteration: int, iteration_ms: float,
+                                timesteps_total: int,
+                                recovery=None) -> bool:
+        """Add the running episode mean, the wall-clock fields and the
+        timestep total to one iteration's host stats, log the row, then
+        apply the stop rules: raise on NaN entropy, return True on
+        ``cfg.reward_target`` or ``cfg.stop_on_explained_variance``. With
+        ``recovery``, a nonfinite row is logged and flagged for the loop
+        instead, and not folded into the running mean."""
+        cfg = self.cfg
+
+        def log():
+            host_stats["reward_running"] = reward_running.mean
+            host_stats["time_elapsed_min"] = logger.elapsed_minutes()
+            host_stats["iteration_ms"] = iteration_ms
+            host_stats["timesteps_total"] = timesteps_total
+            logger.log(iteration, host_stats)
+
+        ent = host_stats["entropy"]
+        if recovery is not None:
+            pend = recovery.pending
+            if pend is not None and iteration > pend[0]:
+                return False
+            if ent != ent or host_stats.get("nan_guard"):
+                log()
+                recovery.flag(iteration,
+                              "nan_entropy" if ent != ent else "nan_guard")
+                return False
+        reward_running.update(host_stats["mean_episode_reward"],
+                              host_stats["episodes_in_batch"])
+        log()
+        if recovery is not None:
+            recovery.mark_clean(iteration)
+        if ent != ent:
+            raise FloatingPointError(
+                "policy entropy is NaN — aborting training")
+        if (cfg.reward_target is not None
+                and host_stats["episodes_in_batch"] > 0
+                and host_stats["mean_episode_reward"] >= cfg.reward_target):
+            return True
+        return (cfg.stop_on_explained_variance is not None
+                and host_stats["vf_explained_variance"]
+                > cfg.stop_on_explained_variance)
+
+    def _preempt_shutdown(self, state: TrainState, checkpointer, guard):
+        """The orderly preemption exit: a final checkpoint (unless the
+        cadence has just written this step), then ``Preempted`` with the
+        requeue exit code."""
+        step = state.iteration
+        saved = False
+        if checkpointer is not None and step > 0:
+            if checkpointer.latest_step() != step:
+                checkpointer.save(step, state)
+            saved = True
+        raise Preempted(
+            f"preempted by signal {guard.signum} after iteration {step}",
+            state=state,
+            step=step if saved else 0,
+            signum=guard.signum,
+            exit_code=self.cfg.requeue_exit_code,
+        )
+
+
+def _host_rows(stack: dict) -> list:
+    """Per-iteration dicts of Python scalars from stats stacked on the
+    device, brought over in ONE transfer: every stat cast to f64 (exact
+    for the f32, int32 and int64 counter values), stacked, one ``.cpu()``.
+    Bools come back as bools, integers as ints."""
+    keys = list(stack)
+    block = torch.stack([stack[k].to(torch.float64) for k in keys])
+    block = block.cpu().tolist()
+    casts = [bool if stack[k].dtype == torch.bool
+             else float if stack[k].is_floating_point() else int
+             for k in keys]
+    return [{k: cast(vals[j]) for k, cast, vals in zip(keys, casts, block)}
+            for j in range(len(block[0]))]

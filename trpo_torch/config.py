@@ -2,8 +2,9 @@
 
 The port keeps its own copy of the training fields of ``TRPOConfig`` and of
 the preset ladder, so a preset name means the same run in both packages.
-Serving, fleet, chaos and observability fields are left out until those
-layers are ported.
+Serving, fleet, chaos and observability fields (``inject_faults``,
+``metrics_jsonl``, ``status_port``, ``memory_accounting``) are left out until
+those layers are ported (ROADMAP.md Queue 1 item 18).
 
 Two differences from the reference:
 
@@ -94,13 +95,40 @@ class TRPOConfig:
     vf_learning_rate: float = 1e-3
     init_log_std: float = 0.0
     compute_dtype: str = "float32"  # or "bfloat16": the policy's matmuls
-    normalize_obs: bool = False    # not ported (ROADMAP Queue 1 item 2)
+    normalize_obs: bool = False    # running observation normalization
+    #                                (utils/normalize.py), device envs
 
     # --- run control -----------------------------------------------------
     seed: int = 1
     n_iterations: int = 1000
+    fuse_iterations: int = 1       # learn() runs this many iterations per
+    #                                chunk (agent.run_iterations) with one
+    #                                stats transfer per chunk; stop
+    #                                conditions fire at chunk granularity
+    reward_target: Optional[float] = None  # stop once a batch's mean
+    #                                episode reward reaches it
+    stop_on_explained_variance: Optional[float] = None  # stop once the
+    #                                critic's explained variance exceeds it
+    recover_on_nan: str = "off"    # "off": NaN entropy raises
+    #                                FloatingPointError; "restore": restore
+    #                                the last-good state, escalate
+    #                                cg_damping when adaptive, and raise
+    #                                TrainingDiverged after max_recoveries
+    #                                consecutive failures
+    #                                (resilience/recovery.py)
+    max_recoveries: int = 3
+    on_preempt: str = "checkpoint"  # "checkpoint": SIGTERM/SIGINT write a
+    #                                final checkpoint and raise Preempted
+    #                                (the CLI exits requeue_exit_code);
+    #                                "ignore": default signal behaviour
+    requeue_exit_code: int = 75
     train_overlap: int = 0         # not ported (ROADMAP Queue 1 item 15)
     mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
+
+    # --- io --------------------------------------------------------------
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 10
+    log_jsonl: Optional[str] = None
 
     def __post_init__(self):
         if self.fleet_n_envs is not None and self.fleet_n_envs < 1:
@@ -197,6 +225,25 @@ class TRPOConfig:
                 "precond_refresh_every must be >= 1, got "
                 f"{self.precond_refresh_every}"
             )
+        if self.recover_on_nan not in ("off", "restore"):
+            raise ValueError(
+                'recover_on_nan must be "off" or "restore", got '
+                f"{self.recover_on_nan!r}"
+            )
+        if self.on_preempt not in ("checkpoint", "ignore"):
+            raise ValueError(
+                'on_preempt must be "checkpoint" or "ignore", got '
+                f"{self.on_preempt!r}"
+            )
+        if self.max_recoveries < 1:
+            raise ValueError(
+                f"max_recoveries must be >= 1, got {self.max_recoveries}"
+            )
+        if not 0 < self.requeue_exit_code < 256:
+            raise ValueError(
+                "requeue_exit_code must be in (0, 255], got "
+                f"{self.requeue_exit_code}"
+            )
         if self.adaptive_damping:
             if not self.damping_grow > 1.0:
                 raise ValueError(
@@ -241,8 +288,6 @@ def check_ported(cfg: TRPOConfig) -> None:
         _not_ported("train_overlap", "item 15")
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
-    if cfg.normalize_obs:
-        _not_ported("normalize_obs", "item 2")
     if cfg.policy_gru is not None or cfg.policy_experts is not None:
         _not_ported("recurrent and mixture-of-experts policies", "item 14")
     if cfg.cg_precondition in (True, "jacobi"):

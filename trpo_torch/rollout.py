@@ -55,20 +55,25 @@ def init_env_states(env, n_envs: int, generator: torch.Generator):
 
 
 def _rollout_steps(env, policy: Policy, params, carry, generator,
-                   n_steps: int, action_noise: Optional[torch.Tensor]):
+                   n_steps: int, action_noise: Optional[torch.Tensor],
+                   deterministic: bool = False):
     """``n_steps`` env+policy steps from ``carry``; returns ``(new_carry,
-    Trajectory)`` of ``(n_steps, N, ...)`` tensors."""
+    Trajectory)`` of ``(n_steps, N, ...)`` tensors. ``deterministic``
+    takes the distribution's mode instead of a sample."""
     states, obs, ep_ret, ep_len = carry
     n = obs.shape[0]
     steps = []
     with torch.no_grad():
         for t in range(n_steps):
             dist = policy.apply(params, obs)
-            actions = policy.dist.sample(
-                dist,
-                noise=None if action_noise is None else action_noise[t],
-                generator=generator,
-            )
+            if deterministic:
+                actions = policy.dist.mode(dist)
+            else:
+                actions = policy.dist.sample(
+                    dist,
+                    noise=None if action_noise is None else action_noise[t],
+                    generator=generator,
+                )
             new_states, next_obs, rewards, terminated, truncated = env.step(
                 states, actions
             )
@@ -106,18 +111,21 @@ def _concat(parts):
 
 def device_rollout(env, policy: Policy, params, carry, generator,
                    n_steps: int, action_noise: Optional[torch.Tensor] = None,
-                   chunk: Optional[int] = None):
+                   chunk: Optional[int] = None, deterministic: bool = False):
     """Collect ``n_steps × N`` transitions; returns ``(new_carry,
     Trajectory)``. ``action_noise`` (T, N, ...) passes pre-drawn noise for
     the action samples (standard normals for the Gaussian, standard Gumbel
     draws for the categorical); otherwise they and the reset perturbations
     come from ``generator``. ``chunk`` (a divisor of ``n_steps``) runs the
-    rollout in time-chunks, bit-exact against ``chunk=None``."""
+    rollout in time-chunks, bit-exact against ``chunk=None``.
+    ``deterministic`` acts with the distribution's mode (greedy
+    evaluation); resets still draw from ``generator``."""
     if chunk is None or chunk == n_steps:
         return _rollout_steps(env, policy, params, carry, generator, n_steps,
-                              action_noise)
+                              action_noise, deterministic)
     return ChunkedRollout(env, policy, chunk)(params, carry, generator,
-                                              n_steps, action_noise)
+                                              n_steps, action_noise,
+                                              deterministic)
 
 
 class ChunkedRollout:
@@ -130,7 +138,8 @@ class ChunkedRollout:
         self.env, self.policy, self.chunk = env, policy, chunk
 
     def iter_chunks(self, params, carry, generator, n_steps: int,
-                    action_noise: Optional[torch.Tensor] = None):
+                    action_noise: Optional[torch.Tensor] = None,
+                    deterministic: bool = False):
         """Yield ``(carry_after, Trajectory_chunk)`` per chunk, each
         trajectory ``(chunk, N, ...)``; the last carry is the rollout's."""
         c = self.chunk
@@ -143,15 +152,17 @@ class ChunkedRollout:
             noise = (None if action_noise is None
                      else action_noise[i * c:(i + 1) * c])
             carry, traj = _rollout_steps(self.env, self.policy, params, carry,
-                                         generator, c, noise)
+                                         generator, c, noise, deterministic)
             yield carry, traj
 
     def __call__(self, params, carry, generator, n_steps: int,
-                 action_noise: Optional[torch.Tensor] = None):
+                 action_noise: Optional[torch.Tensor] = None,
+                 deterministic: bool = False):
         """The whole ``(T, N, ...)`` trajectory, assembled from the
         chunks; returns ``(new_carry, Trajectory)``."""
         parts = []
         for carry, traj in self.iter_chunks(params, carry, generator,
-                                            n_steps, action_noise):
+                                            n_steps, action_noise,
+                                            deterministic):
             parts.append(traj)
         return carry, _concat(parts)
