@@ -13,8 +13,8 @@ Phases:
      version;
   3. ``[fvp]`` the fused Gauss-Newton FVP kernel (K1, f32) against its
      plain version and the ``torch.func`` GGN operator, at the training
-     shape and small ragged ones, with the device time of each of its
-     sub-kernels (profiler);
+     shape and small ragged ones (one 9 hidden layers deep), with the
+     device time of each of its sub-kernels (profiler);
   4. ``[fvp-bf16]`` K1-bf16 against its plain bf16 version and against
      K1, at the same shapes and at torsos past 256 wide, beside the
      ``torch.func`` GGN at bf16, with its phase split and bytes by design;
@@ -33,22 +33,35 @@ Phases:
   8. ``[cartpole]`` ``cartpole`` and ``cartpole-fleet``, 2 iterations each;
   9. ``[small]`` one audited update on a small input, on the card against
      the CPU;
- 10. ``[learn]`` the trainer as users run it, ``train.main`` in this
+ 10. ``[pixel]`` ``catch`` (2 iterations) and ``pong-sim`` (3: 8 envs ×
+     256 steps of 84×84×4 uint8 frames, a 1.7M-parameter conv policy) as
+     published, from torch's cuDNN defaults; pong-sim's stage times, its
+     GGN CG ms/iter at 2,048 rows, and its GGN FVP against the CPU's;
+ 11. ``[recurrent]`` ``cartpole-po`` (GRU 64) and its LSTM variant, 2
+     iterations each, with stage times and GGN CG ms/iter;
+ 12. ``[moe]`` ``cartpole`` with 4 experts, 2 iterations;
+ 13. ``[learn]`` the trainer as users run it, ``train.main`` in this
      process on ``humanoid-sim`` as published: 4 iterations with a
      checkpoint every 2, a JSONL log and a greedy evaluation, then a
      second run resumed from step 2 for 2 iterations, whose step-4 state
      must equal the first run's leaf by leaf (bitwise) and whose rows 3-4
      must equal the first run's; the checkpoint's save and restore ms, and
      ``learn``'s iteration against a bare ``run_iteration`` from one state
-     (bare, learn, learn, bare);
- 11. ``[norm]`` ``halfcheetah-sim`` with ``normalize_obs``, 2 iterations:
+     (bare, learn, learn, bare); then ``cartpole``, ``cartpole-po`` and
+     ``pong-sim`` each resumed from step 1 of 2, bitwise;
+ 14. ``[norm]`` ``halfcheetah-sim`` with ``normalize_obs``, 2 iterations:
      the update still goes through K1;
- 12. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
+ 15. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
      SIGTERM after its first checkpoint: it must exit 75 with its last
      finished iteration as the newest complete checkpoint;
- 13. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-12) is driven with the launch counts set to 0 just
-before it and read just after.
+ 16. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-14) is driven with the launch counts set to 0 just
+before it and read just after. The fused kernel's launches on each path
+are checked exactly: Σ(cg_iterations + 1) over its updates (see
+``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
+neither fused kernel nor any plain version, and K2 once per iteration.
+``[main]`` also times the unaudited update with the CG's exit read every
+0 (the masked loop), 1 and 2 iterations.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times by
 CUDA-graph replay: ``iters`` calls captured in one graph and replayed
@@ -96,6 +109,9 @@ K1_BF16_TIGHT = 1e-4
 # a bf16 torso past one accumulator's 256 columns, at the flagship's rows:
 # K1-bf16 runs its chain product by product there
 WIDE_DIMS = (376, 512, 512, 17)
+# a torso deeper than one launch's 7 hidden layers (any depth runs: the
+# launches take the layers in groups), at a small ragged row count
+DEEP_DIMS = (11,) + (40,) * 9 + (5,)
 
 
 class SmokeFailure(RuntimeError):
@@ -263,6 +279,11 @@ def phase_build(torch):
                     or line.startswith("==")):
                 print(f"[build] {line.strip()}")
     print(f"[build] card: {_card_line()}", flush=True)
+    import importlib.util
+
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("gymnasium", "mujoco")}
+    print(f"[build] host simulators importable here: {found}", flush=True)
 
 
 def phase_scan(torch, np, peaks, dev):
@@ -346,6 +367,7 @@ def phase_fvp(torch, np, peaks, dev):
         (300, (11, 96, 160, 5), "tanh", 50),
         (300, (11, 96, 160, 5), "relu", 50),
         (257, (7, 33, 5), "elu", 17),
+        (203, DEEP_DIMS, "tanh", 17),
     ]
     rec, phases = {}, []
     for rows, dims, activation, zero_tail in cases:
@@ -462,6 +484,7 @@ def phase_fvp_bf16(torch, np, peaks, dev, k1_ms):
         (257, (7, 33, 5), "elu", 17),
         (129, (376, 33, 33, 17), "tanh", 20),
         (300, (376, 512, 17), "tanh", 50),  # past 256: product by product
+        (203, DEEP_DIMS, "tanh", 17),  # past 7 hidden: product by product
         (flagship_rows, WIDE_DIMS, "tanh", 0),
     ]
     rec, wide = {}, {}
@@ -589,14 +612,92 @@ def _finite(torch, value) -> bool:
     return math.isfinite(float(value))
 
 
-def _drive(torch, dev, tag, cfg, n_iter):
+@contextlib.contextmanager
+def _updates():
+    """Record every TRPO update of every agent built inside: its launches
+    of K1 and K1-bf16, and its stats' cg_iterations_cheap, cg_iterations
+    and solve_fallback (device scalars, read after the run: the recorder
+    adds no sync)."""
+    import trpo_torch.agent as agent_mod
+    from trpo_torch.ops import _build
+
+    real = agent_mod.make_trpo_update
+    log = []
+
+    def make(policy, cfg):
+        update = real(policy, cfg)
+
+        def recorded(*args, **kw):
+            before = {k: _build.LAUNCHES[k] for k in _FVP_KERNELS}
+            params, stats = update(*args, **kw)
+            log.append(({k: _build.LAUNCHES[k] - n
+                         for k, n in before.items()},
+                        stats.cg_iterations_cheap, stats.cg_iterations,
+                        stats.solve_fallback))
+            return params, stats
+
+        return recorded
+
+    agent_mod.make_trpo_update = make
+    try:
+        yield log
+    finally:
+        agent_mod.make_trpo_update = real
+
+
+_FVP_KERNELS = ("fused_fvp", "fused_fvp_bf16")
+
+
+def _exact_fvp_launches(tag, kernel, rows, log, counts) -> None:
+    """The fused kernel's launches over a run, exactly. From
+    ``trpo._solve_stage``: every update runs its cheap solve on ``kernel``
+    (K1, or K1-bf16 on the bf16 rung) unless the ladder is pinned; the
+    audit's full solve runs the torch.func GGN. ``ops/cg.py`` calls the
+    operator once per CG iteration that takes effect, and the solve calls
+    it once more for sᵀFs. So the launches are Σ (cg_iterations + 1) over
+    the run's stat rows, except that a row that used the full solution
+    (``solve_fallback``; its cg_iterations are the full solve's) counts
+    its cheap solve's ``cg_iterations_cheap`` instead, and a pinned
+    update's cheap solve (cg_iterations_cheap = -1) counts 0."""
+    _check(len(log) == len(rows),
+           f"[{tag}] {len(log)} updates recorded for {len(rows)} rows")
+    expected = 0
+    for i, (row, (launched, cheap, used, fallback)) in enumerate(
+            zip(rows, log)):
+        cheap = int(cheap)
+        _check(int(used) == row["cg_iterations"],
+               f"[{tag}] update {i + 1}: the row says {row['cg_iterations']}"
+               f" CG iterations, the update {int(used)}")
+        if not bool(fallback) and cheap >= 0:
+            _check(cheap == row["cg_iterations"],
+                   f"[{tag}] update {i + 1}: cheap solve {cheap} iterations,"
+                   f" row {row['cg_iterations']}")
+        _check(launched[kernel] == cheap + 1,
+               f"[{tag}] update {i + 1} launched {kernel} "
+               f"{launched[kernel]} times; its cheap solve ran {cheap} "
+               "iterations")
+        expected += cheap + 1
+    _check(counts.get(kernel, 0) == expected,
+           f"[{tag}] {kernel} launched {counts.get(kernel, 0)} times, "
+           f"expected exactly {expected}")
+    print(f"[{tag}] {kernel} launches {expected} = Σ(cg_iterations + 1) "
+          f"over {len(rows)} updates (cg_iterations "
+          f"{[r['cg_iterations'] for r in rows]}, fallbacks "
+          f"{[bool(f) for *_, f in log]})", flush=True)
+
+
+def _drive(torch, dev, tag, cfg, n_iter, kernel="fused_fvp"):
     """``n_iter`` ``run_iteration`` calls on a fresh agent (seed 0), every
     launch count set to 0 just before and read just after; checks the
-    stats. Returns (agent, state, per-iteration stats, counts)."""
+    stats, and the launches of ``kernel`` (the cheap operator's fused
+    kernel) exactly, or with ``kernel=None`` (a policy the fused kernels
+    do not cover) that neither fused kernel ran. Returns (agent, state,
+    per-iteration stats, counts)."""
     from trpo_torch.agent import TRPOAgent
     from trpo_torch.ops import _build
 
-    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    with _updates() as log:
+        agent = TRPOAgent(cfg.env, cfg, device=dev)
     state = agent.init_state(seed=0)
     rows = []
     torch.cuda.synchronize()
@@ -623,11 +724,17 @@ def _drive(torch, dev, tag, cfg, n_iter):
                f"[{tag}] kl_old_new {vals['kl_old_new']} > 2·max_kl")
     counts = dict(_build.LAUNCHES)
     print(f"[{tag}] launches over {n_iter} iterations: {counts}", flush=True)
-    _check(counts.get("reverse_scan", 0) >= n_iter,
+    _check(counts.get("reverse_scan", 0) == n_iter,
            f"[{tag}] reverse scan launched {counts.get('reverse_scan', 0)} "
-           "times")
+           f"times over {n_iter} iterations")
     plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
     _check(not plain, f"[{tag}] a plain version ran: {plain}")
+    if kernel is None:
+        fused = {k: counts.get(k, 0) for k in _FVP_KERNELS}
+        _check(not any(fused.values()),
+               f"[{tag}] a fused FVP kernel ran on a GGN path: {fused}")
+    else:
+        _exact_fvp_launches(tag, kernel, rows, log[:n_iter], counts)
     return agent, state, rows, counts
 
 
@@ -641,20 +748,81 @@ def phase_main_path(torch, dev):
     _check(bool(rows[0]["solve_audited"]), "[main] update 1 was not audited")
     _check(math.isfinite(rows[0]["solve_cosine"]),
            f"[main] solve_cosine {rows[0]['solve_cosine']} is not finite")
-    _check(counts.get("fused_fvp", 0) >= cfg.cg_iters + 1
-           and counts.get("fused_fvp", 0) >= 11 * n_iter,
-           f"[main] K1 launched {counts.get('fused_fvp', 0)} times")
     print(f"[main] update 1 audit: solve_cosine={rows[0]['solve_cosine']:.6f}"
           f" fallback={rows[0]['solve_fallback']}", flush=True)
     # the next update is unaudited (step 3 of 25); the audited one runs on
     # the ladder advanced to the next audit step
     plain_ms = _stage_breakdown(torch, agent, state, "main", "unaudited")
+    # the early exit's saving shows on a solve that converges: update 1's
+    # (5 iterations on seed 0), here unaudited with its ladder one step on
+    fresh = agent.init_state(seed=0)
+    lad = fresh.ladder
+    fresh = fresh._replace(ladder=lad._replace(
+        step=torch.ones_like(lad.step), step_host=1))
+    _cg_cadence(torch, agent, {"update 1 unaudited": fresh,
+                               "update 4": state})
     lad = state.ladder
     step = -(-lad.step_host // cfg.solve_audit_every) * cfg.solve_audit_every
     audited = state._replace(ladder=lad._replace(
         step=torch.full_like(lad.step, step), step_host=step))
     audit_ms = _stage_breakdown(torch, agent, audited, "main", "audited")
     return counts, {"unaudited": plain_ms, "audited": audit_ms}, (agent, state)
+
+
+def _cg_cadence(torch, agent, states) -> None:
+    """The unaudited update's policy phase (GAE and the update) with the
+    CG's exit mask read by the host every k iterations
+    (``ops/cg.CHECK_EVERY``): k = 0, the masked loop that always runs 10
+    iterations (the CG before its early exit), against k = 1 (the
+    default) and k = 2, in the order 0, 1, 2, 2, 1, 0, from each of
+    ``states`` (label -> state) on one rollout window each: the host-clock
+    median of 7 runs of the phase, and one more under the profiler for K1's
+    launches and device time."""
+    from trpo_torch.ops import _build, cg
+    from trpo_torch.rollout import device_rollout
+
+    for label, state in states.items():
+        _, traj = device_rollout(agent.env, agent.policy,
+                                 state.policy_params, state.env_carry,
+                                 state.rng, agent.n_steps)
+        agent._policy_phase(state, traj)  # warm-up
+        runs = {}
+        try:
+            for k in (0, 1, 2, 2, 1, 0):
+                cg.CHECK_EVERY = k
+                ms = []
+                for _ in range(7):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    agent._policy_phase(state, traj)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                before = _build.LAUNCHES["fused_fvp"]
+                _, launches = _kernel_phases(
+                    torch, lambda: agent._policy_phase(state, traj), reps=1)
+                runs.setdefault(k, []).append({
+                    "ms": sorted(ms)[3],
+                    "k1": (_build.LAUNCHES["fused_fvp"] - before) // 2,
+                    "k1_device": sum(us for n, us in launches
+                                     if n.startswith("fvp")) / 1e3,
+                    "device": sum(us for _, us in launches) / 1e3})
+        finally:
+            cg.CHECK_EVERY = 1
+
+        def line(k):
+            mean = {key: sum(r[key] for r in runs[k]) / len(runs[k])
+                    for key in runs[k][0]}
+            passes = ", ".join(f"{r['ms']:.2f}" for r in runs[k])
+            return (f"k={k}{' (masked, no early exit)' if k == 0 else ''}: "
+                    f"K1 launches {runs[k][0]['k1']}, K1 device ms "
+                    f"{mean['k1_device']:.3f}, policy phase ms "
+                    f"{mean['ms']:.2f} (passes {passes}), device idle "
+                    f"{1.0 - mean['device'] / mean['ms']:.2f}")
+
+        print(f"[main] CG exit read every k iterations, {label} (order 0, "
+              "1, 2, 2, 1, 0; policy phase = GAE + the unaudited update, "
+              "median of 7, mean of the two passes): "
+              + "; ".join(line(k) for k in (0, 1, 2)), flush=True)
 
 
 def phase_bf16(torch, dev, main_run):
@@ -667,14 +835,11 @@ def phase_bf16(torch, dev, main_run):
 
     cfg = get_preset("humanoid-sim").replace(fvp_dtype="bf16")
     n_iter = 3
-    agent, state, rows, counts = _drive(torch, dev, "bf16", cfg, n_iter)
-    unpinned = sum(1 for r in rows if not r["solve_pinned"])
+    agent, state, rows, counts = _drive(torch, dev, "bf16", cfg, n_iter,
+                                        kernel="fused_fvp_bf16")
     print(f"[bf16] update 1 audit: solve_cosine={rows[0]['solve_cosine']:.6f}"
           f" fallback={rows[0]['solve_fallback']} (floor "
           f"{cfg.solve_cosine_floor})", flush=True)
-    _check(counts.get("fused_fvp_bf16", 0) >= (cfg.cg_iters + 1) * unpinned,
-           f"[bf16] K1-bf16 launched {counts.get('fused_fvp_bf16', 0)} times"
-           f" over {unpinned} unpinned iterations")
     _check(counts.get("fused_fvp", 0) == 0,
            f"[bf16] f32 K1 ran in the cheap solve: {counts}")
     runs = [("main", *main_run), ("bf16", agent, state)]
@@ -710,8 +875,15 @@ def phase_fleet(torch, dev, main_stages):
 def phase_cartpole(torch, dev):
     from trpo_torch.config import get_preset
 
+    counts = {}
     for name in ("cartpole", "cartpole-fleet"):
-        _drive(torch, dev, "cartpole", get_preset(name), 2)
+        counts = _add(counts, _drive(torch, dev, "cartpole",
+                                     get_preset(name), 2, kernel=None)[3])
+    return counts
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
 
 
 def _stage_breakdown(torch, agent, state, tag, label, reps: int = 3):
@@ -723,6 +895,7 @@ def _stage_breakdown(torch, agent, state, tag, label, reps: int = 3):
     Then one more policy phase (GAE + update) under the profiler: the
     device time of its kernels, against the phase's median host time,
     gives the device's idle share there."""
+    from trpo_torch.ops import _build
     from trpo_torch.rollout import device_rollout
 
     def timed(fn):
@@ -746,9 +919,14 @@ def _stage_breakdown(torch, agent, state, tag, label, reps: int = 3):
                         "vf_fit": vf_ms})
     med = {k: sorted(x[k] for x in samples)[reps // 2] for k in samples[0]}
     st = state._replace(env_carry=carry)
+    before = _build.LAUNCHES["fused_fvp"]
     _, launches = _kernel_phases(
         torch, lambda: agent._policy_phase(st, traj), reps=1)
+    # _kernel_phases runs the phase twice (a warm-up, then the profiled one)
+    med["k1_launches"] = (_build.LAUNCHES["fused_fvp"] - before) // 2
     med["policy_device"] = sum(us for _, us in launches) / 1e3
+    med["k1_device"] = sum(us for name, us in launches
+                           if name.startswith("fvp")) / 1e3
     updates = ", ".join(f"{x['update']:.1f}" for x in samples)
     print(f"[{tag}] stage ms{' (' + label + ' update)' if label else ''}, "
           f"median of {reps}: rollout={med['rollout']:.1f} "
@@ -866,9 +1044,10 @@ def phase_learn(torch, dev):
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
-    code, lines = _main_quiet(base + [
-        "--iterations", "4", "--checkpoint-dir", str(ck_a),
-        "--log-jsonl", str(work / "a.jsonl"), "--evaluate", "500"])
+    with _updates() as log:
+        code, lines = _main_quiet(base + [
+            "--iterations", "4", "--checkpoint-dir", str(ck_a),
+            "--log-jsonl", str(work / "a.jsonl"), "--evaluate", "500"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
@@ -882,9 +1061,9 @@ def phase_learn(torch, dev):
           f"{[round(r['iteration_ms'], 1) for r in rows_a]}", flush=True)
     _check([r["iteration"] for r in rows_a] == [1, 2, 3, 4],
            f"[learn] JSONL iterations {[r['iteration'] for r in rows_a]}")
-    _check(counts.get("fused_fvp", 0) >= 11 * 4,
-           f"[learn] K1 launched {counts.get('fused_fvp', 0)} times")
-    _check(counts.get("reverse_scan", 0) >= 4,
+    # exact, from the JSONL rows (see _exact_fvp_launches)
+    _exact_fvp_launches("learn", "fused_fvp", rows_a, log, counts)
+    _check(counts.get("reverse_scan", 0) == 4,
            f"[learn] K2 launched {counts.get('reverse_scan', 0)} times")
     plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
     _check(not plain, f"[learn] a plain version ran: {plain}")
@@ -971,7 +1150,50 @@ def phase_learn(torch, dev):
           f"{', '.join(f'{x:.1f}' for x in times)}; learn adds "
           f"{(times[1] + times[2] - times[0] - times[3]) / 2:.1f} ms",
           flush=True)
+    for preset in ("cartpole", "cartpole-po", "pong-sim"):
+        _resume_leg(torch, dev, preset)
     return counts
+
+
+def _resume_leg(torch, dev, preset) -> None:
+    """``preset`` as published through ``train.main``: 2 iterations with a
+    checkpoint at each, then a run resumed from a copy of step 1 for 1
+    iteration; its step-2 state must equal the first run's, every leaf
+    bitwise (the categorical head's gather backward, the recurrent carry
+    (h, prev_done), cuDNN's convolutions)."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops.flat import tree_leaves
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    work = WORK / f"resume_{preset}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    a, b = work / "a", work / "b"
+    base = ["--preset", preset, "--device", str(dev), "--checkpoint-every",
+            "1"]
+    t0 = time.perf_counter()
+    code, _ = _main_quiet(base + ["--iterations", "2", "--checkpoint-dir",
+                                  str(a)])
+    _check(code == 0, f"[learn] {preset}: train.main exited {code}")
+    b.mkdir()
+    shutil.copytree(a / "step_1", b / "step_1")
+    for name in ("step_1.complete", ".markers_enabled"):
+        shutil.copy(a / name, b / name)
+    code, lines = _main_quiet(base + ["--iterations", "1", "--resume",
+                                      "--checkpoint-dir", str(b)])
+    _check(code == 0 and "resumed from step 1" in lines,
+           f"[learn] {preset}: the resumed run exited {code}: {lines}")
+    cfg = get_preset(preset)
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    want = Checkpointer(str(a)).restore(agent.init_state(), step=2)
+    got = Checkpointer(str(b)).restore(agent.init_state(), step=2)
+    diff = _state_diff(torch, want, got)
+    print(f"[learn] {preset} resumed from step 1 against the uninterrupted "
+          f"run at step 2: {'bitwise equal' if not diff else diff} over "
+          f"{len(tree_leaves(want))} leaves "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    _check(not diff, f"[learn] {preset}: resumed state differs: {diff}")
 
 
 def phase_norm(torch, dev):
@@ -982,8 +1204,6 @@ def phase_norm(torch, dev):
 
     cfg = get_preset("halfcheetah-sim").replace(normalize_obs=True)
     agent, state, _, counts = _drive(torch, dev, "norm", cfg, 2)
-    _check(counts.get("fused_fvp", 0) >= 11 * 2,
-           f"[norm] K1 launched {counts.get('fused_fvp', 0)} times")
     stats = state.obs_norm
     batch = agent.n_steps * agent.n_envs
     _check(float(stats.count) == 2 * batch,
@@ -1044,6 +1264,169 @@ def phase_preempt(torch, dev):
            f"{rows[-1]['iteration']}")
 
 
+def _ggn_cg_ms(torch, op, g, chain: int, reps: int = 5) -> float:
+    """Median ms per CG iteration, timed as ``trpo_torch.bench`` times CG:
+    ``chain`` chained solves forced to 10 iterations (``residual_tol=0``),
+    CUDA events, after a warm-up; the median of ``reps`` runs."""
+    from trpo_torch.bench import CG_ITERS
+    from trpo_torch.ops.cg import conjugate_gradient
+
+    def chained():
+        x = torch.zeros_like(g)
+        for _ in range(chain):
+            x = conjugate_gradient(op, -(g + 1e-30 * x), CG_ITERS,
+                                   residual_tol=0.0).x
+        return x
+
+    runs = []
+    with torch.no_grad():
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            chained()
+            end.record()
+            torch.cuda.synchronize()
+            if i:  # the first run is the warm-up
+                runs.append(start.elapsed_time(end) / (chain * CG_ITERS))
+    return sorted(runs)[reps // 2]
+
+
+def _family_ggn(torch, np, agent, state, seed: int = 0):
+    """The damped torch.func GGN of ``agent``'s policy over one rollout
+    window from ``state`` (a SeqObs window for a recurrent policy), the
+    flat params and a unit right-hand side: (op, x0, unravel, batch obs,
+    weight, g)."""
+    from trpo_torch.models.recurrent import SeqObs
+    from trpo_torch.ops.flat import flatten_params
+    from trpo_torch.ops.fvp import make_ggn_fvp
+    from trpo_torch.rollout import device_rollout
+
+    _, traj = device_rollout(agent.env, agent.policy, state.policy_params,
+                             state.env_carry, state.rng, agent.n_steps)
+    T, N = traj.rewards.shape
+    if agent.is_recurrent:
+        obs = SeqObs(traj.obs, traj.reset, traj.policy_h0)
+        weight = torch.ones(T, N, device=traj.rewards.device)
+    else:
+        obs = traj.obs.reshape((T * N,) + traj.obs.shape[2:])
+        weight = torch.ones(T * N, device=traj.rewards.device)
+    x0, unravel = flatten_params(state.policy_params)
+    op = make_ggn_fvp(lambda x: agent.policy.apply(unravel(x), obs),
+                      agent.policy.dist.fisher_weight, x0, weight,
+                      damping=agent.cfg.cg_damping)
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(x0.numel()).astype(np.float32)
+    g = torch.as_tensor(g / np.linalg.norm(g), device=x0.device)
+    return op, x0, unravel, obs, weight, g
+
+
+def phase_pixel(torch, np, dev):
+    """``catch`` and ``pong-sim`` as published. torch's cuDNN defaults
+    (TF32 on, benchmark off, nondeterministic algorithms allowed) are
+    restored first, so the path sees what a user's process sees: the agent
+    must set f32, deterministic convolutions itself."""
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.ops.flat import tree_leaves
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    counts = {}
+    for name, n_iter in (("catch", 2), ("pong-sim", 3)):
+        cfg = get_preset(name)
+        agent, state, rows, c = _drive(torch, dev, "pixel", cfg, n_iter,
+                                       kernel=None)
+        counts = _add(counts, c)
+        _check(not torch.backends.cudnn.allow_tf32
+               and torch.backends.cudnn.deterministic,
+               "[pixel] the agent left cuDNN on TF32 or nondeterministic "
+               "algorithms")
+    n_params = sum(t.numel() for t in tree_leaves(state.policy_params))
+    _check(agent.obs_shape == (84, 84, 4) and agent.n_steps == 256
+           and agent.n_envs == 8 and state.env_carry[1].dtype == torch.uint8,
+           f"[pixel] pong-sim ran {agent.n_steps}x{agent.n_envs} over "
+           f"{agent.obs_shape} {state.env_carry[1].dtype}")
+    print(f"[pixel] pong-sim: {agent.n_steps}x{agent.n_envs} window of "
+          f"{agent.obs_shape} uint8 frames, conv policy of {n_params:,} "
+          "parameters", flush=True)
+    _check(n_params >= 1_000_000, f"[pixel] {n_params} parameters")
+    _stage_breakdown(torch, agent, state, "pixel", "pong-sim")
+
+    op, x0, unravel, obs, weight, g = _family_ggn(torch, np, agent, state)
+    _build.reset_launches()
+    ms = _ggn_cg_ms(torch, op, g, chain=4)
+    print(f"[pixel] pong-sim GGN CG ms/iter over {obs.shape[0]} rows "
+          f"(10 forced iterations, 4 chained solves a run, median of 5 "
+          f"runs, CUDA events; the bench's method): {ms:.4f}", flush=True)
+    # the same FVP on the CPU, one fixed v, the same params: an f32 check
+    # of the convolutions (a TF32 one reads ~1e-3)
+    from trpo_torch.ops.fvp import make_ggn_fvp
+
+    rows = min(512, obs.shape[0])
+    v = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        x0.numel()).astype(np.float32), device=dev)
+    with torch.no_grad():
+        fvp_card = make_ggn_fvp(
+            lambda x: agent.policy.apply(unravel(x), obs[:rows]),
+            agent.policy.dist.fisher_weight, x0, weight[:rows],
+            damping=agent.cfg.cg_damping)(v).cpu().double()
+        x0_cpu = x0.cpu()
+        obs_cpu = obs[:rows].cpu()
+        fvp_cpu = make_ggn_fvp(
+            lambda x: agent.policy.apply(unravel(x), obs_cpu),
+            agent.policy.dist.fisher_weight, x0_cpu, weight[:rows].cpu(),
+            damping=agent.cfg.cg_damping)(v.cpu()).double()
+    rel = ((fvp_card - fvp_cpu).norm() / fvp_cpu.norm()).item()
+    print(f"[pixel] pong-sim GGN FVP on the card against the CPU ({rows} "
+          f"rows, one v): rel_err={rel:.3e}", flush=True)
+    _check(rel < K1_RTOL, f"[pixel] card vs CPU conv FVP rel err {rel}")
+    plain = {k: n for k, n in _build.LAUNCHES.items() if n}
+    _check(not plain, f"[pixel] the GGN timing launched {plain}")
+    return counts
+
+
+def phase_recurrent(torch, np, dev):
+    """``cartpole-po`` as published (GRU 64), and the same preset with an
+    LSTM, 2 iterations each; the GRU's stage times and its GGN CG ms/iter
+    (the 125-step window replayed under jvp and vjp at every matvec)."""
+    from trpo_torch.config import get_preset
+
+    counts = {}
+    runs = {}
+    for cell in ("gru", "lstm"):
+        cfg = get_preset("cartpole-po").replace(policy_cell=cell)
+        agent, state, _, c = _drive(torch, dev, "recurrent", cfg, 2,
+                                 kernel=None)
+        counts = _add(counts, c)
+        runs[cell] = (agent, state)
+        _check(agent.is_recurrent and len(state.env_carry) == 6,
+               f"[recurrent] {cell}: no recurrent carry")
+    agent, state = runs["gru"]
+    _stage_breakdown(torch, agent, state, "recurrent", "cartpole-po GRU")
+    for cell, (agent, state) in runs.items():
+        op, _, _, obs, _, g = _family_ggn(torch, np, agent, state)
+        ms = _ggn_cg_ms(torch, op, g, chain=1, reps=1)
+        print(f"[recurrent] cartpole-po {cell} GGN CG ms/iter over a "
+              f"{tuple(obs.reset.shape)} window (10 forced iterations, one "
+              f"solve after a warm-up one, CUDA events): {ms:.3f}",
+              flush=True)
+    return counts
+
+
+def phase_moe(torch, dev):
+    """``cartpole`` with a 4-expert soft mixture, 2 iterations."""
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("cartpole").replace(policy_experts=4)
+    agent, state, _, counts = _drive(torch, dev, "moe", cfg, 2, kernel=None)
+    _check(state.policy_params["experts"]["layers"][0]["w"].shape[0] == 4,
+           "[moe] the policy is not a 4-expert mixture")
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -1078,39 +1461,54 @@ def main() -> int:
         fvp = phase_fvp(torch, np, peaks, dev)
         fvp16 = phase_fvp_bf16(torch, np, peaks, dev, fvp["ms"])
     torch.cuda.synchronize()
-    main_counts, bf16_counts = {}, {}
+    total = {}  # launches over every driven path
     if not kernels_only:
+        t0 = time.perf_counter()
         main_counts, stages, main_run = phase_main_path(torch, dev)
-        bf16_counts = phase_bf16(torch, dev, main_run)
-        del main_run
-        phase_fleet(torch, dev, stages)
-        phase_cartpole(torch, dev)
-        phase_small_reference(torch, dev)
-        phase_learn(torch, dev)
-        phase_norm(torch, dev)
-        phase_preempt(torch, dev)
-        phase_bench(torch)
+        total = _add(total, main_counts)
+        seconds = {"main": time.perf_counter() - t0}
+        for tag, phase in (
+                ("bf16", lambda: phase_bf16(torch, dev, main_run)),
+                ("fleet", lambda: phase_fleet(torch, dev, stages)),
+                ("cartpole", lambda: phase_cartpole(torch, dev)),
+                ("small", lambda: phase_small_reference(torch, dev)),
+                ("pixel", lambda: phase_pixel(torch, np, dev)),
+                ("recurrent", lambda: phase_recurrent(torch, np, dev)),
+                ("moe", lambda: phase_moe(torch, dev)),
+                ("learn", lambda: phase_learn(torch, dev)),
+                ("norm", lambda: phase_norm(torch, dev)),
+                ("preempt", lambda: phase_preempt(torch, dev)),
+                ("bench", lambda: phase_bench(torch))):
+            t0 = time.perf_counter()
+            total = _add(total, phase() or {})
+            seconds[tag] = time.perf_counter() - t0
+            if tag == "bf16":
+                del main_run
+        print(f"[paths] launches over every driven path: {total}",
+              flush=True)
+        print("[time] seconds per phase: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
 
     kernels = [
         {"name": "fused_gauss_newton_fvp", "route": "cuda",
          "source": "trpo_torch/csrc/fused_fvp.cu",
          "replaces": "trpo_tpu/ops/fused_fvp.py:298",
-         "launches": main_counts.get("fused_fvp", 0), **fvp},
+         "launches": total.get("fused_fvp", 0), **fvp},
         {"name": "fused_gauss_newton_fvp_bf16", "route": "cuda",
          "source": "trpo_torch/csrc/fused_fvp_bf16.cu",
          "replaces": "trpo_tpu/ops/fused_fvp.py:298",
-         "launches": bf16_counts.get("fused_fvp_bf16", 0), **fvp16},
+         "launches": total.get("fused_fvp_bf16", 0), **fvp16},
         {"name": "reverse_affine_scan", "route": "cuda",
          "source": "trpo_torch/csrc/reverse_scan.cu",
          "replaces": "trpo_tpu/ops/pallas_scan.py:75",
-         "launches": main_counts.get("reverse_scan", 0), **scan},
+         "launches": total.get("reverse_scan", 0), **scan},
     ]
     print(json.dumps({"kernels": kernels}))
     print(_card_line(), flush=True)
     if kernels_only:
         return 0  # the main path was not driven: no result line
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

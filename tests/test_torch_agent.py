@@ -210,12 +210,15 @@ def test_train_cli_on_cpu(capsys):
 
 
 def test_unported_env_and_preset_paths_raise():
-    # the ladder, the fleet presets and cartpole run now; recurrent and
-    # pixel presets and host envs still raise, naming their ROADMAP item
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TRPOAgent("pong-sim", get_preset("pong-sim"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TRPOAgent("cartpole-po", get_preset("cartpole-po"), device="cpu")
+    # the ladder, the fleet presets, cartpole and the pixel, recurrent and
+    # MoE families run now; the overlap and host envs still raise, naming
+    # their ROADMAP item
+    with pytest.raises(NotImplementedError, match="item 15"):
+        TRPOAgent("cartpole", get_preset("cartpole").replace(
+            train_overlap=1), device="cpu")
+    with pytest.raises(NotImplementedError, match="and 13"):
+        TRPOAgent("gym:HalfCheetah-v4", get_preset("halfcheetah"),
+                  device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TRPOAgent("gym:Humanoid-v4", get_preset("humanoid"), device="cpu")
 

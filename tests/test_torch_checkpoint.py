@@ -66,6 +66,9 @@ def test_save_restore_roundtrip(tmp_path):
     ("humanoid-sim", dict(n_envs=4, batch_timesteps=64,
                           policy_hidden=(16, 16), vf_train_steps=3,
                           adaptive_damping=True)),
+    # the recurrent carry (h, prev_done) and the pixel env's state
+    ("cartpole-po", dict(KW, policy_gru=8, policy_cell="lstm")),
+    ("catch", dict(KW, batch_timesteps=32)),
 ])
 def test_resume_continues_identically(tmp_path, preset, narrow):
     cfg = get_preset(preset).replace(**narrow)

@@ -27,6 +27,7 @@ from trpo_torch.models.policy import BoxSpec, make_policy
 from trpo_torch.ops import _build
 from trpo_torch.ops.flat import flatten_params
 from trpo_torch.ops.fused_fvp import (
+    _MAX_LAYERS,
     fused_fvp_net_plain,
     fused_fvp_supported,
     make_fused_gaussian_mlp_fvp,
@@ -163,6 +164,21 @@ def test_eligibility():
     assert not fused_fvp_supported("tanh", {"layers": p["net"]["layers"][:1]})
 
 
+def test_nine_hidden_layers_are_eligible_and_match_reference_ggn():
+    # any depth, as the reference's fused_fvp_supported: the launches take
+    # the layers in groups of at most _MAX_LAYERS
+    policy, params, obs, weight, v = _problem((24,) * 9, batch=120,
+                                              pad_tail=17)
+    from trpo_tpu.ops.fused_fvp import fused_fvp_supported as tpu_supported
+
+    p = policy_params_from_numpy(params)
+    assert tpu_supported("tanh", params["net"])
+    assert fused_fvp_supported("tanh", p["net"])
+    assert len(p["net"]["layers"]) > _MAX_LAYERS
+    got = _port_fused(params, obs, weight, v, "tanh")
+    assert _rel(got, _tpu_ggn(policy, params, obs, weight, v)) < RTOL
+
+
 # K1 and K1-bf16 take any width (past 256, K1-bf16 runs its chain product
 # by product through device memory): a wide torso stays eligible
 @pytest.mark.parametrize("width", [256, 257, 512])
@@ -180,7 +196,8 @@ def test_bf16_rung_on_a_wide_torso_takes_k1_bf16():
         policy, TRPOConfig(fvp_dtype="bf16", solve_audit_every=1))(
             params, _batch(policy, params, n=16))
     assert bool(torch.isfinite(stats.kl))
-    assert _build.LAUNCHES["fused_fvp_bf16_plain"] == 11
+    assert _build.LAUNCHES["fused_fvp_bf16_plain"] == \
+        int(stats.cg_iterations) + 1
     assert _build.LAUNCHES["fused_fvp_plain"] == 0
 
 
@@ -212,7 +229,9 @@ def test_auto_mode_routes_by_eligibility():
         _, stats = make_trpo_update(policy, TRPOConfig())(
             params, _batch(policy, params))
         assert bool(torch.isfinite(stats.kl))
-        assert (_build.LAUNCHES["fused_fvp_plain"] == 11) == fused
+        # one matvec per CG iteration that took effect, one for sᵀFs
+        assert (_build.LAUNCHES["fused_fvp_plain"]
+                == int(stats.cg_iterations) + 1) == fused
     # a bfloat16 policy, and the ladder's bf16 rung on an f32 one, take
     # K1-bf16 — never silently the GGN, and never the f32 kernel
     for compute_dtype, cfg in (
@@ -227,7 +246,8 @@ def test_auto_mode_routes_by_eligibility():
         _, stats = make_trpo_update(policy, cfg)(
             params, _batch(policy, params))
         assert bool(torch.isfinite(stats.kl))
-        assert _build.LAUNCHES["fused_fvp_bf16_plain"] == 11
+        assert _build.LAUNCHES["fused_fvp_bf16_plain"] == \
+            int(stats.cg_iterations) + 1
         assert _build.LAUNCHES["fused_fvp_plain"] == 0
 
 

@@ -182,7 +182,8 @@ def test_small_iteration_on_the_card_goes_through_the_kernels(hopper):
     _build.reset_launches()
     state, stats = agent.run_iteration(state)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["fused_fvp"] == cfg.cg_iters + 1
+    # one matvec per CG iteration that took effect, and one for sᵀFs
+    assert _build.LAUNCHES["fused_fvp"] == int(stats["cg_iterations"]) + 1
     assert _build.LAUNCHES["reverse_scan"] == 1
     assert _build.LAUNCHES["fused_fvp_plain"] == 0
     assert _build.LAUNCHES["reverse_scan_plain"] == 0

@@ -95,6 +95,36 @@ def test_cli_checkpoint_resume(tmp_path, capsys):
     assert "done: 3 iterations" in out
 
 
+@pytest.mark.parametrize("preset, extra", [
+    ("cartpole", []),
+    ("cartpole-po", ["--policy-hidden", "16", "--policy-gru", "8"]),
+])
+def test_cli_resume_from_step_1_is_bitwise(tmp_path, capsys, preset, extra):
+    # the [learn] resume legs of chip_smoke.py at CPU size: 2 iterations
+    # with a checkpoint at 1, then a run resumed from a copy of step 1
+    # must reach the same step-2 state leaf by leaf
+    base = ["--preset", preset, "--batch-timesteps", "64", "--n-envs", "4",
+            "--cg-iters", "4", "--device", "cpu", "--checkpoint-every",
+            "1"] + extra
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert train.main(base + ["--iterations", "2", "--checkpoint-dir",
+                              str(a)]) == 0
+    b.mkdir()
+    os.rename(a / "step_1", b / "step_1")
+    for name in ("step_1.complete", ".markers_enabled"):
+        os.rename(a / name, b / name)
+    capsys.readouterr()
+    assert train.main(base + ["--iterations", "1", "--checkpoint-dir",
+                              str(b), "--resume"]) == 0
+    assert "resumed from step 1" in capsys.readouterr().out
+    cfg = train.build_config(train.parse_args(base))
+    agent = TRPOAgent(cfg.env, cfg, device="cpu")
+    want = Checkpointer(str(a)).restore(agent.init_state(), step=2)
+    got = Checkpointer(str(b)).restore(agent.init_state(), step=2)
+    assert got.iteration == want.iteration == 2
+    assert_state_equal(want, got)
+
+
 def test_cli_evaluate(capsys):
     assert train.main(TINY + ["--evaluate", "64"]) == 0
     assert "greedy eval:" in capsys.readouterr().out

@@ -36,6 +36,7 @@ from trpo_torch.convert import (
 )
 from trpo_torch.distributions import DiagGaussian
 from trpo_torch.models.mlp import apply_mlp
+from trpo_torch.ops import cg as cg_module
 from trpo_torch.ops.cg import conjugate_gradient
 from trpo_torch.ops.flat import flatten_params
 from trpo_torch.ops.linesearch import backtracking_linesearch
@@ -135,11 +136,11 @@ def test_presets_match_reference_training_fields():
     "override",
     [
         {"train_overlap": 1, "rollout_chunk": 1},
-        {"policy_experts": 4},
+        {"env": "native:cartpole"},
         {"cg_precondition": True},
-        {"env": "pong-sim"},
+        {"env": "fake"},
         {"env": "gym:Humanoid-v4"},
-        {"policy_gru": 8},
+        {"env": "chain"},
         {"cg_precondition": "jacobi"},
         {"fvp_mode": "jvp_grad"},
         {"mesh_shape": (2,)},
@@ -161,6 +162,11 @@ def test_unported_paths_raise(override):
         {"rollout_chunk": 2, "n_envs": 8, "batch_timesteps": 64},
         {"compute_dtype": "bfloat16"},
         {"normalize_obs": True},
+        {"policy_experts": 4},
+        {"env": "pong-sim"},
+        {"env": "catch"},
+        {"policy_gru": 8},
+        {"env": "cartpole-po", "policy_gru": 64, "policy_cell": "lstm"},
     ],
 )
 def test_ladder_and_fleet_paths_are_ported(override):
@@ -193,6 +199,112 @@ def test_cg_matches_reference(precondition, rtol):
     # matvec roundoff, so compare relative to the solution's size
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=1e-4,
                                atol=1e-4 * np.abs(np.asarray(ref.x)).max())
+
+
+def _masked_cg(f_Ax, b, cg_iters, residual_tol, M_inv=None, max_iters=None):
+    """The CG loop as it was before the early exit: always ``cg_iters``
+    (or ``max_iters`` under a tensor budget) iterations, converged ones
+    masked. The oracle the early exit must equal bit for bit."""
+    budget = isinstance(cg_iters, torch.Tensor)
+    n_loop = int(max_iters) if budget else int(cg_iters)
+    x, r = torch.zeros_like(b), b
+    rdotr = torch.dot(b, b)
+    z = b if M_inv is None else M_inv(b)
+    p, rdotz = z, rdotr if M_inv is None else torch.dot(b, z)
+    stop = torch.clamp(0.0 * rdotr, min=residual_tol)
+    iterations = torch.zeros((), dtype=torch.int32)
+    for i in range(n_loop):
+        active = rdotr > stop
+        if budget:
+            active = active & (cg_iters > i)
+        w = f_Ax(p)
+        alpha = rdotz / torch.dot(p, w)
+        x_new, r_new = x + alpha * p, r - alpha * w
+        z = r_new if M_inv is None else M_inv(r_new)
+        rdotr_new = torch.dot(r_new, r_new)
+        rdotz_new = rdotr_new if M_inv is None else torch.dot(r_new, z)
+        p_new = z + (rdotz_new / rdotz) * p
+        x, r, p = (torch.where(active, a, b_) for a, b_ in
+                   ((x_new, x), (r_new, r), (p_new, p)))
+        rdotz = torch.where(active, rdotz_new, rdotz)
+        rdotr = torch.where(active, rdotr_new, rdotr)
+        iterations = iterations + active.to(torch.int32)
+    return x, rdotr, iterations
+
+
+def _five_cluster_system():
+    """An SPD system with five distinct eigenvalues: CG solves it in five
+    iterations, then the residual sits at roundoff."""
+    rng = np.random.default_rng(7)
+    q, _ = np.linalg.qr(rng.normal(size=(30, 30)))
+    eig = np.repeat([0.5, 1.0, 2.0, 4.0, 8.0], 6)
+    A = (q * eig) @ q.T
+    b = rng.normal(size=30)
+    return A.astype(np.float32), b.astype(np.float32)
+
+
+@pytest.mark.parametrize("precondition", [False, True])
+def test_cg_early_exit_calls_the_operator_as_the_reference(precondition):
+    A, b = _five_cluster_system()
+    tol = 1e-6
+    # a scalar preconditioner keeps the five clusters (Jacobi would not)
+    d_inv = np.full(30, 0.5, np.float32)
+    ref = tpu_cg(lambda v: jnp.asarray(A) @ v, jnp.asarray(b), cg_iters=10,
+                 residual_tol=tol,
+                 M_inv=(lambda r: jnp.asarray(d_inv) * r)
+                 if precondition else None)
+    calls = []
+
+    def f_Ax(v):
+        calls.append(1)
+        return torch.from_numpy(A) @ v
+
+    M_inv = ((lambda r: torch.from_numpy(d_inv) * r) if precondition
+             else None)
+    got = conjugate_gradient(f_Ax, torch.from_numpy(b), cg_iters=10,
+                             residual_tol=tol, M_inv=M_inv)
+    assert int(ref.iterations) == 5
+    # the reference's while_loop runs its body once per iteration
+    assert len(calls) == int(got.iterations) == int(ref.iterations) < 10
+    x, rr, it = _masked_cg(lambda v: torch.from_numpy(A) @ v,
+                           torch.from_numpy(b), 10, tol, M_inv)
+    assert torch.equal(got.x, x) and torch.equal(got.residual_norm_sq, rr)
+    assert torch.equal(got.iterations, it)
+
+
+@pytest.mark.parametrize("check_every", [0, 1, 2, 3])
+@pytest.mark.parametrize("budget", [None, 3, 7])
+def test_cg_early_exit_is_bitwise_the_masked_loop(monkeypatch, check_every,
+                                                   budget):
+    monkeypatch.setattr(cg_module, "CHECK_EVERY", check_every)
+    A, b = _five_cluster_system()
+    calls = []
+
+    def f_Ax(v):
+        calls.append(1)
+        return torch.from_numpy(A) @ v
+
+    iters = 10 if budget is None else torch.tensor(budget, dtype=torch.int32)
+    got = conjugate_gradient(f_Ax, torch.from_numpy(b), cg_iters=iters,
+                             residual_tol=1e-6, max_iters=10)
+    x, rr, it = _masked_cg(lambda v: torch.from_numpy(A) @ v,
+                           torch.from_numpy(b), iters, 1e-6, max_iters=10)
+    assert torch.equal(got.x, x) and torch.equal(got.residual_norm_sq, rr)
+    assert torch.equal(got.iterations, it)
+    # a tensor budget is read once and bounds the loop; past convergence
+    # at most check_every - 1 calls remain (all of them with no reading)
+    n_loop = 10 if budget is None else budget
+    if check_every == 0:
+        assert len(calls) == n_loop
+    else:
+        assert int(it) <= len(calls) <= min(n_loop,
+                                            int(it) + check_every - 1)
+    # a rule that cannot fire is never read: the full count, as the
+    # bench's forced solves need
+    calls.clear()
+    conjugate_gradient(f_Ax, torch.from_numpy(b), cg_iters=10,
+                       residual_tol=0.0)
+    assert len(calls) == 10
 
 
 @pytest.mark.parametrize("kl_cap", [None, 0.05])

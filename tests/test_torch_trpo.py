@@ -81,7 +81,8 @@ def test_update_matches_reference_subsampled(precondition, kl_cap):
     _build.reset_launches()
     new_params, stats = trpo.make_trpo_update(port_policy, cfg)(
         policy_params_from_numpy(params), batch)
-    assert _build.LAUNCHES["fused_fvp_plain"] == cfg.cg_iters + 1
+    # one matvec per CG iteration that took effect, and one for sᵀFs
+    assert _build.LAUNCHES["fused_fvp_plain"] == int(stats.cg_iterations) + 1
 
     x0 = np.asarray(tpu_flatten(J(params))[0], np.float64)
     want = np.asarray(tpu_flatten(ref_params)[0], np.float64)

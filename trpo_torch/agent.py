@@ -11,6 +11,16 @@ stats dict, with the keys of the reference's ``_vf_stats_phase``. The
 damping λ (``cfg.adaptive_damping``) and the solver ladder's state ride
 ``TrainState.cg_damping`` and ``TrainState.ladder`` from update to update.
 
+The policy family follows the config, as in the reference: a recurrent
+policy with ``cfg.policy_gru`` (GRU or LSTM, ``cfg.policy_cell``), a
+mixture of experts with ``cfg.policy_experts`` (the two exclude each
+other), the conv torso for ``(H, W, C)`` pixels, else the MLP. A
+recurrent policy's state rides the rollout carry, its update replays the
+window as a ``SeqObs``, and its critic reads ``[obs, state]``. A conv
+policy sets cuDNN to f32, deterministic convolutions
+(``models.conv.exact_convolutions``). Pixels reach the critic as their raw
+0-255 values cast to the compute dtype, as in the reference.
+
 With ``cfg.normalize_obs`` the rollout's policy normalizes its inputs with
 ``TrainState.obs_norm`` as of the start of the iteration; the update and
 the critic replay the trajectory's observations normalized with the same
@@ -42,7 +52,10 @@ import torch
 from trpo_torch import envs as envs_lib
 from trpo_torch.config import TRPOConfig, check_ported
 from trpo_torch.envs.episode_stats import RunningEpisodeMean
-from trpo_torch.models.policy import make_policy
+from trpo_torch.models.conv import exact_convolutions
+from trpo_torch.models.moe import make_moe_policy
+from trpo_torch.models.policy import make_policy, spec_from_env
+from trpo_torch.models.recurrent import SeqObs, make_recurrent_policy
 from trpo_torch.ops.flat import tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.ops.returns import gae_from_next_values
@@ -81,7 +94,9 @@ class TrainState(NamedTuple):
     """Everything that evolves across iterations."""
     policy_params: Any
     vf_state: VFState
-    env_carry: Any                 # (states, obs, episode_return, length)
+    env_carry: Any                 # (states, obs, episode_return, length),
+    #                                and (h, prev_done) for a recurrent
+    #                                policy
     rng: torch.Generator           # rollout noise, on the agent's device
     iteration: int
     total_episodes: torch.Tensor   # int64 scalar on the device
@@ -115,17 +130,38 @@ class TRPOAgent:
             env = envs_lib.make(env, max_episode_steps=cfg.max_pathlength,
                                 device=self.device)
         self.env = env
-        self.obs_shape = tuple(env.obs_shape)
+        self.obs_shape, action_spec = spec_from_env(env)
         compute_dtype = getattr(torch, cfg.compute_dtype)
-        self.policy = make_policy(
-            self.obs_shape, env.action_spec,
-            hidden=tuple(cfg.policy_hidden),
-            activation=cfg.policy_activation,
-            init_log_std=cfg.init_log_std,
-            compute_dtype=compute_dtype,
-        )
+        family = dict(hidden=tuple(cfg.policy_hidden),
+                      activation=cfg.policy_activation,
+                      init_log_std=cfg.init_log_std,
+                      compute_dtype=compute_dtype)
+        if cfg.policy_gru is not None:
+            if cfg.policy_experts is not None:
+                raise ValueError(
+                    "policy_gru and policy_experts are mutually exclusive "
+                    "(no recurrent-MoE model family)"
+                )
+            self.policy = make_recurrent_policy(
+                self.obs_shape, action_spec, gru_size=cfg.policy_gru,
+                cell=cfg.policy_cell, **family)
+        elif cfg.policy_experts is not None:
+            self.policy = make_moe_policy(
+                self.obs_shape, action_spec,
+                n_experts=cfg.policy_experts, **family)
+        else:
+            self.policy = make_policy(self.obs_shape, action_spec,
+                                      **family)
+            if len(self.obs_shape) == 3:
+                exact_convolutions()
+        self.is_recurrent = cfg.policy_gru is not None
+        vf_dim = int(math.prod(self.obs_shape))
+        if self.is_recurrent:
+            # the POMDP critic: [obs, state] features (state_size: H for
+            # the GRU, 2H for the LSTM's packed [h | c])
+            vf_dim += self.policy.state_size
         self.vf = create_value_function(
-            int(math.prod(self.obs_shape)),
+            vf_dim,
             hidden=tuple(cfg.vf_hidden),
             activation=cfg.vf_activation,
             learning_rate=cfg.vf_learning_rate,
@@ -152,7 +188,8 @@ class TRPOAgent:
         return TrainState(
             policy_params=policy_params,
             vf_state=_to(self.vf.init(g_vf), self.device),
-            env_carry=init_env_states(self.env, self.n_envs, rng),
+            env_carry=init_env_states(self.env, self.n_envs, rng,
+                                      policy=self.policy),
             rng=rng,
             iteration=0,
             total_episodes=torch.zeros((), dtype=torch.int64,
@@ -178,6 +215,14 @@ class TRPOAgent:
         if stats is None:
             return self.policy
         pol = self.policy
+        if self.is_recurrent:
+            # the rollout calls .step; .apply is wrapped too, so the
+            # wrapped policy stays one over raw observations
+            return pol._replace(
+                step=lambda p, h, o: pol.step(p, h, normalize(stats, o)),
+                apply=lambda p, seq: pol.apply(
+                    p, seq._replace(obs=normalize(stats, seq.obs))),
+            )
         return pol._replace(
             apply=lambda p, o: pol.apply(p, normalize(stats, o)),
             apply_cast=lambda p, o, dt: pol.apply_cast(
@@ -186,9 +231,16 @@ class TRPOAgent:
         )
 
     def _vf_features(self, traj: Trajectory):
-        """Critic inputs ``(current, next)``, flattened to ``(T·N, F)``."""
+        """Critic inputs ``(current, next)``, flattened to ``(T·N, F)``:
+        the observations, and for a recurrent policy the state it held
+        when seeing them (``policy_h`` / ``policy_h_next``) beside them."""
         T, N = traj.rewards.shape
-        return (traj.obs.reshape(T * N, -1), traj.next_obs.reshape(T * N, -1))
+        flat = lambda x: x.reshape(T * N, -1)  # noqa: E731
+        if not self.is_recurrent:
+            return flat(traj.obs), flat(traj.next_obs)
+        join = lambda o, h: torch.cat([flat(o), flat(h)], dim=-1)  # noqa
+        return (join(traj.obs, traj.policy_h),
+                join(traj.next_obs, traj.policy_h_next))
 
     def _advantages(self, vf_state: VFState, traj: Trajectory):
         T, N = traj.rewards.shape
@@ -225,13 +277,24 @@ class TRPOAgent:
         if cfg.standardize_advantages:
             adv_flat = standardize_advantages(adv_flat, weight)
         vf_in, _ = self._vf_features(traj)
-        batch = TRPOBatch(
-            obs=flat(traj.obs),
-            actions=flat(traj.actions),
-            advantages=adv_flat,
-            old_dist=tree_map(flat, traj.old_dist),
-            weight=weight,
-        )
+        if self.is_recurrent:
+            # the window keeps its (T, N) axes: the policy replays it
+            # from the rollout's resets and entry state
+            batch = TRPOBatch(
+                obs=SeqObs(traj.obs, traj.reset, traj.policy_h0),
+                actions=traj.actions,
+                advantages=adv_flat.reshape(T, N),
+                old_dist=traj.old_dist,
+                weight=weight.reshape(T, N),
+            )
+        else:
+            batch = TRPOBatch(
+                obs=flat(traj.obs),
+                actions=flat(traj.actions),
+                advantages=adv_flat,
+                old_dist=tree_map(flat, traj.old_dist),
+                weight=weight,
+            )
         new_policy_params, trpo_stats = self.trpo_update(
             train_state.policy_params, batch, train_state.cg_damping,
             train_state.precond, train_state.ladder,
@@ -367,25 +430,40 @@ class TRPOAgent:
     # ------------------------------------------------------------------
 
     def act(self, state: TrainState, obs, generator=None,
-            eval_mode: bool = False):
+            eval_mode: bool = False, policy_carry=None):
         """Sample (train) or take the mode (eval: the Gaussian mean, the
         categorical argmax) of the policy at ``obs``, one observation or a
         batch, normalized with ``state.obs_norm``. Returns ``(action,
-        dist_params)``. Train mode needs an explicit ``generator``: a
-        silent default would sample the same action on every call."""
+        dist_params)``; a recurrent policy returns ``(action, dist_params,
+        new_policy_carry)``: pass the carry back on the next call
+        (``policy_carry=None`` starts a fresh memory). Train mode needs an
+        explicit ``generator``: a silent default would sample the same
+        action on every call. Pixels keep their uint8 dtype."""
         if generator is None and not eval_mode:
             raise ValueError(
                 "act(eval_mode=False) needs an explicit torch.Generator; "
                 "pass generator=... or use eval_mode=True"
             )
-        obs = torch.as_tensor(obs, dtype=torch.float32, device=self.device)
+        obs = torch.as_tensor(obs, device=self.device)
+        if obs.dtype != torch.uint8:
+            obs = obs.float()
         if state.obs_norm is not None:
             obs = normalize(state.obs_norm, obs)
         squeeze = obs.ndim == len(self.obs_shape)
         if squeeze:
             obs = obs[None]
+        h_new = None
         with torch.no_grad():
-            dist = self.policy.apply(state.policy_params, obs)
+            if self.is_recurrent:
+                h = (self.policy.initial_state(obs.shape[0],
+                                               device=self.device)
+                     if policy_carry is None else
+                     torch.as_tensor(policy_carry, device=self.device))
+                if squeeze and policy_carry is not None:
+                    h = h[None]
+                h_new, dist = self.policy.step(state.policy_params, h, obs)
+            else:
+                dist = self.policy.apply(state.policy_params, obs)
             if eval_mode:
                 action = self.policy.dist.mode(dist)
             else:
@@ -393,6 +471,9 @@ class TRPOAgent:
         if squeeze:
             action = action[0]
             dist = {k: v[0] for k, v in dist.items()}
+            h_new = None if h_new is None else h_new[0]
+        if self.is_recurrent:
+            return action, dist, h_new
         return action, dist
 
     def evaluate(self, train_state: TrainState,
@@ -407,7 +488,8 @@ class TRPOAgent:
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        carry = init_env_states(self.env, self.n_envs, gen)
+        carry = init_env_states(self.env, self.n_envs, gen,
+                                policy=self.policy)
         _, traj = device_rollout(
             self.env, self._normed_policy(train_state.obs_norm),
             train_state.policy_params, carry, gen, n_steps,

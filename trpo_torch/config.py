@@ -87,8 +87,12 @@ class TRPOConfig:
     # --- networks --------------------------------------------------------
     policy_hidden: Tuple[int, ...] = (64,)
     policy_activation: str = "tanh"
-    policy_gru: Optional[int] = None      # not ported (ROADMAP Queue 1 item 14)
-    policy_experts: Optional[int] = None  # not ported (ROADMAP Queue 1 item 14)
+    policy_gru: Optional[int] = None  # recurrent-cell size → a recurrent
+    #                                policy (models/recurrent.py; POMDPs)
+    policy_cell: str = "gru"       # "gru" or "lstm" (packed [h|c] state);
+    #                                read only when policy_gru is set
+    policy_experts: Optional[int] = None  # K → a soft mixture-of-experts
+    #                                torso (models/moe.py)
     vf_hidden: Tuple[int, ...] = (64, 64)
     vf_activation: str = "relu"
     vf_train_steps: int = 50
@@ -288,8 +292,6 @@ def check_ported(cfg: TRPOConfig) -> None:
         _not_ported("train_overlap", "item 15")
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
-    if cfg.policy_gru is not None or cfg.policy_experts is not None:
-        _not_ported("recurrent and mixture-of-experts policies", "item 14")
     if cfg.cg_precondition in (True, "jacobi"):
         _not_ported('cg_precondition="jacobi"', "item 3")
     if cfg.fvp_mode == "jvp_grad":
@@ -298,7 +300,7 @@ def check_ported(cfg: TRPOConfig) -> None:
 
     if cfg.env not in DEVICE_ENVS:
         _not_ported(f"env {cfg.env!r} (have {sorted(DEVICE_ENVS)})",
-                    "items 7 and 13")
+                    "items 3 and 13")
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,13 @@ The input side takes ``trpo_tpu``'s trees already converted to numpy (for
 example with ``jax.tree_util.tree_map(np.asarray, tree)``), so this module
 imports nothing of JAX. Both packages use the same tree layout,
 ``{"net": {"layers": [{"w": (in, out), "b": (out,)}]}, "log_std": (A,)}``,
-so the conversion is leafwise. The solver ladder's state and the damping
-scalar cross the same way, so tests can start both packages from the same
+so the conversion is leafwise, with one exception: a conv filter (the only
+4-D leaf, ``models/conv.py``) is ``HWIO`` in the reference and ``OIHW``
+here, so it crosses as ``w.permute(3, 2, 0, 1)`` (and back as
+``permute(2, 3, 1, 0)``). The recurrent cells' fused ``wx``/``wh``/``b``
+and the mixture's expert-stacked ``(K, ...)`` leaves and gate have the
+same layout in both. The solver ladder's state and the damping scalar
+cross the same way, so tests can start both packages from the same
 ``LadderState``.
 """
 
@@ -36,13 +41,23 @@ def _tensor(x, device):
     return torch.as_tensor(np.array(x), device=device)
 
 
+def _leaf_from_numpy(x, device) -> torch.Tensor:
+    t = _tensor(x, device).float()
+    return t.permute(3, 2, 0, 1).contiguous() if t.ndim == 4 else t
+
+
 def policy_params_from_numpy(tree: Any, device="cpu") -> Any:
-    """A params tree of numpy arrays → the same tree of f32 tensors."""
-    return tree_map(lambda x: _tensor(x, device).float(), tree)
+    """A params tree of numpy arrays → the same tree of f32 tensors (conv
+    filters ``HWIO`` → ``OIHW``)."""
+    return tree_map(lambda x: _leaf_from_numpy(x, device), tree)
 
 
 def policy_params_to_numpy(tree: Any) -> Any:
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """The inverse of :func:`policy_params_from_numpy`."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.permute(2, 3, 1, 0) if t.ndim == 4 else t).numpy()
+    return tree_map(leaf, tree)
 
 
 def ladder_from_numpy(ladder: Any, device="cpu") -> LadderState:
@@ -92,13 +107,24 @@ def vf_state_from_numpy(params: Any, adam_mu: Any, adam_nu: Any, count: int,
 
 def trajectory_from_numpy(traj: Any, device="cpu") -> Trajectory:
     """A trajectory with the reference's field names (an object with
-    attributes, or a dict) of numpy arrays → :class:`Trajectory`."""
+    attributes, or a dict) of numpy arrays → :class:`Trajectory`. Pixel
+    observations stay uint8; a recurrent trajectory's ``reset``,
+    ``policy_h0``, ``policy_h`` and ``policy_h_next`` cross when present."""
     get = (traj.get if isinstance(traj, dict)
-           else lambda name: getattr(traj, name))
+           else lambda name: getattr(traj, name, None))
     old = get("old_dist")
     actions = np.asarray(get("actions"))
+
+    def obs(x):
+        t = _tensor(x, device)
+        return t if t.dtype == torch.uint8 else t.float()
+
+    def opt(name, cast):
+        x = get(name)
+        return None if x is None else cast(_tensor(x, device))
+
     return Trajectory(
-        obs=_tensor(get("obs"), device).float(),
+        obs=obs(get("obs")),
         actions=_tensor(actions, device).long()
         if np.issubdtype(actions.dtype, np.integer)
         else _tensor(actions, device).float(),
@@ -106,8 +132,12 @@ def trajectory_from_numpy(traj: Any, device="cpu") -> Trajectory:
         terminated=_tensor(get("terminated"), device).bool(),
         done=_tensor(get("done"), device).bool(),
         old_dist={k: _tensor(old[k], device).float() for k in old},
-        next_obs=_tensor(get("next_obs"), device).float(),
+        next_obs=obs(get("next_obs")),
         episode_return=_tensor(get("episode_return"), device).float(),
         episode_length=_tensor(get("episode_length"), device).to(
             torch.int32),
+        reset=opt("reset", torch.Tensor.bool),
+        policy_h0=opt("policy_h0", torch.Tensor.float),
+        policy_h=opt("policy_h", torch.Tensor.float),
+        policy_h_next=opt("policy_h_next", torch.Tensor.float),
     )

@@ -60,7 +60,10 @@
 // each, a block per 128-row x 256-column tile): each product streams its
 // chained input, rounded to bf16 as before, from device memory (dh_k goes
 // to the g_k buffer that g_k later overwrites) the way it streams obs and
-// h_k, and stores its output there. Ragged edges: TMA fills out-of-range
+// h_k, and stores its output there. A torso deeper than MAX_LAYERS - 1
+// hidden layers runs the same way, one product a launch, and its unpack and
+// phase B take the layers in groups of MAX_LAYERS (the argument blocks of a
+// launch hold at most that many). Ragged edges: TMA fills out-of-range
 // rows and columns with zeros and clips the stores; the epilogues mask the
 // rest.
 //
@@ -73,6 +76,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
+#include <vector>
 
 namespace {
 
@@ -154,22 +160,26 @@ struct ArgsB {
 
 // Each weight-tangent block V_l of the flat f32 v (row-major (rows, cols) at
 // v + off[l]) rounded to bf16 into a buffer of row stride ld: as it lies,
-// or, for the head (the last layer), transposed (cols, rows).
+// or, for the head (block `head` of the launch, -1: not in it), transposed
+// (cols, rows).
 struct UnpackArgs {
   const float* v;
   uint16_t* dst[MAX_LAYERS];
   long long off[MAX_LAYERS];
   int cols[MAX_LAYERS], ld[MAX_LAYERS];
   int start[MAX_LAYERS + 1];
-  int n_layers;
+  int n_layers, head;
 };
 
+// The launch plan: this header, then n_a phase-A argument blocks, n_g
+// phase-B blocks and n_g unpack blocks (plan_layout). A torso of at most
+// MAX_LAYERS layers is one block of each; a deeper one runs phase A one
+// product per launch, each block holding only its product's maps, and the
+// unpack and phase B in groups of MAX_LAYERS layers.
 struct Plan {
-  ArgsA a;
-  ArgsB b;
-  UnpackArgs u;
-  int grid_a, grid_b;
-  int wide;  // phase A one launch per product (a width past MAXW)
+  int n_layers, grid_a;
+  int wide;  // phase A one launch per product (a width past MAXW, or deep)
+  int n_a, n_g;
 };
 
 // ---- PTX helpers ------------------------------------------------------
@@ -878,8 +888,8 @@ __global__ void fvp16_unpack_kernel(const __grid_constant__ UnpackArgs p) {
     while (i >= p.start[l + 1]) ++l;
     const int j = i - p.start[l];
     const int r = j / p.cols[l], c = j - r * p.cols[l];
-    const size_t at = l == p.n_layers - 1 ? (size_t)c * p.ld[l] + r
-                                          : (size_t)r * p.ld[l] + c;
+    const size_t at = l == p.head ? (size_t)c * p.ld[l] + r
+                                  : (size_t)r * p.ld[l] + c;
     p.dst[l][at] = __bfloat16_as_ushort(__float2bfloat16_rn(p.v[p.off[l] + j]));
   }
 }
@@ -936,12 +946,105 @@ int width_mn(int n) { return n <= 64 ? 64 : n <= 128 ? 128 : 256; }
 
 }  // namespace
 
-extern "C" int trpo_fvp16_plan_bytes() { return (int)sizeof(Plan); }
 
-// Build the launch plan of one operator into `out` (trpo_fvp16_plan_bytes()
-// bytes, 64-byte aligned). n_layers = L + 1 (L hidden layers), dims[0..L+1]
-// the widths (obs, hidden..., action). Every bf16 buffer has row stride
-// pad8(cols). ptr, in order:
+namespace {
+
+// A tensor map to build: a bf16 (rows, cols) tensor in boxes of bc x br;
+// base == nullptr: none.
+struct MapSpec {
+  const void* base;
+  int rows, cols, bc, br;
+};
+constexpr MapSpec NONE{nullptr, 0, 0, 0, 0};
+
+// The maps of one argument block, each built once however many of its
+// products or layers read it.
+struct MapSet {
+  CUtensorMap* maps;
+  MapSpec specs[MAX_MAPS];
+  int n, err;
+  explicit MapSet(CUtensorMap* m) : maps(m), n(0), err(0) {}
+  int get(const MapSpec& s) {
+    if (s.base == nullptr) return -1;
+    for (int i = 0; i < n; ++i) {
+      const MapSpec& o = specs[i];
+      if (o.base == s.base && o.rows == s.rows && o.cols == s.cols &&
+          o.bc == s.bc && o.br == s.br)
+        return i;
+    }
+    if (n == MAX_MAPS) {
+      if (err == 0) err = cudaErrorInvalidValue;
+      return 0;
+    }
+    const int e = make_map(&maps[n], s.base, s.rows, s.cols, s.bc, s.br);
+    if (e != 0 && err == 0) err = e;
+    specs[n] = s;
+    return n++;
+  }
+};
+
+// One product of the chain (see Prod), with its maps still to be built.
+struct ProdSpec {
+  int epi, nc, n;
+  MapSpec a;
+  int ka;
+  MapSpec b_a;
+  int kc;
+  MapSpec b_c, c;
+  long long vb;
+  MapSpec h, store;
+  int bcol;
+};
+
+void put_prod(ArgsA& a, MapSet& ms, const ProdSpec& q) {
+  Prod& P = a.prod[a.n_prod++];
+  P.epi = q.epi; P.nc = q.nc; P.n = q.n;
+  P.a_map = ms.get(q.a); P.ka = q.ka; P.b_map_a = ms.get(q.b_a);
+  P.kc = q.kc; P.b_map_c = ms.get(q.b_c); P.c_map = ms.get(q.c);
+  P.vb = q.vb; P.h_map = ms.get(q.h); P.store = ms.get(q.store);
+  P.bcol = q.bcol;
+}
+
+size_t up64(size_t n) { return (n + 63) / 64 * 64; }
+
+// Where a plan of n_layers layers keeps its blocks (see Plan).
+struct Layout {
+  size_t a, b, u, bytes;
+  int n_a, n_g;
+};
+Layout plan_layout(int n_layers) {
+  Layout l;
+  l.n_a = n_layers > MAX_LAYERS ? 2 * n_layers - 1 : 1;
+  l.n_g = cdiv(n_layers, MAX_LAYERS);
+  l.a = up64(sizeof(Plan));
+  l.b = l.a + up64(sizeof(ArgsA)) * l.n_a;
+  l.u = l.b + up64(sizeof(ArgsB)) * l.n_g;
+  l.bytes = l.u + up64(sizeof(UnpackArgs)) * l.n_g;
+  return l;
+}
+
+template <class T>
+T& block(void* plan, size_t off, int i) {
+  return *reinterpret_cast<T*>(static_cast<char*>(plan) + off +
+                               up64(sizeof(T)) * i);
+}
+template <class T>
+const T& block(const void* plan, size_t off, int i) {
+  return *reinterpret_cast<const T*>(static_cast<const char*>(plan) + off +
+                                     up64(sizeof(T)) * i);
+}
+
+}  // namespace
+
+extern "C" int trpo_fvp16_plan_bytes(int n_layers) {
+  return n_layers < 2 ? 0 : static_cast<int>(plan_layout(n_layers).bytes);
+}
+
+// Build the launch plan of one operator into `out`
+// (trpo_fvp16_plan_bytes(n_layers) bytes, 64-byte aligned). n_layers =
+// L + 1 (L hidden layers, any number), dims[0..L+1] the widths (obs,
+// hidden..., action). Every bf16 buffer has row stride pad8(cols). ptr, in
+// order:
 //   obs (rows, d0); h_0 .. h_{L-1} (rows, d_{k+1}); W_1 .. W_L (d_k, d_{k+1});
 //   W_L^T (A, d_L); V_0 .. V_{L-1} (d_k, d_{k+1}) and V_L^T (A, d_L), the
 //   unpack targets; g_0 .. g_{L-1} (rows, d_{k+1}); c (rows, A);
@@ -958,10 +1061,12 @@ extern "C" int trpo_fvp16_plan(void* out, int n_layers, const int* dims,
                                const long long* woff, const int* out_off,
                                long long P, int* splits) {
   const int L = n_layers - 1;
-  if (L < 1 || n_layers > MAX_LAYERS || rows < 1 || sms < 1)
-    return cudaErrorInvalidValue;
+  if (L < 1 || rows < 1 || sms < 1) return cudaErrorInvalidValue;
+  const Layout lay = plan_layout(n_layers);
+  std::memset(out, 0, lay.bytes);
   Plan& pl = *static_cast<Plan*>(out);
-  pl = Plan{};
+  pl.n_a = lay.n_a;
+  pl.n_g = lay.n_g;
   const int A = dims[L + 1];
   const void* obs = ptr[0];
   const void* const* h = ptr + 1;
@@ -972,125 +1077,122 @@ extern "C" int trpo_fvp16_plan(void* out, int n_layers, const int* dims,
   float* colsum = (float*)ptr[4 * L + 4];
   const float* wn = (const float*)ptr[4 * L + 5];
   const float* m = (const float*)ptr[4 * L + 6];
-  int bcol[MAX_LAYERS];
+  std::vector<int> bcol(n_layers);
   int pb = 0;
   for (int l = 0; l <= L; ++l) {
     bcol[l] = pb;
     pb += dims[l + 1];
     if (dims[l + 1] > MAXW) pl.wide = 1;
   }
+  if (lay.n_a > 1) pl.wide = 1;
 
-  // phase A's tensor maps
-  ArgsA& a = pl.a;
-  int nm = 0, err = 0;
-  auto map = [&](CUtensorMap* maps, const void* base, int r, int c, int bc,
-                 int br) {
-    const int idx = nm++;
-    const int e = make_map(&maps[idx], base, r, c, bc, br);
-    if (e != 0 && err == 0) err = e;
-    return idx;
-  };
+  // the maps: obs and h_k as 128-row boxes (streamed A), h_k as 64-row
+  // boxes (epilogues, phase B), the tangent and weight blocks, the g_k
   const int head = width_k(A);
-  const int m_obs = map(a.maps, obs, rows, dims[0], 64, BM);
-  int m_h[MAX_LAYERS], m_he[MAX_LAYERS], m_v[MAX_LAYERS], m_wt[MAX_LAYERS],
-      m_wb[MAX_LAYERS], m_g[MAX_LAYERS];
-  for (int k = 0; k < L; ++k) {
-    m_h[k] = map(a.maps, h[k], rows, dims[k + 1], 64, BM);
-    m_he[k] = map(a.maps, h[k], rows, dims[k + 1], 64, 64);
-  }
-  for (int k = 0; k < L; ++k)
-    m_v[k] = map(a.maps, V[k], dims[k], dims[k + 1], 64, 64);
-  m_v[L] = map(a.maps, V[L], A, dims[L], 64, head);
-  for (int k = 1; k < L; ++k)
-    m_wt[k] = map(a.maps, W[k], dims[k], dims[k + 1], 64, 64);
-  m_wt[L] = map(a.maps, WLt, A, dims[L], 64, head);
-  for (int k = 1; k <= L; ++k)
-    m_wb[k] = map(a.maps, W[k], dims[k], dims[k + 1], 64, width_k(dims[k]));
-  for (int k = 0; k <= L; ++k)
-    m_g[k] = map(a.maps, G[k], rows, dims[k + 1], 64, 64);
-  if (err != 0) return err;
+  auto s_h = [&](int k) { return MapSpec{h[k], rows, dims[k + 1], 64, BM}; };
+  auto s_he = [&](int k) {
+    return MapSpec{h[k], rows, dims[k + 1], 64, 64};
+  };
+  auto s_v = [&](int k) {
+    return k < L ? MapSpec{V[k], dims[k], dims[k + 1], 64, 64}
+                 : MapSpec{V[L], A, dims[L], 64, head};
+  };
+  auto s_wt = [&](int k) {
+    return k < L ? MapSpec{W[k], dims[k], dims[k + 1], 64, 64}
+                 : MapSpec{WLt, A, dims[L], 64, head};
+  };
+  auto s_wb = [&](int k) {
+    return MapSpec{W[k], dims[k], dims[k + 1], 64, width_k(dims[k])};
+  };
+  auto s_g = [&](int k) { return MapSpec{G[k], rows, dims[k + 1], 64, 64}; };
 
   // the chain: tangents, head, backward dgrads. A wide plan passes each
   // chained value through device memory: dh_k through g_k's buffer.
   const bool wide = pl.wide;
-  auto chained = [&](int k) { return wide ? m_g[k] : -1; };
-  int np = 0;
-  auto prod = [&](int epi, int nc, int n, int a_map, int ka, int b_a, int kc,
-                  int b_c, int c_map, long long vb, int hm, int store,
-                  int bc) {
-    Prod& P = a.prod[np++];
-    P.epi = epi; P.nc = nc; P.n = n;
-    P.a_map = a_map; P.ka = ka; P.b_map_a = b_a; P.kc = kc; P.b_map_c = b_c;
-    P.c_map = c_map; P.vb = vb; P.h_map = hm; P.store = store; P.bcol = bc;
-  };
-  prod(EPI_TAN, width_mn(dims[1]), dims[1], m_obs, dims[0], m_v[0], 0, -1,
-       -1, boff[0], m_he[0], chained(0), -1);
+  auto chained = [&](int k) { return wide ? s_g(k) : NONE; };
+  std::vector<ProdSpec> prods;
+  prods.push_back({EPI_TAN, width_mn(dims[1]), dims[1],
+                   MapSpec{obs, rows, dims[0], 64, BM}, dims[0], s_v(0), 0,
+                   NONE, NONE, boff[0], s_he(0), chained(0), -1});
   for (int k = 1; k < L; ++k)
-    prod(EPI_TAN, width_mn(dims[k + 1]), dims[k + 1], m_h[k - 1], dims[k],
-         m_v[k], dims[k], m_wt[k], chained(k - 1), boff[k], m_he[k],
-         chained(k), -1);
-  prod(EPI_HEAD, head, A, m_h[L - 1], dims[L], m_v[L], dims[L], m_wt[L],
-       chained(L - 1), boff[L], -1, m_g[L], bcol[L]);
+    prods.push_back({EPI_TAN, width_mn(dims[k + 1]), dims[k + 1],
+                     s_h(k - 1), dims[k], s_v(k), dims[k], s_wt(k),
+                     chained(k - 1), boff[k], s_he(k), chained(k), -1});
+  prods.push_back({EPI_HEAD, head, A, s_h(L - 1), dims[L], s_v(L), dims[L],
+                   s_wt(L), chained(L - 1), boff[L], NONE, s_g(L), bcol[L]});
   for (int k = L; k >= 1; --k)
-    prod(EPI_BWD, width_k(dims[k]), dims[k], -1, 0, -1, dims[k + 1],
-         m_wb[k], chained(k), -1, m_he[k - 1], m_g[k - 1], bcol[k - 1]);
-  a.n_prod = np;
-  a.rows = rows;
-  a.act = act;
-  a.pb = pb;
-  a.wn = wn;
-  a.m = m;
-  a.colsum = colsum;
+    prods.push_back({EPI_BWD, width_k(dims[k]), dims[k], NONE, 0, NONE,
+                     dims[k + 1], s_wb(k), chained(k), -1, s_he(k - 1),
+                     s_g(k - 1), bcol[k - 1]});
   pl.grid_a = cdiv(rows, BM);
-
-  // phase B: the same cotangent maps, the activations as {64, 64} boxes
-  ArgsB& b = pl.b;
-  nm = 0;
-  int m_act[MAX_LAYERS], m_gb[MAX_LAYERS];
-  m_act[0] = map(b.maps, obs, rows, dims[0], 64, 64);
-  for (int k = 0; k < L; ++k)
-    m_act[k + 1] = map(b.maps, h[k], rows, dims[k + 1], 64, 64);
-  for (int k = 0; k <= L; ++k)
-    m_gb[k] = map(b.maps, G[k], rows, dims[k + 1], 64, 64);
-  if (err != 0) return err;
-  int tiles = 0;
-  for (int l = 0; l <= L; ++l) {
-    LayerB& Ly = b.layer[l];
-    Ly.a_map = m_act[l];
-    Ly.g_map = m_gb[l];
-    Ly.kin = dims[l];
-    Ly.n = dims[l + 1];
-    Ly.nb = dims[l + 1] <= 64 ? 64 : 128;
-    Ly.tiles_j = cdiv(Ly.n, Ly.nb);
-    Ly.first_tile = tiles;
-    Ly.out = out_off[l];
-    Ly.bcol = bcol[l];
-    tiles += cdiv(Ly.kin, BM) * Ly.tiles_j;
+  for (int i = 0; i < lay.n_a; ++i) {
+    ArgsA& a = block<ArgsA>(out, lay.a, i);
+    MapSet ms(a.maps);
+    const int j0 = lay.n_a > 1 ? i : 0;
+    const int j1 = lay.n_a > 1 ? i + 1 : static_cast<int>(prods.size());
+    for (int j = j0; j < j1; ++j) put_prod(a, ms, prods[j]);
+    if (ms.err != 0) return ms.err;
+    a.rows = rows;
+    a.act = act;
+    a.pb = pb;
+    a.wn = wn;
+    a.m = m;
+    a.colsum = colsum;
   }
-  // the output tiles times the row splits fill the card once
+
+  // phase B: every layer's output tiles times the row splits fill the card
+  // once; the layers go in groups of MAX_LAYERS, one launch each
+  auto nb_of = [&](int l) { return dims[l + 1] <= 64 ? 64 : 128; };
+  int tiles = 0;
+  for (int l = 0; l <= L; ++l)
+    tiles += cdiv(dims[l], BM) * cdiv(dims[l + 1], nb_of(l));
   int n_split = (sms + tiles / 2) / tiles;
   n_split = n_split < 1 ? 1 : n_split < pl.grid_a ? n_split : pl.grid_a;
   const int rows_per_split = cdiv(cdiv(rows, n_split), BM) * BM;
   *splits = cdiv(rows, rows_per_split);
-  b.n_layers = n_layers;
-  b.n_tiles = tiles;
-  b.rows = rows;
-  b.rows_per_split = rows_per_split;
-  b.row_tiles = pl.grid_a;
-  b.pb = pb;
-  b.colsum = colsum;
-  b.P = P;
-  pl.grid_b = tiles * *splits;
+  for (int gi = 0; gi < lay.n_g; ++gi) {
+    ArgsB& b = block<ArgsB>(out, lay.b, gi);
+    MapSet ms(b.maps);
+    const int l0 = gi * MAX_LAYERS;
+    const int l1 = l0 + MAX_LAYERS < n_layers ? l0 + MAX_LAYERS : n_layers;
+    int t = 0;
+    for (int l = l0; l < l1; ++l) {
+      LayerB& Ly = b.layer[l - l0];
+      Ly.a_map = ms.get(l == 0 ? MapSpec{obs, rows, dims[0], 64, 64}
+                               : s_he(l - 1));
+      Ly.g_map = ms.get(s_g(l));
+      Ly.kin = dims[l];
+      Ly.n = dims[l + 1];
+      Ly.nb = nb_of(l);
+      Ly.tiles_j = cdiv(Ly.n, Ly.nb);
+      Ly.first_tile = t;
+      Ly.out = out_off[l];
+      Ly.bcol = bcol[l];
+      t += cdiv(Ly.kin, BM) * Ly.tiles_j;
+    }
+    if (ms.err != 0) return ms.err;
+    b.n_layers = l1 - l0;
+    b.n_tiles = t;
+    b.rows = rows;
+    b.rows_per_split = rows_per_split;
+    b.row_tiles = pl.grid_a;
+    b.pb = pb;
+    b.colsum = colsum;
+    b.P = P;
 
-  UnpackArgs& u = pl.u;
-  u.n_layers = n_layers;
-  for (int l = 0; l <= L; ++l) {
-    u.dst[l] = static_cast<uint16_t*>(const_cast<void*>(V[l]));
-    u.off[l] = woff[l];
-    u.cols[l] = dims[l + 1];
-    u.ld[l] = l == L ? pad8(dims[L]) : pad8(dims[l + 1]);
-    u.start[l + 1] = u.start[l] + dims[l] * dims[l + 1];
+    UnpackArgs& u = block<UnpackArgs>(out, lay.u, gi);
+    u.n_layers = l1 - l0;
+    u.head = l1 - 1 == L ? L - l0 : -1;
+    for (int l = l0; l < l1; ++l) {
+      const int i = l - l0;
+      u.dst[i] = static_cast<uint16_t*>(const_cast<void*>(V[l]));
+      u.off[i] = woff[l];
+      u.cols[i] = dims[l + 1];
+      u.ld[i] = l == L ? pad8(dims[L]) : pad8(dims[l + 1]);
+      u.start[i + 1] = u.start[i] + dims[l] * dims[l + 1];
+    }
   }
+  pl.n_layers = n_layers;
   return 0;
 }
 
@@ -1110,26 +1212,37 @@ extern "C" int trpo_fvp16_run(const void* plan, const float* v,
                                 SMEM_B);
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  UnpackArgs u = pl.u;
-  u.v = v;
-  const int total = u.start[u.n_layers];
-  const int blocks = cdiv(total, 256) < 1024 ? cdiv(total, 256) : 1024;
-  fvp16_unpack_kernel<<<blocks, 256, 0, stream>>>(u);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ArgsA a = pl.a;
-  a.v = v;
-  const int n_prod = a.n_prod, launches = pl.wide ? n_prod : 1;
-  for (int j = 0; j < launches; ++j) {
-    a.first = pl.wide ? j : 0;
-    a.n_prod = pl.wide ? j + 1 : n_prod;
-    const dim3 grid(pl.grid_a, pl.wide ? cdiv(a.prod[j].n, MAXW) : 1);
-    fvp16_phase_a_kernel<<<grid, THREADS_A, SMEM_A, stream>>>(a);
+  const Layout lay = plan_layout(pl.n_layers);
+  cudaError_t err = cudaSuccess;
+  for (int gi = 0; gi < pl.n_g; ++gi) {
+    UnpackArgs u = block<UnpackArgs>(plan, lay.u, gi);
+    u.v = v;
+    const int total = u.start[u.n_layers];
+    const int blocks = cdiv(total, 256) < 1024 ? cdiv(total, 256) : 1024;
+    fvp16_unpack_kernel<<<blocks, 256, 0, stream>>>(u);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  ArgsB b = pl.b;
-  b.partial = partial;
-  fvp16_phase_b_kernel<<<pl.grid_b, THREADS_B, SMEM_B, stream>>>(b);
-  return static_cast<int>(cudaGetLastError());
+  for (int i = 0; i < pl.n_a; ++i) {
+    ArgsA a = block<ArgsA>(plan, lay.a, i);
+    a.v = v;
+    const int n_prod = a.n_prod, launches = pl.wide ? n_prod : 1;
+    for (int j = 0; j < launches; ++j) {
+      a.first = pl.wide ? j : 0;
+      a.n_prod = pl.wide ? j + 1 : n_prod;
+      const dim3 grid(pl.grid_a, pl.wide ? cdiv(a.prod[j].n, MAXW) : 1);
+      fvp16_phase_a_kernel<<<grid, THREADS_A, SMEM_A, stream>>>(a);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  for (int gi = 0; gi < pl.n_g; ++gi) {
+    ArgsB b = block<ArgsB>(plan, lay.b, gi);
+    b.partial = partial;
+    const int grid = b.n_tiles * cdiv(b.rows, b.rows_per_split);
+    fvp16_phase_b_kernel<<<grid, THREADS_B, SMEM_B, stream>>>(b);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

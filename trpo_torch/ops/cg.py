@@ -1,20 +1,26 @@
-"""Conjugate gradient with a device-side early exit (counterpart:
-``trpo_tpu/ops/cg.py``).
+"""Conjugate gradient with an early exit (counterpart: ``trpo_tpu/ops/cg.py``).
 
 The reference's ``lax.while_loop`` exits once ``rᵀr`` falls under the
-threshold. Here the loop always runs ``cg_iters`` times and the exit is a
-mask: once converged, ``x``, ``r`` and ``p`` are kept by ``torch.where``
-and the iteration count stops growing. Every selected value is computed by
-the same ops in the same order as the reference's loop body, and no
-iteration waits on the host (no ``.item()``), so the solve can later be
-captured as a CUDA graph. The price is that the operator still runs on the
-iterations after convergence.
+threshold, so it calls the operator once per iteration it runs. Here the
+loop body keeps the exit as a device-side mask (once converged, ``x``,
+``r`` and ``p`` are kept by ``torch.where`` and the iteration count stops
+growing), and the host reads that mask every :data:`CHECK_EVERY`
+iterations (one sync each) and leaves the loop once no further iteration
+would take effect. Every value is computed by the same ops in the same
+order as the reference's loop body, and an iteration that the mask
+rejects changes nothing, so the result is bitwise that of the masked loop
+run to the end; only the operator calls after convergence are saved (at
+most ``CHECK_EVERY - 1`` of them remain). With ``CHECK_EVERY = 1`` the
+operator runs exactly once per iteration that takes effect, as in the
+reference.
+
+A rule that cannot fire (``residual_tol`` and ``residual_rtol`` both 0,
+as in ``trpo_torch/bench.py``'s forced-iteration solves) is never read:
+that loop runs its full count with no sync.
 
 ``cg_iters`` may be a device int tensor, the ladder's adaptive iteration
-budget (``cfg.cg_budget_adaptive``): the budget joins the mask
-(``i < budget``) and the loop runs ``max_iters`` times. So the adaptive
-budget changes the solution and the iteration count as in the reference,
-but saves no matvecs yet: the operator still runs up to the ceiling.
+budget (``cfg.cg_budget_adaptive``): it is read once per solve (one sync)
+and bounds the loop, so iterations past the budget cost nothing either.
 
 Everything this module owns — ``x``, ``r``, ``p``, the dot products and
 the residual test — is f32.
@@ -27,6 +33,12 @@ from typing import Callable, NamedTuple, Optional, Union
 import torch
 
 __all__ = ["CGResult", "conjugate_gradient"]
+
+# How often the host reads the exit mask: 1 = every iteration (no wasted
+# operator call), k = every k-th (at most k - 1 wasted calls, 1/k of the
+# syncs), 0 = never (the masked loop runs its full count). PERF.md has the
+# card's numbers for 0, 1 and 2.
+CHECK_EVERY = 1
 
 
 class CGResult(NamedTuple):
@@ -48,13 +60,16 @@ def conjugate_gradient(
     r₀ = b, exit when ``rᵀr ≤ max(residual_tol, residual_rtol²·bᵀb)``.
     ``M_inv`` (a callable ``r ↦ M⁻¹r``) makes it preconditioned CG; the exit
     test stays on the true residual ``rᵀr``. A tensor ``cg_iters`` needs
-    ``max_iters``, the host bound of the loop (the budget's ceiling)."""
+    ``max_iters``, the bound of the loop (the budget's ceiling)."""
     if isinstance(cg_iters, torch.Tensor):
         if max_iters is None:
             raise ValueError("a tensor cg_iters needs max_iters")
-        n_loop = int(max_iters)
+        n_loop = max(0, min(int(max_iters), int(cg_iters.item())))
     else:
         n_loop = int(cg_iters)
+    every = CHECK_EVERY
+    if residual_tol <= 0.0 and residual_rtol <= 0.0:
+        every = 0  # the rule cannot fire: nothing to read
     b = b.float()
     x = torch.zeros_like(b)
     r = b
@@ -68,8 +83,8 @@ def conjugate_gradient(
     iterations = torch.zeros((), dtype=torch.int32, device=b.device)
     for i in range(n_loop):
         active = rdotr > stop
-        if isinstance(cg_iters, torch.Tensor):
-            active = active & (cg_iters > i)
+        if every and i % every == 0 and not bool(active):
+            break  # converged: no later iteration takes effect
         w = f_Ax(p).float()
         alpha = rdotz / torch.dot(p, w)
         x_new = x + alpha * p

@@ -26,7 +26,11 @@ bitwise reproducible — is in the source's header. Everything of a launch
 that does not depend on ``v`` (aligned copies of the fixed weights and
 their transposes, the buffers the tangent blocks of ``v`` are unpacked
 into, the scratch, the split-K partials) is prepared once per operator
-build (:class:`_CudaPlan`), so a matvec allocates only its result.
+build (:class:`_CudaPlan`), so a matvec allocates only its result. Both
+kernels take any depth: a launch's arguments hold at most ``_MAX_LAYERS``
+layers, so a deeper torso's unpack and weight gradients run as one launch
+per group of layers (a torso of up to 7 hidden layers is one group, the
+launch sequence it always had).
 
 :meth:`FusedGaussianMLPFVP.flat` launches the kernel for CUDA tensors and
 runs the plain version, :func:`fused_fvp_net_plain` (the same three sweeps
@@ -47,8 +51,8 @@ bf16 values as f32 (``preferred_element_type=f32``), never with a bf16
 training shape is 35.44 GFLOP at 989 TFLOP/s dense bf16 ≈ 0.036 ms. Its
 design (the source's header): one block per 128-row tile runs the whole
 chain of products on ``wgmma`` with the tangents kept in shared memory
-(product by product through device memory when a width passes 256), then
-split-K weight gradients. Its TMA descriptors are built once per operator
+(product by product through device memory when a width passes 256 or
+the torso is deeper than 7 hidden layers), then split-K weight gradients. Its TMA descriptors are built once per operator
 build (:class:`_CudaPlanBF16`).
 
 The damping λ is a device scalar (a float is moved to the device once per
@@ -94,7 +98,7 @@ _ACT_FN = {
 }
 _EPI_DERIV, _EPI_FISHER = 0, 1
 _BK = 32           # rows per k-step of the weight-gradient tiles
-_MAX_LAYERS = 8    # layers one weight-gradient launch takes
+_MAX_LAYERS = 8    # layers one unpack or weight-gradient launch takes
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_ARGTYPES = (
@@ -113,16 +117,17 @@ _UNPACK_ARGTYPES = [_I, _P, _P, _P, _P, _P, _P, _P]
 
 def fused_fvp_supported(activation: str, net_params: Any) -> bool:
     """Whether the fused operator covers this (activation, torso) pair:
-    tanh/relu/elu, 1 to 7 hidden layers, 2-D weights. Any widths: the
-    kernel masks its own edges."""
+    tanh/relu/elu, at least one hidden layer, 2-D weights. Any depth and
+    any widths, as the reference's: the launches take the layers in
+    groups of at most ``_MAX_LAYERS``, and the kernels mask their own
+    edges."""
     if activation not in _ACT_DERIV:
         return False
     try:
         layers = net_params["layers"]
     except (TypeError, KeyError):
         return False
-    if not isinstance(layers, (list, tuple)) \
-            or not 2 <= len(layers) <= _MAX_LAYERS:
+    if not isinstance(layers, (list, tuple)) or len(layers) < 2:
         return False
     for layer in layers:
         try:
@@ -240,6 +245,15 @@ def _scratch(rows: int, cols: int, device) -> torch.Tensor:
     return torch.empty(rows, _cdiv(cols, 4) * 4, device=device)
 
 
+def _arrays(*columns) -> tuple:
+    """The per-layer ctypes arrays of one launch, from ``(ctype, values)``
+    columns: ``(layers, arrays, their addresses)`` (the arrays keep the
+    addresses valid)."""
+    arrays = [(ctype * len(values))(*values) for ctype, values in columns]
+    return (len(columns[0][1]), arrays,
+            [ctypes.addressof(a) for a in arrays])
+
+
 class _CudaPlan:
     """Everything of the kernel launch that does not depend on ``v``,
     prepared once per operator build: checked inputs, 16-byte-aligned
@@ -264,10 +278,6 @@ class _CudaPlan:
         _check_cuda("m", m, (A,))
         if B < 1:
             raise ValueError("fused FVP needs at least one row")
-        if L + 1 > _MAX_LAYERS:
-            raise ValueError(
-                f"fused FVP covers at most {_MAX_LAYERS} layers, got {L + 1}"
-            )
         dev = obs.device
         self.B, self.L, self.dims, self.offs = B, L, dims, offs
         self.total, self.A = total, A
@@ -283,14 +293,17 @@ class _CudaPlan:
         n_l = L + 1
         self.vpad = [torch.zeros(dims[k], _cdiv(dims[k + 1], 4) * 4,
                                  device=dev) for k in range(n_l)]
-        self._unpack_arrays = (
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in self.vpad]),
-            (ctypes.c_longlong * n_l)(*[offs[k][1] for k in range(n_l)]),
-            (ctypes.c_int * n_l)(*dims[:-1]),
-            (ctypes.c_int * n_l)(*dims[1:]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in self.vpad]),
-        )
-        self._unpack_ptrs = [ctypes.addressof(a) for a in self._unpack_arrays]
+        # the unpack and the weight gradients take the layers in groups of
+        # at most _MAX_LAYERS, one launch each (one group up to 7 hidden)
+        groups = [range(g, min(g + _MAX_LAYERS, n_l))
+                  for g in range(0, n_l, _MAX_LAYERS)]
+        self._unpack_launches = [_arrays(
+            (ctypes.c_void_p, [self.vpad[k].data_ptr() for k in ks]),
+            (ctypes.c_longlong, [offs[k][1] for k in ks]),
+            (ctypes.c_int, [dims[k] for k in ks]),
+            (ctypes.c_int, [dims[k + 1] for k in ks]),
+            (ctypes.c_int, [self.vpad[k].stride(0) for k in ks]),
+        ) for ks in groups]
         # per-row scratch: tangents, then (in place) the cotangents g_k; c
         self.bufs = [_scratch(B, dims[k + 1], dev) for k in range(L)]
         self.c = _scratch(B, A, dev)
@@ -314,16 +327,15 @@ class _CudaPlan:
         self.partial = torch.empty(self.splits, self.P, device=dev)
         a_ops = [obs] + list(hs)
         g_ops = list(self.bufs) + [self.c]
-        self._wgrad_arrays = (
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in a_ops]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in a_ops]),
-            kins,
-            (ctypes.c_void_p * n_l)(*[t.data_ptr() for t in g_ops]),
-            (ctypes.c_int * n_l)(*[t.stride(0) for t in g_ops]),
-            outs,
-            (ctypes.c_int * n_l)(*[offs[k][0] - A for k in range(n_l)]),
-        )
-        self._wgrad_ptrs = [ctypes.addressof(a) for a in self._wgrad_arrays]
+        self._wgrad_launches = [_arrays(
+            (ctypes.c_void_p, [a_ops[k].data_ptr() for k in ks]),
+            (ctypes.c_int, [a_ops[k].stride(0) for k in ks]),
+            (ctypes.c_int, [dims[k] for k in ks]),
+            (ctypes.c_void_p, [g_ops[k].data_ptr() for k in ks]),
+            (ctypes.c_int, [g_ops[k].stride(0) for k in ks]),
+            (ctypes.c_int, [dims[k + 1] for k in ks]),
+            (ctypes.c_int, [offs[k][0] - A for k in ks]),
+        ) for ks in groups]
 
     def run(self, v: torch.Tensor) -> torch.Tensor:
         """The full flat ``(F + λI)v`` on the current stream: the tangent
@@ -358,8 +370,8 @@ class _CudaPlan:
             return (self.vpad[k].data_ptr(), self.vpad[k].stride(0),
                     vp + f32 * offs[k][0])
 
-        err = unpack(L + 1, vp, *self._unpack_ptrs, stream)
-        _build.check("trpo_fvp_unpack", err)
+        for n, _, ptrs in self._unpack_launches:
+            _build.check("trpo_fvp_unpack", unpack(n, vp, *ptrs, stream))
         # ---- phase A: row-parallel sweeps ------------------------------
         V0, ld0, vb0 = tangent(0)
         run_sweep(dims[1], self.obs, dims[0], V0, ld0, None, 0, None, vb0,
@@ -381,9 +393,10 @@ class _CudaPlan:
                       hs[k - 1], bufs[k - 1])
 
         # ---- phase B: every layer's weight gradients, then the reduce --
-        err = wgrad(L + 1, *self._wgrad_ptrs, B, self.rows_per_split,
-                    self.splits, self.partial.data_ptr(), self.P, stream)
-        _build.check("trpo_fvp_wgrad", err)
+        for n, _, ptrs in self._wgrad_launches:
+            err = wgrad(n, *ptrs, B, self.rows_per_split, self.splits,
+                        self.partial.data_ptr(), self.P, stream)
+            _build.check("trpo_fvp_wgrad", err)
         out = torch.empty(self.total, device=v.device)
         err = reduce(self.A, self.P, self.splits, self.partial.data_ptr(), vp,
                      self.coef.data_ptr(), self.damping.data_ptr(),
@@ -419,10 +432,6 @@ class _CudaPlanBF16:
         _check_cuda("m", m, (A,))
         if B < 1:
             raise ValueError("fused FVP needs at least one row")
-        if L + 1 > _MAX_LAYERS:
-            raise ValueError(
-                f"fused FVP covers at most {_MAX_LAYERS} layers, got {L + 1}"
-            )
         dev = obs.device
         self.B, self.total, self.A = B, total, A
         self.damping, self.coef = damping, coef
@@ -450,7 +459,7 @@ class _CudaPlanBF16:
         ptrs = (ctypes.c_void_p * len(tensors))(
             *[t.data_ptr() for t in tensors])
         self.wn, self.m = wn, m  # the plan holds their pointers
-        size = _build.kernel("trpo_fvp16_plan_bytes", [])()
+        size = _build.kernel("trpo_fvp16_plan_bytes", [_I])(n_l)
         self._plan = ctypes.create_string_buffer(size + 64)
         self._plan_ptr = -(-ctypes.addressof(self._plan) // 64) * 64
         boff = (ctypes.c_longlong * n_l)(*[offs[k][0] for k in range(n_l)])

@@ -7,6 +7,19 @@ explicit ``terminated``/``done`` flags, ``next_obs`` is taken before the
 reset (so a truncated step bootstraps through the critic), and the running
 episode return and length ride the carry across iterations.
 
+Observations keep the env's dtype: pixel frames stay uint8 in the
+trajectory (a 2,048-step window of 84×84×4 frames is 58 MB as uint8, four
+times that as f32) and are cast only inside the policy's and the critic's
+forward.
+
+A recurrent policy (one with ``step``, ``models/recurrent.py``) adds its
+state ``h`` and a ``prev_done`` flag to the carry: ``h`` threads through
+the steps and is zeroed after an episode ends, and the trajectory gains
+what the update needs to replay the window — ``reset`` (the state was
+zeroed before step ``t``), ``policy_h0`` (the state entering the window)
+— and what the critic reads, ``policy_h``/``policy_h_next`` (the state
+before and after consuming ``obs[t]``).
+
 Time-chunked rollouts (``cfg.rollout_chunk``): :func:`device_rollout`
 with ``chunk`` and :class:`ChunkedRollout` run the same step body over
 ``n_steps // chunk`` chunks with the carry threaded through each chunk
@@ -31,27 +44,44 @@ __all__ = ["ChunkedRollout", "Trajectory", "device_rollout",
 
 class Trajectory(NamedTuple):
     """Fixed-shape ``(T, N, ...)`` rollout tensors (time-major)."""
-    obs: torch.Tensor             # (T, N, obs_dim) — s_t
+    obs: torch.Tensor             # (T, N, *obs_shape) — s_t
     actions: torch.Tensor         # (T, N, A) float, or (T, N) int64
     rewards: torch.Tensor         # (T, N)
     terminated: torch.Tensor      # (T, N) bool — terminal state at t
     done: torch.Tensor            # (T, N) bool — terminated OR truncated
     old_dist: Any                 # dist params dict, each (T, N, ...)
-    next_obs: torch.Tensor        # (T, N, obs_dim) — s_{t+1} BEFORE reset
+    next_obs: torch.Tensor        # (T, N, *obs_shape) — s_{t+1} BEFORE reset
     episode_return: torch.Tensor  # (T, N) running return, valid where done
     episode_length: torch.Tensor  # (T, N) running length, valid where done
+    # recurrent policies only (None otherwise)
+    reset: Any = None          # (T, N) bool — state zeroed before step t
+    policy_h0: Any = None      # (N, S) — state entering the window
+    policy_h: Any = None       # (T, N, S) — state entering step t
+    policy_h_next: Any = None  # (T, N, S) — state after obs[t] (pre-reset)
 
 
-def init_env_states(env, n_envs: int, generator: torch.Generator):
-    """``(states, obs, episode_return, episode_length)`` for ``n_envs``
-    fresh envs — the rollout carry."""
+def _recurrent(policy) -> bool:
+    return hasattr(policy, "step")
+
+
+def init_env_states(env, n_envs: int, generator: torch.Generator,
+                    policy=None):
+    """The rollout carry of ``n_envs`` fresh envs: ``(states, obs,
+    episode_return, episode_length)``, and for a recurrent ``policy`` its
+    zero state and a ``prev_done`` flag (True: the first step starts a
+    fresh memory)."""
     states, obs = env.reset(n_envs, generator)
-    return (
+    dev = obs.device
+    carry = (
         states,
         obs,
-        torch.zeros(n_envs, device=obs.device),
-        torch.zeros(n_envs, dtype=torch.int32, device=obs.device),
+        torch.zeros(n_envs, device=dev),
+        torch.zeros(n_envs, dtype=torch.int32, device=dev),
     )
+    if policy is not None and _recurrent(policy):
+        carry += (policy.initial_state(n_envs, device=dev),
+                  torch.ones(n_envs, dtype=torch.bool, device=dev))
+    return carry
 
 
 def _rollout_steps(env, policy: Policy, params, carry, generator,
@@ -60,12 +90,20 @@ def _rollout_steps(env, policy: Policy, params, carry, generator,
     """``n_steps`` env+policy steps from ``carry``; returns ``(new_carry,
     Trajectory)`` of ``(n_steps, N, ...)`` tensors. ``deterministic``
     takes the distribution's mode instead of a sample."""
-    states, obs, ep_ret, ep_len = carry
+    recurrent = _recurrent(policy)
+    states, obs, ep_ret, ep_len = carry[:4]
+    h = prev_done = h_new = None
+    if recurrent:
+        h0 = h = carry[4]
+        prev_done = carry[5]
     n = obs.shape[0]
     steps = []
     with torch.no_grad():
         for t in range(n_steps):
-            dist = policy.apply(params, obs)
+            if recurrent:
+                h_new, dist = policy.step(params, h, obs)
+            else:
+                dist = policy.apply(params, obs)
             if deterministic:
                 actions = policy.dist.mode(dist)
             else:
@@ -81,7 +119,7 @@ def _rollout_steps(env, policy: Policy, params, carry, generator,
             ep_ret = ep_ret + rewards
             ep_len = ep_len + 1
             steps.append((obs, actions, rewards, terminated, done, dist,
-                          next_obs, ep_ret, ep_len))
+                          next_obs, ep_ret, ep_len, prev_done, h, h_new))
             reset_states, reset_obs = env.reset(n, generator)
             sel = lambda a, b: torch.where(  # noqa: E731
                 done.reshape((-1,) + (1,) * (a.ndim - 1)), a, b
@@ -90,6 +128,10 @@ def _rollout_steps(env, policy: Policy, params, carry, generator,
             obs = sel(reset_obs, next_obs)
             ep_ret = torch.where(done, torch.zeros_like(ep_ret), ep_ret)
             ep_len = torch.where(done, torch.zeros_like(ep_len), ep_len)
+            if recurrent:
+                h = torch.where(done[:, None], torch.zeros_like(h_new),
+                                h_new)
+                prev_done = done
     cols = list(zip(*steps))
     stack = lambda xs: torch.stack(list(xs))  # noqa: E731
     traj = Trajectory(
@@ -99,14 +141,24 @@ def _rollout_steps(env, policy: Policy, params, carry, generator,
         next_obs=stack(cols[6]), episode_return=stack(cols[7]),
         episode_length=stack(cols[8]),
     )
-    return (states, obs, ep_ret, ep_len), traj
+    new_carry = (states, obs, ep_ret, ep_len)
+    if recurrent:
+        traj = traj._replace(reset=stack(cols[9]), policy_h0=h0,
+                             policy_h=stack(cols[10]),
+                             policy_h_next=stack(cols[11]))
+        new_carry += (h, prev_done)
+    return new_carry, traj
 
 
 def _concat(parts):
-    """Trajectories of consecutive chunks joined along time."""
+    """Trajectories of consecutive chunks joined along time; the window's
+    ``policy_h0`` is the first chunk's."""
     if len(parts) == 1:
         return parts[0]
-    return tree_map(lambda *xs: torch.cat(xs, dim=0), *parts)
+    h0 = parts[0].policy_h0
+    joined = tree_map(lambda *xs: torch.cat(xs, dim=0),
+                      *[p._replace(policy_h0=None) for p in parts])
+    return joined._replace(policy_h0=h0)
 
 
 def device_rollout(env, policy: Policy, params, carry, generator,

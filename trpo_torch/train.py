@@ -4,6 +4,9 @@
         --log-jsonl run.jsonl --checkpoint-dir ck --checkpoint-every 2 \
         [--resume] [--normalize-obs] [--fuse-iterations k] \
         [--recover-on-nan restore] [--reward-target R] --evaluate STEPS
+    python -m trpo_torch.train --preset pong-sim      # 84x84x4 conv policy
+    python -m trpo_torch.train --preset cartpole-po --policy-cell lstm
+    python -m trpo_torch.train --preset cartpole --policy-experts 4
 
 Runs ``TRPOAgent.learn`` on CUDA unless ``--device cpu`` is given. Each
 iteration prints the stats block and a one-line summary (one per chunk
@@ -62,6 +65,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    "of ceil(batch-timesteps / n-envs)")
     p.add_argument("--policy-hidden", type=_hidden,
                    help="comma-separated widths, e.g. 256,256")
+    p.add_argument("--policy-gru", type=_positive_int,
+                   help="recurrent policy: the cell's hidden size (the "
+                   "cartpole-po preset sets 64)")
+    p.add_argument("--policy-cell", choices=("gru", "lstm"),
+                   help="recurrence type when --policy-gru is set")
+    p.add_argument("--policy-experts", type=int,
+                   help="soft mixture-of-experts torso with K experts "
+                   "(not with --policy-gru)")
     p.add_argument("--max-kl", type=float)
     p.add_argument("--cg-iters", type=int)
     p.add_argument("--cg-damping", type=float)
@@ -128,6 +139,9 @@ def build_config(args):
         "n_envs": args.n_envs,
         "batch_timesteps": args.batch_timesteps,
         "policy_hidden": args.policy_hidden,
+        "policy_gru": args.policy_gru,
+        "policy_cell": args.policy_cell,
+        "policy_experts": args.policy_experts,
         "fleet_n_envs": args.fleet_n_envs,
         "rollout_chunk": args.rollout_chunk,
         "compute_dtype": args.compute_dtype,
@@ -187,9 +201,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.resume and not cfg.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
     agent = TRPOAgent(cfg.env, cfg, device=args.device)
+    family = (f" {cfg.policy_cell}={cfg.policy_gru}" if agent.is_recurrent
+              else f" experts={cfg.policy_experts}"
+              if cfg.policy_experts is not None else "")
     print(f"trpo_torch: preset={args.preset} env={cfg.env} "
           f"device={agent.device} batch={agent.n_steps}x{agent.n_envs} "
-          f"policy={tuple(cfg.policy_hidden)}", flush=True)
+          f"policy={tuple(cfg.policy_hidden)}{family}", flush=True)
     checkpointer, state = None, None
     if cfg.checkpoint_dir:
         checkpointer = Checkpointer(cfg.checkpoint_dir)

@@ -20,7 +20,10 @@ rung or a bfloat16 policy) for a plain-MLP diagonal-Gaussian policy. An
 ineligible policy under ``"auto"`` gets the ``torch.func`` Gauss-Newton
 operator (``ops/fvp.make_ggn_fvp``, over ``policy.apply_cast`` at the
 ladder's dtype) — a choice made when the operator is selected — and under
-``"fused"`` raises.
+``"fused"`` raises. The conv, recurrent and mixture-of-experts
+families have no ``mlp_spec``, so they always take the GGN, as the
+reference takes the XLA GGN for them; a recurrent batch passes its window
+as a ``SeqObs`` through ``policy.apply`` and the GGN alike.
 
 The solver precision ladder (a :class:`LadderState` passed in): every
 ``cfg.solve_audit_every`` updates the same system is re-solved at full
@@ -48,6 +51,7 @@ import torch
 from trpo_torch.config import TRPOConfig, check_ported
 from trpo_torch.models.mlp import ACTIVATIONS
 from trpo_torch.models.policy import Policy
+from trpo_torch.models.recurrent import SeqObs
 from trpo_torch.ops.cg import conjugate_gradient
 from trpo_torch.ops.flat import flatten_params, tree_map
 from trpo_torch.ops.fused_fvp import (
@@ -80,9 +84,11 @@ __all__ = [
 
 class TRPOBatch(NamedTuple):
     """One update's experience, leading axis ``(B,)`` = flattened
-    (time, env)."""
-    obs: torch.Tensor         # (B, obs_dim)
-    actions: torch.Tensor     # (B, A)
+    (time, env). A recurrent policy's batch keeps the ``(T, N)`` axes
+    instead and passes a ``models.recurrent.SeqObs`` as ``obs``: every
+    reduction of the update is a shape-agnostic weighted mean."""
+    obs: Any                  # (B, *obs_shape), or a SeqObs
+    actions: torch.Tensor     # (B, A) or (B,); (T, N, ...) with a SeqObs
     advantages: torch.Tensor  # (B,) — already standardized
     old_dist: Any             # {"mean": (B, A), "log_std": (B, A)}
     weight: torch.Tensor      # (B,) — 1.0 real step, 0.0 padding
@@ -112,6 +118,12 @@ class TRPOStats(NamedTuple):
     solve_fallback: Any = False      # the update used the full solution
     solve_pinned: Any = False        # the ladder was pinned this update
     ladder_next: Any = None          # LadderState for the next update
+    # iterations of the cheap solve (the one on cfg.fvp_dtype / the
+    # subsample), -1 when it did not run (a pinned ladder); it differs from
+    # cg_iterations only on an update that used the full solution. The
+    # cheap operator runs cg_iterations_cheap + 1 times: once per iteration
+    # that took effect (ops/cg.py), once for sᵀFs
+    cg_iterations_cheap: Any = None
 
 
 class LadderState(NamedTuple):
@@ -182,6 +194,7 @@ class SolvePack(NamedTuple):
     solve_fallback: Any
     solve_pinned: Any
     cg_budget: Any
+    cg_iterations_cheap: Any
 
 
 def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -220,9 +233,20 @@ def _fvp_keep_indices(n: int, fraction: float) -> np.ndarray:
 
 def _fvp_batch(batch: TRPOBatch, fraction: Optional[float]) -> TRPOBatch:
     """The deterministic curvature subsample the FVPs run on; gradient,
-    line search and rollback stay full-batch."""
+    line search and rollback stay full-batch. A flat batch thins its rows;
+    a recurrent (``SeqObs``) one thins the ENV axis, as the reference
+    does: striding time would break the window's replay."""
     if fraction is None or fraction == 1.0:
         return batch
+    if isinstance(batch.obs, SeqObs):
+        keep = torch.as_tensor(
+            _fvp_keep_indices(batch.obs.reset.shape[1], fraction),
+            device=batch.weight.device,
+        )
+        sub = lambda x: x[:, keep]  # noqa: E731
+        obs = SeqObs(obs=sub(batch.obs.obs), reset=sub(batch.obs.reset),
+                     h0=batch.obs.h0[keep])
+        return tree_map(sub, batch._replace(obs=None))._replace(obs=obs)
     keep = torch.as_tensor(
         _fvp_keep_indices(batch.weight.shape[0], fraction),
         device=batch.weight.device,
@@ -247,7 +271,7 @@ def _maybe_fused_fvp(policy: Policy, cfg: TRPOConfig, params0,
 
     spec = policy.mlp_spec
     if spec is None:
-        return bail("policy has no plain-MLP spec")
+        return bail("policy has no plain-MLP spec (conv/MoE/recurrent)")
     if getattr(policy.dist, "name", None) != "diag_gaussian":
         return bail("the fused FVP covers the diagonal-Gaussian head only")
     if not (isinstance(params0, dict) and set(params0) == {"net", "log_std"}):
@@ -300,7 +324,9 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
     ):
         raise ValueError(
             'cg_precondition="head_block" needs the plain-MLP '
-            "diagonal-Gaussian policy"
+            "diagonal-Gaussian policy (it inverts that head's Fisher "
+            "block); pass cg_precondition=False for a conv, MoE or "
+            "recurrent policy"
         )
     act = ACTIVATIONS[spec["activation"]]
 
@@ -367,7 +393,9 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             if getattr(policy, "apply_cast", None) is None:
                 raise ValueError(
                     'fvp_dtype="bf16" needs a policy with a dtype-castable '
-                    'forward (apply_cast) — use fvp_dtype="f32" here'
+                    "forward (apply_cast: the plain-MLP and conv policies; "
+                    'recurrent and MoE have none) — use fvp_dtype="f32" '
+                    "here"
                 )
             apply_b = lambda x: policy.apply_cast(  # noqa: E731
                 to_params(x), b.obs, dtype)
@@ -414,6 +442,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             solve_cosine, audited, fallback, pinned = (float("nan"), False,
                                                        False, False)
             budget_used = cfg.cg_iters
+            it_cheap = cg_iterations
         else:
             flag = lambda v: torch.full((), v, dtype=torch.bool,  # noqa
                                         device=dev)
@@ -460,9 +489,10 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                 # the cap of the solve that produced the used solution
                 budget_used = torch.where(use_full, i32(cfg.cg_iters),
                                           budget_used)
+                it_cheap = i32(-1) if ladder.pinned_host else it_c
             else:
                 stepdir, shs, cg_iterations, cg_residual = solve(fvp, budget)
-                it_c = cg_iterations
+                it_c = it_cheap = cg_iterations
                 solve_cosine = torch.full((), float("nan"), device=dev)
                 audited = fallback = pinned = flag(False)
 
@@ -519,6 +549,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         solve_fallback=fallback,
         solve_pinned=pinned,
         cg_budget=budget_used,
+        cg_iterations_cheap=it_cheap,
     )
 
 
@@ -596,6 +627,7 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             solve_fallback=pack.solve_fallback,
             solve_pinned=pack.solve_pinned,
             ladder_next=pack.ladder_next,
+            cg_iterations_cheap=pack.cg_iterations_cheap,
         )
     return to_params(x_new), stats
 
