@@ -51,11 +51,26 @@ Phases:
      ``pong-sim`` each resumed from step 1 of 2, bitwise;
  14. ``[norm]`` ``halfcheetah-sim`` with ``normalize_obs``, 2 iterations:
      the update still goes through K1;
- 15. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
+ 15. ``[host]`` the host envs (``native:``; the card's machine has no
+     gymnasium, so ``gym:`` is held against the reference on the CPU and
+     must refuse here): the C++ toolchain and the native library under
+     ``build/``; native:cartpole/pendulum step for step against the device
+     envs on the card; ``pendulum`` as published on ``native:pendulum``
+     (16 envs x 250 steps, 3 iterations, stage times and idle share);
+     ``cartpole`` on ``native:cartpole`` (2 iterations); rollout ms by
+     ``host_pipeline_groups`` 1, 2, 4 at pendulum's window and at
+     cartpole-fleet's width (2,048 x 4; mode-policy trajectories pipelined
+     == serial bitwise); ``host_inference`` device against cpu;
+     ``train.main`` serial against ``--host-async-pipeline`` on 1 and 2
+     groups (bitwise) and a resume from step 1 (state and sidecar
+     bitwise); one
+     ``jacobi`` update (K1 Σ(cg_iterations + 1) + probes) and one
+     ``jvp_grad`` update (step cosine with K1's ≥ 0.999);
+ 16. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
      SIGTERM after its first checkpoint: it must exit 75 with its last
      finished iteration as the newest complete checkpoint;
- 16. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-14) is driven with the launch counts set to 0 just
+ 17. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-15) is driven with the launch counts set to 0 just
 before it and read just after. The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
@@ -295,7 +310,10 @@ def phase_scan(torch, np, peaks, dev):
 
     rec = {}
     timed = ((391, 128), (1000, 300))
-    for T, N in ((391, 128), (1000, 300), (1, 1), (17, 1), (392, 33)):
+    # then the host paths' windows: native:pendulum, native:cartpole and
+    # the cartpole-fleet width on native:cartpole
+    for T, N in ((391, 128), (1000, 300), (1, 1), (17, 1), (392, 33),
+                 (250, 16), (125, 8), (4, 2048)):
         rng = np.random.default_rng(T * 7 + N)
         c = torch.as_tensor(rng.uniform(0, 1, (T, N)), dtype=torch.float32,
                             device=dev)
@@ -368,6 +386,7 @@ def phase_fvp(torch, np, peaks, dev):
         (300, (11, 96, 160, 5), "relu", 50),
         (257, (7, 33, 5), "elu", 17),
         (203, DEEP_DIMS, "tanh", 17),
+        (4000, (3, 64, 64, 1), "tanh", 0),  # native:pendulum's update
     ]
     rec, phases = {}, []
     for rows, dims, activation, zero_tail in cases:
@@ -1217,6 +1236,516 @@ def phase_norm(torch, dev):
     return counts
 
 
+def _host_build_lines(torch) -> None:
+    """[build]: the C++ toolchain, the native library under build/, the
+    host's cores, and the gym: family's refusal on this machine."""
+    from trpo_torch import envs
+    from trpo_torch.envs import native_build
+
+    info = native_build.compiler_info()
+    t0 = time.perf_counter()
+    lib = native_build.build()
+    print(f"[build] native envs: {info['cxx']} (CXX="
+          f"{os.environ.get('CXX', 'unset')}), {info['version']}; OpenMP "
+          f"probed (-fopenmp builds); {lib} in "
+          f"{time.perf_counter() - t0:.1f} s; host cores {os.cpu_count()}, "
+          f"OMP_NUM_THREADS={os.environ.get('OMP_NUM_THREADS', 'unset')}",
+          flush=True)
+    _check(lib.parent.parent == ROOT / "build" / "trpo_torch_native",
+           f"[build] the native library is not under build/: {lib}")
+    import importlib.util
+
+    if importlib.util.find_spec("gymnasium") is None:
+        try:
+            envs.make("gym:HalfCheetah-v4", n_envs=1)
+        except ImportError as e:
+            _check("gymnasium is required" in str(e),
+                   f"[build] gym: refused with another error: {e}")
+            print(f"[build] gym: is not driven on this machine: "
+                  f"make('gym:HalfCheetah-v4') raises {e!r}", flush=True)
+        else:
+            raise SmokeFailure("[build] gym: constructed without gymnasium")
+    else:
+        print("[build] gymnasium is importable here; gym: is still not "
+              "driven by this smoke", flush=True)
+
+
+def _host_physics(torch, np, dev) -> None:
+    """native:cartpole and native:pendulum step for step against the
+    device CartPole/Pendulum on the card, from the same states, on the
+    same actions, at the reference's tolerances."""
+    from trpo_torch.envs.cartpole import CartPole, CartPoleState
+    from trpo_torch.envs.native import NativeVecEnv
+    from trpo_torch.envs.pendulum import Pendulum, PendulumState
+
+    n, steps = 4096, 20
+    rng = np.random.default_rng(0)
+    errs = {"cartpole": 0.0, "pendulum": 0.0}
+    for kind, cls, tol in (("cartpole", CartPole, (1e-5, 1e-6)),
+                           ("pendulum", Pendulum, (1e-4, 1e-5))):
+        env = NativeVecEnv(kind, n_envs=n, seed=1, max_episode_steps=10 ** 9)
+        dev_env = cls(max_episode_steps=10 ** 9, device=dev)
+        for _ in range(steps):
+            s = torch.as_tensor(env._state.copy(), device=dev)
+            zero = torch.zeros(n, dtype=torch.int32, device=dev)
+            if kind == "cartpole":
+                a = rng.integers(0, 2, size=n).astype(np.int32)
+                st = CartPoleState(s[:, 0], s[:, 1], s[:, 2], s[:, 3], zero)
+                act = torch.as_tensor(a, device=dev)
+            else:
+                a = rng.uniform(-3, 3, size=n).astype(np.float32)
+                st = PendulumState(s[:, 0], s[:, 1], zero)
+                act = torch.as_tensor(a, device=dev)[:, None]
+            _, rew, term, _, final_obs = env.host_step(a)
+            _, obs, r, dterm, _ = dev_env.step(st, act)
+            obs, r, dterm = obs.cpu().numpy(), r.cpu().numpy(), \
+                dterm.cpu().numpy()
+            close = np.allclose(final_obs, obs, rtol=tol[0], atol=tol[1]) \
+                and np.allclose(rew, r, rtol=tol[0], atol=tol[1])
+            _check(close, f"[host] native:{kind} disagrees with the card")
+            _check(np.array_equal(term, dterm),
+                   f"[host] native:{kind} terminations differ")
+            errs[kind] = max(errs[kind], float(np.abs(final_obs - obs).max()))
+    print(f"[host] physics, {steps} steps x {n} envs on the same actions: "
+          f"native vs device max |obs err| cartpole {errs['cartpole']:.3e} "
+          f"(rtol 1e-5, atol 1e-6, terminations equal), pendulum "
+          f"{errs['pendulum']:.3e} (rtol 1e-4, atol 1e-5)", flush=True)
+
+
+def _host_stage_breakdown(torch, agent, state, tag, reps: int = 3):
+    """The host iteration stage by stage (median of ``reps`` from one
+    state): rollout (host stepping + per-step inference), GAE, the update,
+    the critic fit; then the policy phase under the profiler for the
+    device's idle share there."""
+    from trpo_torch.ops import _build
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    snap = agent.snapshot_host_env()
+    samples = []
+    for _ in range(reps):
+        agent.restore_host_env(snap)
+        (st, traj), roll_ms = timed(lambda: agent._host_collect(state))
+        _, gae_ms = timed(lambda: agent._advantages(st.vf_state, traj))
+        (st2, pack), policy_ms = timed(lambda: agent._policy_phase(st, traj))
+        _, vf_ms = timed(lambda: agent._vf_stats_phase(st2.vf_state, pack))
+        samples.append({"rollout": roll_ms, "gae": gae_ms,
+                        "update": policy_ms - gae_ms, "policy": policy_ms,
+                        "vf_fit": vf_ms})
+    med = {k: sorted(x[k] for x in samples)[reps // 2] for k in samples[0]}
+    _, launches = _kernel_phases(
+        torch, lambda: agent._policy_phase(st, traj), reps=1)
+    med["policy_device"] = sum(us for _, us in launches) / 1e3
+    med["idle"] = 1.0 - med["policy_device"] / med["policy"]
+    print(f"[{tag}] stage ms, median of {reps} ({agent.n_steps}x"
+          f"{agent.n_envs} window): rollout={med['rollout']:.1f} "
+          f"gae={med['gae']:.2f} update={med['update']:.1f} "
+          f"vf_fit+stats={med['vf_fit']:.1f} | policy phase "
+          f"{med['policy']:.1f}, its kernels' device time "
+          f"{med['policy_device']:.2f} (profiler), device idle "
+          f"{med['idle']:.2f}", flush=True)
+    agent.restore_host_env(snap)
+    return med
+
+
+def _host_rollout_ms(torch, agent, state, reps: int = 3) -> float:
+    """Median ms of ``agent._host_collect`` from one env snapshot."""
+    snap = agent.snapshot_host_env()
+    ms = []
+    for _ in range(reps):
+        agent.restore_host_env(snap)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        agent._host_collect(state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    agent.restore_host_env(snap)
+    return sorted(ms)[reps // 2]
+
+
+def _act_latency_ms(torch, act, params, obs, gen, calls: int = 200):
+    act(params, obs, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        act(params, obs, gen)
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
+def _host_fleet_groups(torch, np, dev) -> dict:
+    """cartpole-fleet's width (2,048 envs x 4 steps) on native:cartpole
+    with host_pipeline_groups 1, 2, 4: the rollout's ms each (sampled);
+    under the mode policy the pipelined trajectories must equal the serial
+    one bitwise."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.envs.native import NativeVecEnv
+    from trpo_torch.ops import _build
+    from trpo_torch.rollout import host_rollout, pipelined_host_rollout
+
+    pcfg = get_preset("pendulum").replace(env="native:pendulum")
+    cfg = get_preset("cartpole-fleet").replace(env="native:cartpole",
+                                               rollout_chunk=None)
+    counts = {}
+    ms = {}
+    for c, tag in ((pcfg, "pendulum"), (cfg, "fleet")):
+        for groups in (1, 2, 4):
+            agent = TRPOAgent(c.env, c.replace(host_pipeline_groups=groups),
+                              device=dev)
+            state = agent.init_state(seed=0)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            state, stats = agent.run_iteration(state)
+            torch.cuda.synchronize()
+            counts = _add(counts, dict(_build.LAUNCHES))
+            _check(_finite(torch, stats["entropy"]),
+                   f"[host] {tag} groups={groups}: entropy not finite")
+            ms[tag, groups] = _host_rollout_ms(torch, agent, state)
+    params = state.policy_params
+    serial = host_rollout(NativeVecEnv("cartpole", 2048, seed=5), agent.policy,
+                          params, None, 4, deterministic=True, device=dev)
+    same = {}
+    for groups in (2, 4):
+        piped = pipelined_host_rollout(
+            NativeVecEnv("cartpole", 2048, seed=5), agent.policy, params,
+            torch.Generator(device=dev), 4, n_groups=groups,
+            deterministic=True, stage_to_device=True, device=dev)
+        same[groups] = all(
+            torch.equal(getattr(serial, f), getattr(piped, f))
+            for f in ("obs", "actions", "rewards", "terminated", "done",
+                      "next_obs", "episode_return", "episode_length"))
+        _check(same[groups], f"[host] pipelined groups={groups} differs "
+               "from serial under the mode policy")
+    print("[host] rollout ms by host_pipeline_groups, cartpole-fleet width "
+          f"on native:cartpole ({agent.n_steps}x{agent.n_envs}): "
+          + ", ".join(f"G={g} {v:.2f}" for (t, g), v in ms.items()
+                      if t == "fleet")
+          + "; pendulum on native:pendulum (250x16): "
+          + ", ".join(f"G={g} {v:.2f}" for (t, g), v in ms.items()
+                      if t == "pendulum")
+          + f" (host cores {os.cpu_count()}, OMP_NUM_THREADS="
+          f"{os.environ.get('OMP_NUM_THREADS', 'unset')}); mode-policy "
+          f"trajectories pipelined == serial bitwise: {same}", flush=True)
+    return counts
+
+
+def _host_group_breakdown(torch, np, dev) -> None:
+    """Where pendulum's window (16 envs x 250 steps) goes with one group,
+    with 4 groups on worker threads (``pipelined_host_rollout``), and with
+    the same 4 groups stepped one after another on the calling thread:
+    the wall and CPU time of each thread's pieces, summed over the window
+    (acts on the calling thread; the env steps and their bookkeeping,
+    ``rollout._record_step``, on the workers when threaded). A piece's
+    wall minus its CPU time is time its thread was off a core: waiting
+    for the GIL, for a device sync that sleeps, or descheduled."""
+    import threading
+
+    from trpo_torch import rollout
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.envs.native import NativeVecEnv
+
+    cfg = get_preset("pendulum").replace(env="native:pendulum")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    params = agent.init_state(seed=0).policy_params
+    T, G = agent.n_steps, 4
+    clock, lock = {}, threading.Lock()
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            w0, c0 = time.perf_counter(), time.thread_time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                w = time.perf_counter() - w0
+                c = time.thread_time() - c0
+                with lock:
+                    e = clock.setdefault(name, [0, 0.0, 0.0])
+                    e[0] += 1
+                    e[1] += w * 1e3
+                    e[2] += c * 1e3
+        return run
+
+    def inline(env, act, gens):
+        cuts = np.linspace(0, env.n_envs, G + 1).round().astype(int)
+        groups = list(zip(cuts[:-1], cuts[1:]))
+        obs0 = env.current_obs()
+        obs = [obs0[lo:hi] for lo, hi in groups]
+        bufs = [rollout._Buffers(T, dev) for _ in groups]
+        for t in range(T):
+            for g, (lo, hi) in enumerate(groups):
+                a, d = act(params, obs[g], gens[g])
+                nxt, r, te, tr, fin = env.host_step_slice(a, lo, hi)
+                rollout._record_step(
+                    bufs[g], t, obs[g], a, d, fin, r, te, tr,
+                    env.last_episode_returns[lo:hi].copy(),
+                    env.last_episode_lengths[lo:hi].copy())
+                obs[g] = nxt
+        return [b.to_device() for b in bufs]
+
+    legs = {
+        "G=1": lambda env, act: rollout.host_rollout(
+            env, agent.policy, params, torch.Generator(device=dev), T,
+            act_fn=act, device=dev),
+        "G=4 threads": lambda env, act: rollout.pipelined_host_rollout(
+            env, agent.policy, params, torch.Generator(device=dev), T,
+            n_groups=G, act_fn=act, stage_to_device=True, device=dev),
+        "G=4 inline": lambda env, act: inline(
+            env, act, [torch.Generator(device=dev).manual_seed(g)
+                       for g in range(G)]),
+    }
+    record = rollout._record_step
+    parts = []
+    try:
+        rollout._record_step = timed("record", record)
+        for name, leg in legs.items():
+            for rep in range(2):  # the first warms the pinned-buffer cache
+                env = NativeVecEnv("pendulum", n_envs=16, seed=7,
+                                   max_episode_steps=200)
+                env.host_step_slice = timed("env_step", env.host_step_slice)
+                act = timed("act", rollout.make_host_act_fn(agent.policy))
+                clock.clear()
+                torch.cuda.synchronize()
+                w0, c0 = time.perf_counter(), time.thread_time()
+                leg(env, act)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - w0) * 1e3
+                cpu = (time.thread_time() - c0) * 1e3
+            parts.append(
+                f"{name}: {wall:.1f} ms (calling thread CPU {cpu:.1f}); "
+                + ", ".join(f"{k} x{n} wall {w:.1f} cpu {c:.1f}"
+                            for k, (n, w, c) in sorted(clock.items())))
+    finally:
+        rollout._record_step = record
+    print(f"[host] group breakdown, pendulum {T}x16 window (ms summed over "
+          f"the window; host cores {os.cpu_count()}, OMP_NUM_THREADS="
+          f"{os.environ.get('OMP_NUM_THREADS', 'unset')}, switch interval "
+          f"{sys.getswitchinterval() * 1e3:.1f} ms): " + " | ".join(parts),
+          flush=True)
+
+
+def _host_inference_legs(torch, np, dev) -> dict:
+    """host_inference "device" against "cpu" on native:pendulum: the
+    rollout's ms and the per-step act latency of each; cartpole's mode
+    actions must agree exactly between the two."""
+    from trpo_torch.agent import TRPOAgent, _to
+    from trpo_torch.config import get_preset
+    from trpo_torch.envs.native import NativeVecEnv
+    from trpo_torch.ops import _build
+    from trpo_torch.rollout import make_host_act_fn
+
+    cfg = get_preset("pendulum").replace(env="native:pendulum")
+    counts, line = {}, []
+    window = f"{cfg.n_envs} envs x {cfg.batch_timesteps // cfg.n_envs} steps"
+    for where in ("device", "cpu"):
+        agent = TRPOAgent(cfg.env, cfg.replace(host_inference=where),
+                          device=dev)
+        state = agent.init_state(seed=0)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        state, _ = agent.run_iteration(state)
+        torch.cuda.synchronize()
+        counts = _add(counts, dict(_build.LAUNCHES))
+        roll = _host_rollout_ms(torch, agent, state)
+        params, gen = agent._rollout_inputs(state)
+        lat = _act_latency_ms(torch, agent._make_host_act(), params,
+                              agent.env.current_obs(), gen)
+        line.append(f"{where}: rollout {roll:.1f} ms, act {lat:.3f} "
+                    "ms/step")
+    ccfg = get_preset("cartpole").replace(env="native:cartpole")
+    agent = TRPOAgent(ccfg.env, ccfg, device=dev)
+    params = agent.init_state(seed=0).policy_params
+    obs = NativeVecEnv("cartpole", 1000, seed=3).current_obs()
+    act = make_host_act_fn(agent.policy, deterministic=True)
+    a_dev, _ = act(params, obs, None)
+    a_cpu, _ = act(_to(params, "cpu"), obs, None)
+    _check(np.array_equal(a_dev, a_cpu),
+           "[host] cartpole mode actions differ between card and CPU")
+    print(f"[host] host_inference on native:pendulum ({window}): "
+          + "; ".join(line) + "; cartpole mode actions card == CPU over "
+          "1,000 observations", flush=True)
+    return counts
+
+
+def _host_train_legs(torch, dev) -> dict:
+    """train.main on --env native:pendulum: 4 iterations serial and 4 on
+    the async driver, on one env group and on 2 (the groups draw their own
+    generators, so the 2-group serial run groups too, with one transfer at
+    the end); each pair's rows and final state bitwise equal, and its
+    median iteration ms. Then a resume from step 1 of 2, bitwise over the
+    state and the sidecar."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    work = WORK / "host"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    base = ["--preset", "pendulum", "--env", "native:pendulum", "--device",
+            str(dev)]
+    skip = {"iteration_ms", "time_elapsed_min"}
+
+    def same_rows(a, b):
+        return len(a) == len(b) and all(
+            set(x) == set(y) and all(
+                k in skip or x[k] == y[k] or (x[k] != x[k] and y[k] != y[k])
+                for k in x) for x, y in zip(a, b))
+
+    for groups, serial_flags in ((1, []), (2, ["--no-host-staged-transfers"])):
+        flags = base + ["--host-pipeline-groups", str(groups)]
+        runs = {"serial": serial_flags, "async": ["--host-async-pipeline"]}
+        rows = {}
+        for name, extra in runs.items():
+            tag = f"{name}{groups}"
+            code, _ = _main_quiet(flags + extra + [
+                "--iterations", "4", "--checkpoint-dir", str(work / tag),
+                "--checkpoint-every", "4", "--log-jsonl",
+                str(work / f"{tag}.jsonl")])
+            _check(code == 0, f"[host] train.main {tag} exited {code}")
+            rows[name] = [json.loads(x) for x in
+                          (work / f"{tag}.jsonl").read_text().splitlines()]
+        cfg = get_preset("pendulum").replace(env="native:pendulum",
+                                             host_pipeline_groups=groups)
+        agent = TRPOAgent(cfg.env, cfg, device=dev)
+        states = {n: Checkpointer(str(work / f"{n}{groups}")).restore(
+            agent.init_state(), step=4) for n in runs}
+        diff = _state_diff(torch, states["serial"], states["async"])
+        equal = same_rows(rows["serial"], rows["async"])
+        med = {n: sorted(r["iteration_ms"] for r in rows[n])[2]
+               for n in rows}
+        print(f"[host] train.main native:pendulum 4 iterations, {groups} "
+              f"group(s): serial vs async rows "
+              f"{'bitwise equal' if equal else 'DIFFER'}, final state "
+              f"{'bitwise equal' if not diff else diff}; median iteration "
+              f"ms serial {med['serial']:.1f}, async {med['async']:.1f} "
+              f"(per-iteration: serial "
+              f"{[round(r['iteration_ms'], 1) for r in rows['serial']]}, "
+              f"async {[round(r['iteration_ms'], 1) for r in rows['async']]})",
+              flush=True)
+        _check(equal, "[host] async rows differ from serial")
+        _check(not diff, f"[host] async state differs from serial: {diff}")
+
+    a, b = work / "ra", work / "rb"
+    flags = base + ["--host-pipeline-groups", "2", "--host-async-pipeline",
+                    "--checkpoint-every", "1"]
+    code, _ = _main_quiet(flags + ["--iterations", "2", "--checkpoint-dir",
+                                   str(a)])
+    _check(code == 0, f"[host] train.main (resume leg) exited {code}")
+    b.mkdir()
+    shutil.copytree(a / "step_1", b / "step_1")
+    for name in ("step_1.complete", ".markers_enabled"):
+        shutil.copy(a / name, b / name)
+    code, lines = _main_quiet(flags + ["--iterations", "1", "--resume",
+                                       "--checkpoint-dir", str(b)])
+    _check(code == 0 and "resumed from step 1" in lines,
+           f"[host] the resumed run exited {code}: {lines}")
+    want = Checkpointer(str(a)).restore(agent.init_state(), step=2)
+    got = Checkpointer(str(b)).restore(agent.init_state(), step=2)
+    diff = _state_diff(torch, want, got)
+    side_a = Checkpointer(str(a)).restore_host_env(step=2)
+    side_b = Checkpointer(str(b)).restore_host_env(step=2)
+    keys = ("state", "t", "rng", "obs", "running_returns",
+            "running_lengths", "last_returns", "last_lengths")
+    side_diff = [k for k in keys if not (
+        side_a[k].dtype == side_b[k].dtype
+        and (side_a[k] == side_b[k]).all())]
+    print(f"[host] resumed from step 1 against the uninterrupted run at "
+          f"step 2: state {'bitwise equal' if not diff else diff}, sidecar "
+          f"{'bitwise equal' if not side_diff else side_diff} over "
+          f"{', '.join(keys)} (rng {side_a['rng'].dtype})", flush=True)
+    _check(not diff, f"[host] resumed state differs: {diff}")
+    _check(not side_diff, f"[host] resumed sidecar differs: {side_diff}")
+    torch.cuda.synchronize()
+    return dict(_build.LAUNCHES)
+
+
+def _host_item3(torch, dev) -> dict:
+    """On native:pendulum: one update with cg_precondition="jacobi" (K1
+    launches Σ(cg_iterations + 1) + cg_precond_probes), and one with
+    fvp_mode="jvp_grad" whose step must have a cosine >= 0.999 with the K1
+    solution's (the ladder's own floor)."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.ops.flat import flatten_params
+
+    cfg = get_preset("pendulum").replace(env="native:pendulum")
+    counts = {}
+    agent = TRPOAgent(cfg.env, cfg.replace(cg_precondition="jacobi"),
+                      device=dev)
+    state = agent.init_state(seed=0)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    _, stats = agent.run_iteration(state)
+    torch.cuda.synchronize()
+    counts = _add(counts, dict(_build.LAUNCHES))
+    it = int(stats["cg_iterations"])
+    want = it + 1 + cfg.cg_precond_probes
+    _check(_build.LAUNCHES["fused_fvp"] == want,
+           f"[host] jacobi: K1 launched {_build.LAUNCHES['fused_fvp']}, "
+           f"expected {want}")
+    steps = {}
+    for mode in ("auto", "jvp_grad"):
+        ag = TRPOAgent(cfg.env, cfg.replace(fvp_mode=mode), device=dev)
+        st = ag.init_state(seed=0)
+        st, traj = ag._host_collect(st)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        new, pack = ag._policy_phase(st, traj)
+        torch.cuda.synchronize()
+        counts = _add(counts, dict(_build.LAUNCHES))
+        steps[mode] = (flatten_params(new.policy_params)[0]
+                       - flatten_params(st.policy_params)[0]).double()
+        if mode == "jvp_grad":
+            _check(_build.LAUNCHES["fused_fvp"] == 0,
+                   "[host] jvp_grad launched K1")
+    a, b = steps["auto"], steps["jvp_grad"]
+    cos = float(a @ b / (a.norm() * b.norm()))
+    print(f"[host] item 3: jacobi update K1 launches {want} = "
+          f"(cg_iterations {it} + 1) + {cfg.cg_precond_probes} probes; "
+          f"jvp_grad step vs K1 step cosine {cos:.6f}", flush=True)
+    _check(cos >= 0.999, f"[host] jvp_grad step cosine {cos} < 0.999")
+    return counts
+
+
+def phase_host(torch, np, dev):
+    """Queue 1 item 13 on the card: the native: envs behind the host
+    rollout, K1 and K2 on the update (see the module docstring)."""
+    from trpo_torch.config import get_preset
+
+    _host_build_lines(torch)
+    _host_physics(torch, np, dev)
+    cfg = get_preset("pendulum").replace(env="native:pendulum")
+    agent, state, _, counts = _drive(torch, dev, "host", cfg, 3)
+    _check(agent.n_envs == 16 and agent.n_steps == 250,
+           f"[host] pendulum window {agent.n_steps}x{agent.n_envs}")
+    _host_stage_breakdown(torch, agent, state, "host")
+    ccfg = get_preset("cartpole").replace(env="native:cartpole")
+    counts = _add(counts, _drive(torch, dev, "host", ccfg, 2,
+                                 kernel=None)[3])
+    for leg in (lambda: _host_fleet_groups(torch, np, dev),
+                lambda: _host_group_breakdown(torch, np, dev) or {},
+                lambda: _host_inference_legs(torch, np, dev),
+                lambda: _host_train_legs(torch, dev),
+                lambda: _host_item3(torch, dev)):
+        leg_counts = leg()
+        plain = {k: v for k, v in leg_counts.items()
+                 if k.endswith("_plain") and v}
+        _check(not plain, f"[host] a plain version ran: {plain}")
+        counts = _add(counts, leg_counts)
+    print(f"[host] launches over the driven host paths: {counts}",
+          flush=True)
+    return counts
+
+
 def phase_preempt(torch, dev):
     """A child ``python -m trpo_torch.train`` is sent SIGTERM once its
     first checkpoint is complete: it finishes the iteration in flight,
@@ -1477,6 +2006,7 @@ def main() -> int:
                 ("moe", lambda: phase_moe(torch, dev)),
                 ("learn", lambda: phase_learn(torch, dev)),
                 ("norm", lambda: phase_norm(torch, dev)),
+                ("host", lambda: phase_host(torch, np, dev)),
                 ("preempt", lambda: phase_preempt(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()

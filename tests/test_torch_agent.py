@@ -210,17 +210,22 @@ def test_train_cli_on_cpu(capsys):
 
 
 def test_unported_env_and_preset_paths_raise():
-    # the ladder, the fleet presets, cartpole and the pixel, recurrent and
-    # MoE families run now; the overlap and host envs still raise, naming
-    # their ROADMAP item
+    # the ladder, the fleet presets, the pixel, recurrent and MoE families
+    # and the gym:/native: host envs run now; the overlap and the gymproc:
+    # worker pool still raise, naming their ROADMAP item
     with pytest.raises(NotImplementedError, match="item 15"):
         TRPOAgent("cartpole", get_preset("cartpole").replace(
             train_overlap=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="and 13"):
-        TRPOAgent("gym:HalfCheetah-v4", get_preset("halfcheetah"),
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TRPOAgent("gymproc:CartPole-v1", get_preset("cartpole"),
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TRPOAgent("gym:Humanoid-v4", get_preset("humanoid"), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TRPOAgent("cartpole", get_preset("cartpole").replace(
+            env="gymproc:CartPole-v1"), device="cpu")
+    pytest.importorskip("mujoco")
+    agent = TRPOAgent("gym:HalfCheetah-v4", get_preset("halfcheetah")
+                      .replace(n_envs=2), device="cpu")
+    assert agent.obs_shape == (17,) and not agent.is_device_env
 
 
 _LADDER_KEYS = ("solve_cosine", "solve_audited", "solve_fallback",

@@ -136,13 +136,7 @@ def test_presets_match_reference_training_fields():
     "override",
     [
         {"train_overlap": 1, "rollout_chunk": 1},
-        {"env": "native:cartpole"},
-        {"cg_precondition": True},
-        {"env": "fake"},
-        {"env": "gym:Humanoid-v4"},
-        {"env": "chain"},
-        {"cg_precondition": "jacobi"},
-        {"fvp_mode": "jvp_grad"},
+        {"env": "gymproc:CartPole-v1"},
         {"mesh_shape": (2,)},
     ],
 )
@@ -167,6 +161,14 @@ def test_unported_paths_raise(override):
         {"env": "catch"},
         {"policy_gru": 8},
         {"env": "cartpole-po", "policy_gru": 64, "policy_cell": "lstm"},
+        # Queue 1 items 13 and 3
+        {"env": "native:cartpole"},
+        {"cg_precondition": True},
+        {"env": "fake"},
+        {"env": "gym:Humanoid-v4"},
+        {"env": "chain"},
+        {"cg_precondition": "jacobi"},
+        {"fvp_mode": "jvp_grad"},
     ],
 )
 def test_ladder_and_fleet_paths_are_ported(override):

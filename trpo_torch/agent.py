@@ -28,14 +28,29 @@ statistics, through the raw policy (so the update still reaches the fused
 FVP kernel), and the raw observations are folded into the statistics for
 the next iteration.
 
+Host envs (``native:``, ``gym:``; ``envs/native.py``,
+``envs/gym_adapter.py``) step on the host: ``run_iteration`` collects with
+``rollout.host_rollout`` (or, with ``cfg.host_pipeline_groups > 1``,
+``rollout.pipelined_host_rollout``), the policy running on the agent's
+device or, with ``cfg.host_inference="cpu"``, on the CPU from a CPU
+generator (``TrainState.host_rng``); the trajectory then goes through the
+same GAE, update and critic fit on the device. The adapter normalizes the
+observations itself (``envs/obs_norm.py``) and its f64 statistics
+round-trip through the f32 ``TrainState.obs_norm`` at every iteration
+boundary, as in the reference. Its simulator state is not in
+``TrainState``: ``snapshot_host_env``/``restore_host_env`` carry it, and
+checkpoints write it as a sidecar (``utils/checkpoint.py``).
+
 ``learn`` is the reference's serial training loop: chunks of
 ``cfg.fuse_iterations`` iterations (``run_iterations``), the chunk's stats
 brought to the host in one transfer, a JSONL row per iteration
 (``utils/metrics.StatsLogger``), the stop rules, a checkpoint every
 ``cfg.checkpoint_every`` iterations, the preemption exit and the NaN
-recovery (``resilience``). The reference's overlapped and host-async
-loops, its telemetry and its fault injector are not ported (ROADMAP.md
-Queue 1 items 13, 15 and 18).
+recovery (``resilience``). With ``cfg.host_async_pipeline`` (host envs)
+it runs the asynchronous driver (:meth:`TRPOAgent._learn_host_async`),
+bitwise equal to the serial one. The reference's overlapped loop, its
+telemetry and its fault injector are not ported (ROADMAP.md Queue 1 items
+15 and 18).
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -45,8 +60,10 @@ never carries on quietly on the CPU.
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from trpo_torch import envs as envs_lib
@@ -56,10 +73,18 @@ from trpo_torch.models.conv import exact_convolutions
 from trpo_torch.models.moe import make_moe_policy
 from trpo_torch.models.policy import make_policy, spec_from_env
 from trpo_torch.models.recurrent import SeqObs, make_recurrent_policy
-from trpo_torch.ops.flat import tree_map
+from trpo_torch.ops.flat import tree_leaves, tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.ops.returns import gae_from_next_values
-from trpo_torch.rollout import Trajectory, device_rollout, init_env_states
+from trpo_torch.rollout import (
+    Trajectory,
+    device_rollout,
+    host_rollout,
+    init_env_states,
+    make_host_act_fn,
+    params_device,
+    pipelined_host_rollout,
+)
 from trpo_torch.trpo import (
     TRPOBatch,
     init_ladder,
@@ -68,8 +93,14 @@ from trpo_torch.trpo import (
     standardize_advantages,
 )
 from trpo_torch.resilience import Preempted, PreemptionGuard, RecoveryPolicy
+from trpo_torch.utils.async_pipe import StatsDrain
 from trpo_torch.utils.metrics import StatsLogger, explained_variance
-from trpo_torch.utils.normalize import init_stats, normalize, update_stats
+from trpo_torch.utils.normalize import (
+    RunningStats,
+    init_stats,
+    normalize,
+    update_stats,
+)
 from trpo_torch.utils.timers import PhaseTimer
 from trpo_torch.vf import VFState, create_value_function
 
@@ -105,7 +136,10 @@ class TrainState(NamedTuple):
     cg_damping: Any = None         # f32 device scalar with adaptive_damping
     ladder: Any = None             # trpo.LadderState when the ladder is on
     obs_norm: Any = None           # utils.normalize.RunningStats with
-    #                                cfg.normalize_obs
+    #                                cfg.normalize_obs (on host envs the f32
+    #                                mirror of the adapter's statistics)
+    host_rng: Any = None           # CPU generator of the rollout's samples
+    #                                with host_inference="cpu"
 
 
 def _to(tree, device):
@@ -127,9 +161,39 @@ class TRPOAgent:
         self.cfg = cfg
         self.n_envs = cfg.resolved_n_envs()
         if isinstance(env, str):
+            kwargs = {}
+            if env.startswith(envs_lib.HOST_PREFIXES):
+                if (cfg.fleet_n_envs is not None and env.startswith("gym:")
+                        and self.n_envs > envs_lib.HOST_ENV_FLEET_MAX):
+                    raise ValueError(
+                        f"fleet_n_envs={cfg.fleet_n_envs} exceeds the host "
+                        "simulator fleet cap "
+                        f"({envs_lib.HOST_ENV_FLEET_MAX}) for {env!r}: the "
+                        "gym: family constructs one simulator instance per "
+                        "env and cannot honor a thousands-wide fleet — use "
+                        "a device env family (e.g. the -sim stand-ins) or "
+                        "native:, or set n_envs explicitly if you really "
+                        "want this many host simulators")
+                kwargs["n_envs"] = self.n_envs
+                if cfg.normalize_obs:
+                    kwargs["normalize_obs"] = True
+            else:
+                kwargs["device"] = self.device
             env = envs_lib.make(env, max_episode_steps=cfg.max_pathlength,
-                                device=self.device)
+                                **kwargs)
         self.env = env
+        self.is_device_env = envs_lib.is_device_env(env)
+        self._obs_norm_on_device = cfg.normalize_obs and self.is_device_env
+        self._obs_norm_host = (not self.is_device_env
+                               and bool(getattr(env, "has_obs_norm", False)))
+        if cfg.normalize_obs and not self.is_device_env \
+                and not self._obs_norm_host:
+            raise NotImplementedError(
+                "normalize_obs supports the device envs and the host "
+                'adapters (GymVecEnv/NativeVecEnv — "gym:<Id>"/'
+                '"native:<kind>" names construct them with '
+                "normalize_obs=True; pre-constructed adapters must pass "
+                "it themselves); this host env has no normalization hook")
         self.obs_shape, action_spec = spec_from_env(env)
         compute_dtype = getattr(torch, cfg.compute_dtype)
         family = dict(hidden=tuple(cfg.policy_hidden),
@@ -176,6 +240,56 @@ class TRPOAgent:
         self._ladder_stateful = ladder_stateful(cfg)
         # steps per env per iteration, so T·N ≥ batch_timesteps
         self.n_steps = max(1, -(-cfg.batch_timesteps // self.n_envs))
+        self._check_host_options()
+        self._host_act_fn = self._host_eval_act_fn = None
+        self._host_env_reset_pending = False
+
+    def _check_host_options(self) -> None:
+        """The reference's construction-time checks of the host options."""
+        cfg = self.cfg
+        if cfg.rollout_chunk is not None and not self.is_device_env:
+            raise ValueError(
+                "rollout_chunk applies to device envs (the time-chunked "
+                "rollout); host-simulator envs collect with host_rollout "
+                "and have nothing to chunk — set rollout_chunk=None")
+        if cfg.host_async_pipeline:
+            if self.is_device_env:
+                raise ValueError(
+                    "host_async_pipeline applies to host-simulator envs "
+                    "(gym:/native:); device envs chunk the host syncs with "
+                    "fuse_iterations instead")
+            if self.is_recurrent:
+                raise ValueError(
+                    "host_async_pipeline supports feedforward policies "
+                    "only (the recurrent window-replay carry is threaded "
+                    "through the serial driver); set policy_gru=None or "
+                    "host_async_pipeline=False")
+        if cfg.host_pipeline_groups > 1:
+            if self.is_device_env:
+                raise ValueError(
+                    "host_pipeline_groups applies to host-simulator envs "
+                    "(gym:/native:); device envs have no host loop to "
+                    "pipeline")
+            if self.is_recurrent:
+                raise ValueError(
+                    "host_pipeline_groups supports feedforward policies "
+                    "only (recurrent window-replay bookkeeping is not "
+                    "pipelined); set policy_gru=None or groups=1")
+            if not hasattr(self.env, "host_step_slice"):
+                raise ValueError(
+                    f"{type(self.env).__name__} has no host_step_slice — "
+                    "group stepping is unavailable for this adapter")
+            env_count = getattr(self.env, "n_envs", self.n_envs)
+            if cfg.host_pipeline_groups > env_count:
+                raise ValueError(
+                    f"host_pipeline_groups={cfg.host_pipeline_groups} "
+                    f"exceeds the adapter's n_envs={env_count}")
+        self._host_inference_cpu = cfg.host_inference == "cpu"
+        if self._host_inference_cpu and self.is_device_env:
+            raise ValueError(
+                'host_inference="cpu" applies to host-simulator envs '
+                "(gym:/native:); device envs have no host inference to "
+                "move")
 
     def init_state(self, seed: Optional[int] = None) -> TrainState:
         """Params from CPU generators seeded by ``seed`` (the same weights
@@ -185,11 +299,24 @@ class TRPOAgent:
         g_vf = torch.Generator().manual_seed(seed + 1)
         rng = torch.Generator(device=self.device).manual_seed(seed + 2)
         policy_params = _to(self.policy.init(g_policy), self.device)
+        if self.is_device_env:
+            env_carry = init_env_states(self.env, self.n_envs, rng,
+                                        policy=self.policy)
+        elif self.is_recurrent:
+            # the env lives in the adapter; the policy's memory is ours
+            env_carry = self._fresh_policy_state()
+        else:
+            env_carry = None
+        if self._obs_norm_on_device:
+            obs_norm = init_stats(self.obs_shape, self.device)
+        elif self._obs_norm_host:
+            obs_norm = self._host_obs_norm()
+        else:
+            obs_norm = None
         return TrainState(
             policy_params=policy_params,
             vf_state=_to(self.vf.init(g_vf), self.device),
-            env_carry=init_env_states(self.env, self.n_envs, rng,
-                                      policy=self.policy),
+            env_carry=env_carry,
             rng=rng,
             iteration=0,
             total_episodes=torch.zeros((), dtype=torch.int64,
@@ -202,9 +329,27 @@ class TRPOAgent:
             if self.cfg.adaptive_damping else None,
             ladder=init_ladder(self.cfg, self.device)
             if self._ladder_stateful else None,
-            obs_norm=init_stats(self.obs_shape, self.device)
-            if self.cfg.normalize_obs else None,
+            obs_norm=obs_norm,
+            host_rng=torch.Generator().manual_seed(seed + 3)
+            if self._host_inference_cpu else None,
         )
+
+    def _fresh_policy_state(self):
+        """A recurrent policy's fresh host-env carry ``(h, prev_done)``."""
+        return (self.policy.initial_state(self.n_envs, device=self.device),
+                torch.ones(self.n_envs, dtype=torch.bool,
+                           device=self.device))
+
+    def _host_obs_norm(self) -> RunningStats:
+        """The adapter's statistics as the f32 ``TrainState`` mirror."""
+        return RunningStats(*(torch.as_tensor(np.asarray(x),
+                                              device=self.device)
+                              for x in self.env.obs_stats_state()))
+
+    def _push_obs_norm(self, stats: RunningStats) -> None:
+        """Install ``TrainState.obs_norm`` in the adapter."""
+        self.env.set_obs_stats_state(
+            tuple(x.detach().cpu().numpy() for x in stats))
 
     def _normed_policy(self, stats):
         """The policy with ``stats``-normalization in front of it (the
@@ -262,7 +407,8 @@ class TRPOAgent:
         T, N = traj.rewards.shape
         flat = lambda x: x.reshape((T * N,) + x.shape[2:])  # noqa: E731
 
-        new_obs_norm = stats = train_state.obs_norm
+        new_obs_norm = train_state.obs_norm
+        stats = train_state.obs_norm if self._obs_norm_on_device else None
         if stats is not None:
             # the statistics the rollout used, so the replayed
             # distributions match old_dist; the raw observations are
@@ -400,6 +546,9 @@ class TRPOAgent:
     def run_iteration(self, train_state: TrainState):
         """One training iteration; returns ``(new_state, stats)`` with the
         stats as 0-d tensors (read them on the host when needed)."""
+        if not self.is_device_env:
+            train_state, traj = self._host_collect(train_state)
+            return self._process_trajectory(train_state, traj)
         new_carry, traj = device_rollout(
             self.env, self._normed_policy(train_state.obs_norm),
             train_state.policy_params, train_state.env_carry,
@@ -407,6 +556,82 @@ class TRPOAgent:
         )
         train_state = train_state._replace(env_carry=new_carry)
         return self._process_trajectory(train_state, traj)
+
+    # ------------------------------------------------------------------
+    # host envs
+    # ------------------------------------------------------------------
+
+    def _make_host_act(self):
+        """The cached act function of the training rollouts; CPU inference
+        has no device round trip to save, so it fetches unpacked."""
+        if self._host_act_fn is None:
+            self._host_act_fn = make_host_act_fn(
+                self.policy, pack=not self._host_inference_cpu)
+        return self._host_act_fn
+
+    def _rollout_inputs(self, train_state: TrainState):
+        """``(params, generator)`` of a host rollout: the state's, or their
+        CPU copies with ``host_inference="cpu"``."""
+        if self._host_inference_cpu:
+            return _to(train_state.policy_params, "cpu"), train_state.host_rng
+        return train_state.policy_params, train_state.rng
+
+    def _host_collect(self, train_state: TrainState, timer=None):
+        """One window of the host env: ``(state, Trajectory)`` with the
+        trajectory on the agent's device, the state's ``obs_norm`` mirror
+        and recurrent carry advanced."""
+        cfg = self.cfg
+        if self._obs_norm_host:
+            # TrainState is the checkpointed source of truth: its stats go
+            # into the adapter before the window, the adapter's come back
+            self._push_obs_norm(train_state.obs_norm)
+        params, gen = self._rollout_inputs(train_state)
+        act_fn = self._make_host_act()
+        if cfg.host_pipeline_groups > 1:
+            traj = pipelined_host_rollout(
+                self.env, self.policy, params, gen, self.n_steps,
+                n_groups=cfg.host_pipeline_groups, act_fn=act_fn,
+                stage_to_device=cfg.host_staged_transfers,
+                device=self.device, timer=timer)
+        elif self.is_recurrent:
+            policy_state = train_state.env_carry
+            if self._host_env_reset_pending:
+                # evaluate() hard-reset the envs: stale memory must not
+                # leak into the fresh episodes
+                policy_state = self._fresh_policy_state()
+                self._host_env_reset_pending = False
+            traj, (h, prev_done) = host_rollout(
+                self.env, self.policy, params, gen, self.n_steps,
+                act_fn=act_fn, device=self.device,
+                policy_state=_to(policy_state, params_device(params)))
+            train_state = train_state._replace(
+                env_carry=(h.to(self.device), prev_done.to(self.device)))
+        else:
+            traj = host_rollout(self.env, self.policy, params, gen,
+                                self.n_steps, act_fn=act_fn,
+                                device=self.device)
+        if self._obs_norm_host:
+            train_state = train_state._replace(
+                obs_norm=self._host_obs_norm())
+        return train_state, traj
+
+    def snapshot_host_env(self):
+        """The host simulator's resume state, or None (device envs keep
+        theirs in ``TrainState.env_carry``)."""
+        if self.is_device_env or not hasattr(self.env,
+                                             "env_state_snapshot"):
+            return None
+        return self.env.env_state_snapshot()
+
+    def restore_host_env(self, snapshot) -> None:
+        """Install a :meth:`snapshot_host_env` snapshot (None: nothing)."""
+        if snapshot is None:
+            return
+        if self.is_device_env or not hasattr(self.env, "env_state_restore"):
+            raise ValueError(
+                "this agent's env has no host snapshot surface — the "
+                "sidecar belongs to a gym:/native: adapter run")
+        self.env.env_state_restore(snapshot)
 
     def run_iterations(self, train_state: TrainState, n: int):
         """``n`` iterations back to back with no host read in between
@@ -477,24 +702,49 @@ class TRPOAgent:
         return action, dist
 
     def evaluate(self, train_state: TrainState,
-                 n_steps: Optional[int] = None, seed: int = 0):
+                 n_steps: Optional[int] = None, seed: int = 0,
+                 render: bool = False):
         """Greedy evaluation: ``n_steps`` per env (default: one training
-        window) of mode actions on a fresh carry from a generator seeded
-        by ``seed``; the training carry and generator are untouched.
-        Returns ``(mean_episode_reward, episodes_completed)`` over the
-        episodes that finish in the window; with none finished, the mean
-        partial-episode return (a lower bound) and 0."""
+        window) of mode actions. Returns ``(mean_episode_reward,
+        episodes_completed)`` over the episodes that finish in the window;
+        with none finished, the mean partial-episode return (a lower
+        bound) and 0. ``render=True`` (a host adapter with a renderer,
+        e.g. ``gym:`` made with ``render_mode="rgb_array"``) adds one RGB
+        frame of env 0 per step as a third element.
+
+        A device env evaluates on a fresh carry from a generator seeded by
+        ``seed``; the training carry and generator are untouched. A host
+        env is shared state: it is reset with ``seed`` before and
+        hard-reset after (the next ``learn`` starts from fresh episodes),
+        and its normalization statistics are frozen throughout, so the
+        training statistics do not move."""
         n_steps = self.n_steps if n_steps is None else n_steps
         if n_steps < 1:
             raise ValueError(f"n_steps must be >= 1, got {n_steps}")
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        carry = init_env_states(self.env, self.n_envs, gen,
-                                policy=self.policy)
-        _, traj = device_rollout(
-            self.env, self._normed_policy(train_state.obs_norm),
-            train_state.policy_params, carry, gen, n_steps,
-            deterministic=True,
-        )
+        frames: list = []
+        step_callback = None
+        if render:
+            if self.is_device_env or not hasattr(self.env, "render_frame"):
+                raise ValueError(
+                    "render=True needs a host adapter with a renderer — "
+                    "construct the env with rendering enabled, e.g. "
+                    "envs.make('gym:<Id>', render_mode='rgb_array') "
+                    "(device envs and the native C++ stepper have no "
+                    "pixel renderer)")
+            step_callback = lambda t: frames.append(  # noqa: E731
+                self.env.render_frame())
+        if self.is_device_env:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            carry = init_env_states(self.env, self.n_envs, gen,
+                                    policy=self.policy)
+            _, traj = device_rollout(
+                self.env, self._normed_policy(train_state.obs_norm),
+                train_state.policy_params, carry, gen, n_steps,
+                deterministic=True,
+            )
+        else:
+            traj = self._host_evaluate(train_state, n_steps, seed,
+                                       step_callback)
         done = traj.done
         n_done = done.sum()
         mean_done = torch.sum(traj.episode_return * done) / torch.clamp(
@@ -502,9 +752,44 @@ class TRPOAgent:
         n_done, mean_done, mean_partial = torch.stack([
             n_done.double(), mean_done.double(),
             traj.episode_return[-1].mean().double()]).tolist()
-        if n_done:
-            return mean_done, int(n_done)
-        return mean_partial, 0
+        out = (mean_done, int(n_done)) if n_done else (mean_partial, 0)
+        return out + (frames,) if render else out
+
+    def _host_evaluate(self, train_state: TrainState, n_steps: int,
+                       seed: int, step_callback):
+        """The greedy window on the host env (see :meth:`evaluate`)."""
+        if self._obs_norm_host:
+            self._push_obs_norm(train_state.obs_norm)
+            self.env.freeze_obs_stats(True)
+        params, _ = self._rollout_inputs(train_state)
+        gen = torch.Generator(device=params_device(params)).manual_seed(seed)
+        try:
+            self.env.reset_all(seed=seed)
+            if self.is_recurrent:
+                # the hard resets make the carried training memory stale
+                self._host_env_reset_pending = True
+                traj, _ = host_rollout(
+                    self.env, self.policy, params, gen, n_steps,
+                    deterministic=True, step_callback=step_callback,
+                    device=self.device)
+            else:
+                if self._host_eval_act_fn is None:
+                    self._host_eval_act_fn = make_host_act_fn(
+                        self.policy, deterministic=True,
+                        pack=not self._host_inference_cpu)
+                traj = host_rollout(
+                    self.env, self.policy, params, gen, n_steps,
+                    act_fn=self._host_eval_act_fn,
+                    step_callback=step_callback, device=self.device)
+        finally:
+            # hard-reset even on failure, so training resumes from clean
+            # episode boundaries
+            try:
+                self.env.reset_all()
+            finally:
+                if self._obs_norm_host:
+                    self.env.freeze_obs_stats(False)
+        return traj
 
     # ------------------------------------------------------------------
     # learn: the serial training loop
@@ -528,7 +813,12 @@ class TRPOAgent:
         ``resilience.Preempted``. ``callback(state, stats)`` runs once per
         chunk with the chunk's last row; ``checkpointer`` (a
         ``utils.checkpoint.Checkpointer``) saves whenever a chunk crosses
-        a multiple of ``cfg.checkpoint_every``."""
+        a multiple of ``cfg.checkpoint_every``, with the host env's
+        snapshot as the step's sidecar. Host envs run one iteration a
+        chunk; with ``cfg.host_async_pipeline`` they run the asynchronous
+        driver (:meth:`_learn_host_async`), where the stop rules act as
+        the stats drain (up to ``cfg.stats_drain_maxsize`` iterations
+        late) and ``callback`` runs on the drain thread."""
         cfg = self.cfg
         n_iterations = n_iterations or cfg.n_iterations
         state = self.init_state() if state is None else state
@@ -538,7 +828,16 @@ class TRPOAgent:
         recovery = (RecoveryPolicy(cfg) if cfg.recover_on_nan == "restore"
                     else None)
         guard = PreemptionGuard(enabled=cfg.on_preempt == "checkpoint")
-        chunk = max(1, cfg.fuse_iterations)
+        if cfg.host_async_pipeline and not self.is_device_env:
+            try:
+                with guard:
+                    return self._learn_host_async(
+                        n_iterations, state, logger, checkpointer,
+                        callback, timer, recovery, guard)
+            finally:
+                if own_logger:
+                    logger.close()
+        chunk = max(1, cfg.fuse_iterations) if self.is_device_env else 1
         steps_per_iter = self.n_steps * self.n_envs
         reward_running = RunningEpisodeMean()
         # absolute iteration base: the recovery rewind counts in absolute
@@ -596,7 +895,8 @@ class TRPOAgent:
                         it_end // cfg.checkpoint_every
                         > (it_end - k) // cfg.checkpoint_every
                     ):
-                        checkpointer.save(it_end, state)
+                        checkpointer.save(it_end, state,
+                                          host_env=self.snapshot_host_env())
                     if stop:
                         break
         finally:
@@ -657,7 +957,8 @@ class TRPOAgent:
         saved = False
         if checkpointer is not None and step > 0:
             if checkpointer.latest_step() != step:
-                checkpointer.save(step, state)
+                checkpointer.save(step, state,
+                                  host_env=self.snapshot_host_env())
             saved = True
         raise Preempted(
             f"preempted by signal {guard.signum} after iteration {step}",
@@ -666,6 +967,165 @@ class TRPOAgent:
             signum=guard.signum,
             exit_code=self.cfg.requeue_exit_code,
         )
+
+    # ------------------------------------------------------------------
+    # learn: the asynchronous host-env driver
+    # ------------------------------------------------------------------
+
+    def _learn_host_async(self, n_iterations, state, logger, checkpointer,
+                          callback, timer, recovery, guard) -> TrainState:
+        """The asynchronous driver for host envs (counterpart: the
+        reference's ``_learn_host_async``).
+
+        Per iteration: the host rollout → phase A, the policy update (the
+        only thing the next rollout waits for: its params) → phase B, the
+        critic fit and the stats → the next rollout. On CUDA phase B is
+        queued on a side stream behind phase A (``wait_stream``, with every
+        tensor it reads marked ``record_stream`` for it), so its device
+        time overlaps the next rollout; its stats go to a
+        :class:`~trpo_torch.utils.async_pipe.StatsDrain` with an event
+        recorded behind them, and the drain thread brings them over, logs
+        and applies the stop rules. The next phase A waits for phase B's
+        event. Phase B is launched from this thread: from a thread of its
+        own, its launches contended with the rollout's for the GIL, and
+        the iteration was no faster than serial on the card (PERF.md).
+
+        Bitwise equal to the serial driver: the same programs on the same
+        inputs in the same order per stream, the rollout generator
+        advanced only by the rollouts, and the rows consumed in order,
+        exactly once. A checkpoint is a sync point: the drain catches up
+        first."""
+        cfg = self.cfg
+        steps_per_iter = self.n_steps * self.n_envs
+        reward_running = RunningEpisodeMean()
+        it0, ts0 = state.iteration, state.total_timesteps
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+
+        def consume(tag, host_stats) -> bool:
+            i, iter_ms, cb_state = tag
+            stop = self._finish_iteration_stats(
+                host_stats, reward_running, logger, iteration=i + 1,
+                iteration_ms=iter_ms,
+                timesteps_total=ts0 + (i - it0 + 1) * steps_per_iter,
+                recovery=recovery)
+            if callback is not None and (recovery is None
+                                         or recovery.pending is None):
+                callback(cb_state, host_stats)
+            return stop
+
+        drain = StatsDrain(consume, fetch=_host_row, timer=timer,
+                           maxsize=cfg.stats_drain_maxsize,
+                           span_context=timer.current_context())
+
+        def phase_b(state_a, fit_pack, tag):
+            """Queue the critic fit and the stats behind phase A; returns
+            the new critic state and the event behind it."""
+            if side is None:
+                new_vf, stats = self._vf_stats_phase(state_a.vf_state,
+                                                     fit_pack)
+                done = None
+            else:
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                _record_stream((state_a.vf_state, fit_pack), side)
+                with torch.cuda.stream(side):
+                    new_vf, stats = self._vf_stats_phase(state_a.vf_state,
+                                                         fit_pack)
+                    done = torch.cuda.Event()
+                    done.record(side)
+            cb_state = (state_a._replace(vf_state=new_vf)
+                        if callback is not None else None)
+            drain.submit(tag + (cb_state,), stats, ready=done)
+            return new_vf, done
+
+        cur, pending = state, None
+        prev_t = time.perf_counter()
+
+        def land_b() -> None:
+            """Make the pending phase B's critic the state's (the main
+            stream waits for its event)."""
+            nonlocal cur, pending
+            if pending is None:
+                return
+            new_vf, done = pending
+            pending = None
+            if done is not None:
+                main = torch.cuda.current_stream(self.device)
+                main.wait_event(done)
+                _record_stream(new_vf, main)
+            cur = cur._replace(vf_state=new_vf)
+
+        try:
+            j = 0
+            while True:
+                if j >= n_iterations or drain.stop_requested:
+                    land_b()
+                    drain.drain()
+                    if recovery is not None and recovery.pending is not None:
+                        restored_at, cur = recovery.recover()
+                        if not drain.stop_requested:
+                            j = restored_at - 1 - it0
+                            continue
+                    break
+                i = it0 + j
+                if guard.triggered:
+                    land_b()
+                    drain.drain()
+                    if recovery is not None and recovery.pending is not None:
+                        _, cur = recovery.recover()
+                    self._preempt_shutdown(cur, checkpointer, guard)
+                if recovery is not None:
+                    land_b()
+                    recovery.snapshot(i + 1, cur)
+                with timer.phase("rollout"):
+                    cur, traj = self._host_collect(cur, timer=timer)
+                if callback is not None:
+                    drain.drain()
+                with timer.phase("dispatch"):
+                    land_b()
+                    state_a, fit_pack = self._policy_phase(cur, traj)
+                    now = time.perf_counter()
+                    pending = phase_b(state_a, fit_pack,
+                                      (i, (now - prev_t) * 1e3))
+                    prev_t = now
+                    cur = state_a
+                if checkpointer is not None and (
+                        (i + 1) % cfg.checkpoint_every == 0):
+                    land_b()
+                    drain.drain()  # a diverged row raises before the save
+                    if recovery is None or recovery.pending is None:
+                        checkpointer.save(i + 1, cur,
+                                          host_env=self.snapshot_host_env())
+                drain.raise_if_failed()
+                if recovery is not None and recovery.pending is not None:
+                    land_b()
+                    drain.drain()
+                    restored_at, cur = recovery.recover()
+                    j = restored_at - 1 - it0
+                    continue
+                if drain.stop_requested:
+                    continue  # the epilogue above lands phase B first
+                j += 1
+        finally:
+            drain.close()
+        return cur
+
+
+def _host_row(stats: dict) -> dict:
+    """One iteration's stats dict on the host, by :func:`_host_rows`."""
+    dev = next(v.device for v in stats.values()
+               if isinstance(v, torch.Tensor))
+    return _host_rows({k: torch.as_tensor(v, device=dev)[None]
+                       for k, v in stats.items()})[0]
+
+
+def _record_stream(tree, stream) -> None:
+    """Mark every CUDA tensor of ``tree`` as used on ``stream``, so the
+    caching allocator does not hand its memory out again before the work
+    queued there has read it."""
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            leaf.record_stream(stream)
 
 
 def _host_rows(stack: dict) -> list:

@@ -11,7 +11,8 @@ Two differences from the reference:
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* Paths that are not ported yet raise ``NotImplementedError`` naming the
+* Paths that are not ported yet (``train_overlap``, ``mesh_shape``, the
+  ``gymproc:`` envs) raise ``NotImplementedError`` naming the
   ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
   never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
@@ -57,7 +58,12 @@ class TRPOConfig:
     damping_max: float = 10.0
     cg_residual_tol: float = 1e-10
     cg_residual_rtol: float = 0.0
-    cg_precondition: Any = False   # False or "head_block" ("jacobi" not ported)
+    cg_precondition: Any = False   # False, "jacobi" (True): a Hutchinson
+    #                                diagonal of the CG operator, or
+    #                                "head_block": the Gaussian head's exact
+    #                                Fisher block inverse
+    cg_precond_probes: int = 8     # jacobi: Rademacher probes, each one
+    #                                more run of the CG operator per update
     precond_refresh_every: int = 1  # head_block: Gram/eigh refresh cadence
     linesearch_backtracks: int = 10
     linesearch_accept_ratio: float = 0.1
@@ -99,8 +105,10 @@ class TRPOConfig:
     vf_learning_rate: float = 1e-3
     init_log_std: float = 0.0
     compute_dtype: str = "float32"  # or "bfloat16": the policy's matmuls
-    normalize_obs: bool = False    # running observation normalization
-    #                                (utils/normalize.py), device envs
+    normalize_obs: bool = False    # running observation normalization:
+    #                                TrainState.obs_norm on device envs,
+    #                                inside the adapter on host envs
+    #                                (envs/obs_norm.py)
 
     # --- run control -----------------------------------------------------
     seed: int = 1
@@ -127,6 +135,23 @@ class TRPOConfig:
     #                                "ignore": default signal behaviour
     requeue_exit_code: int = 75
     train_overlap: int = 0         # not ported (ROADMAP Queue 1 item 15)
+    host_pipeline_groups: int = 1  # host envs: split the envs into this
+    #                                many groups, each stepped by its own
+    #                                thread while the others' inference
+    #                                runs (rollout.pipelined_host_rollout);
+    #                                feedforward policies only
+    host_async_pipeline: bool = False  # host envs: learn() runs the async
+    #                                driver (agent._learn_host_async): the
+    #                                critic fit and the stats run behind the
+    #                                next rollout, bitwise equal to serial
+    stats_drain_maxsize: int = 2   # async driver: bound on the stats queue
+    #                                (utils/async_pipe.StatsDrain); 0 =
+    #                                unbounded
+    host_staged_transfers: bool = True  # pipelined rollout: copy each
+    #                                group's slice to the device as soon as
+    #                                the group finishes (value-identical)
+    host_inference: str = "device"  # host envs: where the rollout's policy
+    #                                runs: "device" (the agent's), or "cpu"
     mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
 
     # --- io --------------------------------------------------------------
@@ -158,6 +183,32 @@ class TRPOConfig:
         if self.train_overlap not in (0, 1):
             raise ValueError(
                 f"train_overlap must be 0 or 1, got {self.train_overlap}"
+            )
+        if self.train_overlap and self.host_async_pipeline:
+            raise ValueError(
+                "train_overlap and host_async_pipeline are mutually "
+                "exclusive pipelines (device-env overlap vs host-env "
+                "overlap) — pick the one matching the env family"
+            )
+        if self.host_inference not in ("device", "cpu"):
+            raise ValueError(
+                'host_inference must be "device" or "cpu", got '
+                f"{self.host_inference!r}"
+            )
+        if self.host_pipeline_groups < 1:
+            raise ValueError(
+                "host_pipeline_groups must be >= 1, got "
+                f"{self.host_pipeline_groups}"
+            )
+        if self.stats_drain_maxsize < 0:
+            raise ValueError(
+                "stats_drain_maxsize must be >= 0 (0 = unbounded), got "
+                f"{self.stats_drain_maxsize}"
+            )
+        if self.cg_precond_probes < 1:
+            raise ValueError(
+                f"cg_precond_probes must be >= 1, got "
+                f"{self.cg_precond_probes}"
             )
         if self.fvp_mode not in ("auto", "fused", "ggn", "jvp_grad"):
             raise ValueError(
@@ -292,15 +343,9 @@ def check_ported(cfg: TRPOConfig) -> None:
         _not_ported("train_overlap", "item 15")
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
-    if cfg.cg_precondition in (True, "jacobi"):
-        _not_ported('cg_precondition="jacobi"', "item 3")
-    if cfg.fvp_mode == "jvp_grad":
-        _not_ported('fvp_mode="jvp_grad"', "item 3")
-    from trpo_torch.envs import DEVICE_ENVS
-
-    if cfg.env not in DEVICE_ENVS:
-        _not_ported(f"env {cfg.env!r} (have {sorted(DEVICE_ENVS)})",
-                    "items 3 and 13")
+    if cfg.env.startswith("gymproc:"):
+        _not_ported(f"env {cfg.env!r} (the gymproc: worker pool)",
+                    "item 18")
 
 
 # ---------------------------------------------------------------------------

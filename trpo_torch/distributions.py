@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Categorical", "DiagGaussian"]
+__all__ = ["Categorical", "DiagGaussian", "make_distribution"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -121,3 +121,14 @@ class DiagGaussian:
     def mode(params):
         return params["mean"]
 
+
+_REGISTRY = {d.name: d for d in (Categorical, DiagGaussian)}
+
+
+def make_distribution(name: str):
+    """The distribution class named ``name`` (``"categorical"``,
+    ``"diag_gaussian"``)."""
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"unknown distribution {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]

@@ -9,8 +9,13 @@ Humanoid (376 obs / 17 act) widths. The state is batched over envs:
 The observation is ``[spring extensions, velocities] @ Wᵀ`` with a fixed
 row-normalized projection ``W`` that the reference draws from
 ``jax.random.key(7)``. Torch cannot regenerate that draw, so the port ships
-it as package data (``envs/data/projection_<obs>x<base>.npy``), drawn once
-from the reference; a test holds the files against a fresh draw.
+it as package data (``envs/data/projection_<obs>x<base>.npy``) for the
+halfcheetah-sim and humanoid-sim widths, drawn once from the reference; a
+test holds the files against a fresh draw. At any other width (the
+``chain`` env's ``n_masses``/``obs_dim``) a caller passes ``projection``
+(the tests pass the reference's), or the port draws its own from a CPU
+generator seeded 7: the same distribution, other numbers than the
+reference's.
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ class ChainLocomotion:
 
     def __init__(self, n_masses: int = 6, obs_dim: int = 17,
                  max_episode_steps: int = 500,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, projection=None):
         if n_masses < 2:
             raise ValueError("need at least 2 masses for a chain")
         self.n_masses = n_masses
@@ -63,15 +68,22 @@ class ChainLocomotion:
         self.max_episode_steps = max_episode_steps
         self.obs_shape = (obs_dim,)
         self.action_spec = BoxSpec(n_masses)
-        path = projection_path(obs_dim, 2 * n_masses - 1)
-        if not path.exists():
-            raise NotImplementedError(
-                f"no shipped observation projection for obs_dim={obs_dim}, "
-                f"n_masses={n_masses} ({path.name}); the port ships the "
-                "halfcheetah-sim and humanoid-sim projections"
-            )
+        base_dim = 2 * n_masses - 1
+        path = projection_path(obs_dim, base_dim)
+        if projection is not None:
+            w = torch.as_tensor(np.asarray(projection, np.float32))
+            if tuple(w.shape) != (obs_dim, base_dim):
+                raise ValueError(
+                    f"projection must be ({obs_dim}, {base_dim}), got "
+                    f"{tuple(w.shape)}")
+        elif path.exists():
+            w = torch.from_numpy(np.load(path))
+        else:
+            w = torch.randn(obs_dim, base_dim,
+                            generator=torch.Generator().manual_seed(7))
+            w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
         self.device = torch.device(device if device is not None else "cpu")
-        self._w = torch.from_numpy(np.load(path)).to(self.device)
+        self._w = w.to(self.device)
 
     def reset(self, n_envs: int, generator: Optional[torch.Generator] = None):
         """``n_envs`` fresh chains near rest, perturbed by draws from

@@ -138,5 +138,13 @@ def make_policy(
 
 
 def spec_from_env(env) -> Tuple[Tuple[int, ...], Any]:
-    """``(obs_shape, action_spec)`` of a port env."""
-    return tuple(env.obs_shape), env.action_spec
+    """``(obs_shape, action_spec)`` of a port env (device env or host
+    adapter: both carry ``obs_shape``/``action_spec``) or of a gymnasium
+    env (its spaces)."""
+    if hasattr(env, "obs_shape") and hasattr(env, "action_spec"):
+        return tuple(env.obs_shape), env.action_spec
+    obs_shape = tuple(env.observation_space.shape)
+    space = env.action_space
+    if hasattr(space, "n"):
+        return obs_shape, DiscreteSpec(int(space.n))
+    return obs_shape, BoxSpec(int(space.shape[0]))

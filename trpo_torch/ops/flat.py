@@ -14,8 +14,10 @@ import math
 from typing import Any, Callable, List, Tuple
 
 import torch
+import torch.func
 
-__all__ = ["flatten_params", "tree_leaves", "tree_map"]
+__all__ = ["flat_grad", "flatten_params", "numel", "tree_leaves",
+           "tree_map", "var_shapes"]
 
 
 def _rebuild(seq, items):
@@ -88,3 +90,19 @@ def flatten_params(params: Any) -> Tuple[torch.Tensor, Callable]:
     flat = torch.cat([leaf.reshape(-1) for leaf in leaves])
     return flat, _unravel_fn(params)
 
+
+
+def flat_grad(fn: Callable[[Any], torch.Tensor], params: Any) -> torch.Tensor:
+    """The flat gradient of a scalar function of a params tree, in ravel
+    order (the reference's ``flatgrad``)."""
+    return flatten_params(torch.func.grad(fn)(params))[0]
+
+
+def var_shapes(params: Any) -> List[Tuple[int, ...]]:
+    """The shape of every leaf, in ravel order."""
+    return [tuple(leaf.shape) for leaf in tree_leaves(params)]
+
+
+def numel(params: Any) -> int:
+    """The element count of the whole tree."""
+    return sum(leaf.numel() for leaf in tree_leaves(params))

@@ -10,21 +10,33 @@ the identity. The Gram factors are the expensive part and are refreshed
 every ``precond_refresh_every`` updates (:class:`PrecondState`, carried in
 ``TrainState``); the log-std and damping parts are applied fresh.
 
-The Hutchinson/Jacobi preconditioner waits (ROADMAP.md Queue 1 item 3).
+The Jacobi preconditioner (``cg_precondition="jacobi"``):
+:func:`hutchinson_diag` estimates ``diag(A)`` of an SPD operator from
+Rademacher probes ``v`` (``E[v ⊙ Av] = diag(A)``), each one application of
+``A`` — in the update, the same operator CG iterates (K1 under ``auto``).
+:func:`hutchinson_diag_inv` floors the estimate at the damping λ
+(``diag(F + λI) ≥ λ``) and inverts it. The probes come from a fixed-seed
+generator, so updates reproduce; ``probes`` passes given ones instead
+(the tests pass the reference's draws).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
+
+from trpo_torch.ops.flat import tree_leaves, tree_map
 
 __all__ = [
     "PrecondState",
     "apply_gaussian_head_block_inv",
     "gaussian_head_gram",
     "head_gram_eigh",
+    "hutchinson_diag",
+    "hutchinson_diag_inv",
     "init_gaussian_head_precond",
+    "make_gaussian_head_block_inv",
 ]
 
 
@@ -83,3 +95,56 @@ def apply_gaussian_head_block_inv(s_eig, U, weight, log_std, damping):
         }
 
     return apply_tree
+
+
+def make_gaussian_head_block_inv(torso_apply: Callable, net_params: Any,
+                                 obs: torch.Tensor, weight: torch.Tensor,
+                                 log_std: torch.Tensor, damping):
+    """The per-update head-block preconditioner ``r ↦ M⁻¹r`` over params
+    trees: :func:`gaussian_head_gram` → :func:`head_gram_eigh` →
+    :func:`apply_gaussian_head_block_inv`."""
+    S = gaussian_head_gram(torso_apply, net_params, obs, weight)
+    s_eig, U = head_gram_eigh(S)
+    return apply_gaussian_head_block_inv(s_eig, U, weight, log_std, damping)
+
+
+def _rademacher_like(like: Any, generator: torch.Generator) -> Any:
+    """A ±1 f32 probe shaped like ``like`` (a tensor or a tree)."""
+    return tree_map(
+        lambda x: torch.randint(0, 2, x.shape, generator=generator,
+                                device=x.device).float() * 2.0 - 1.0, like)
+
+
+def hutchinson_diag(f_Av: Callable[[Any], Any], like: Any, n_probes: int,
+                    generator: Optional[torch.Generator] = None,
+                    probes: Optional[Sequence[Any]] = None) -> Any:
+    """``diag(A)`` of the SPD operator ``f_Av`` from ``n_probes``
+    Rademacher probes shaped like ``like`` (a flat vector or a tree):
+    ``Σ v ⊙ Av / n_probes``. The probes come from ``generator`` (default:
+    a fresh one seeded 0 on ``like``'s device), or are ``probes[i]``."""
+    if n_probes < 1:
+        raise ValueError(f"n_probes must be >= 1, got {n_probes}")
+    like = tree_map(lambda x: x.float(), like)
+    if probes is None and generator is None:
+        dev = tree_leaves(like)[0].device
+        generator = torch.Generator(device=dev).manual_seed(0)
+    acc = tree_map(torch.zeros_like, like)
+    for i in range(n_probes):
+        v = (_rademacher_like(like, generator) if probes is None
+             else tree_map(lambda p, x: torch.tensor(
+                 p, dtype=torch.float32, device=x.device), probes[i], like))
+        av = tree_map(lambda t: t.float(), f_Av(v))
+        acc = tree_map(lambda a, vv, avv: a + vv * avv, acc, v, av)
+    return tree_map(lambda t: t / n_probes, acc)
+
+
+def hutchinson_diag_inv(f_Av: Callable[[Any], Any], like: Any,
+                        n_probes: int, floor,
+                        generator: Optional[torch.Generator] = None,
+                        probes: Optional[Sequence[Any]] = None) -> Any:
+    """``1 / max(diag estimate, floor)``: the Jacobi preconditioner's
+    inverse diagonal. Pass the damping λ as ``floor``."""
+    diag = hutchinson_diag(f_Av, like, n_probes, generator, probes)
+    return tree_map(
+        lambda d: 1.0 / torch.clamp(d, min=torch.as_tensor(
+            floor, dtype=torch.float32, device=d.device)), diag)

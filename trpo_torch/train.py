@@ -7,6 +7,10 @@
     python -m trpo_torch.train --preset pong-sim      # 84x84x4 conv policy
     python -m trpo_torch.train --preset cartpole-po --policy-cell lstm
     python -m trpo_torch.train --preset cartpole --policy-experts 4
+    python -m trpo_torch.train --preset pendulum --env native:pendulum \
+        [--host-pipeline-groups 2] [--host-async-pipeline] \
+        [--host-inference cpu]
+    python -m trpo_torch.train --preset halfcheetah --device cpu  # gymnasium
 
 Runs ``TRPOAgent.learn`` on CUDA unless ``--device cpu`` is given. Each
 iteration prints the stats block and a one-line summary (one per chunk
@@ -14,7 +18,9 @@ with ``--fuse-iterations``); ``--log-jsonl`` appends one JSON row per
 iteration. ``--resume`` continues from the newest complete checkpoint in
 ``--checkpoint-dir``. On SIGTERM/SIGINT the run writes a final checkpoint
 and exits with the requeue code (75). ``--evaluate STEPS`` runs a greedy
-rollout of STEPS per env after training.
+rollout of STEPS per env after training. A host env's (``native:``,
+``gym:``) simulator state is checkpointed beside each step and restored
+with ``--resume``.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ def _positive_int(text: str) -> int:
 def parse_args(argv: Optional[Sequence[str]] = None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--preset", default="humanoid-sim", choices=sorted(PRESETS))
+    p.add_argument("--env", help="override the preset's env, e.g. "
+                   "native:pendulum or gym:HalfCheetah-v4")
     p.add_argument("--iterations", type=int, default=None)
     p.add_argument("--seed", type=int)
     p.add_argument("--n-envs", type=int)
@@ -83,7 +91,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    "updates")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    help="the policy's matmul dtype (the CG solve stays f32)")
-    p.add_argument("--cg-precondition", choices=["off", "head_block"])
+    p.add_argument("--cg-precondition",
+                   choices=["off", "jacobi", "head_block"])
+    p.add_argument("--cg-precond-probes", type=_positive_int,
+                   help="jacobi: Hutchinson probes per update")
+    p.add_argument("--fvp-mode", choices=["auto", "fused", "ggn",
+                                          "jvp_grad"],
+                   help="the CG operator: the fused kernel (auto/fused), "
+                   "the Gauss-Newton operator, or jvp of the KL gradient")
     p.add_argument("--adaptive-damping", action="store_true",
                    help="grow the CG damping after a failed line search or "
                    "a KL rollback, shrink it after a clean step")
@@ -119,6 +134,21 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="SIGTERM/SIGINT: 'checkpoint' (default) writes a "
                    "final checkpoint and exits 75 for requeue; 'ignore' "
                    "keeps the default signal behaviour")
+    p.add_argument("--host-pipeline-groups", type=_positive_int,
+                   help="host envs: step the envs in this many groups, "
+                   "each on its own thread, overlapping inference")
+    p.add_argument("--host-async-pipeline", action="store_true",
+                   help="host envs: the asynchronous driver (the critic "
+                   "fit and stats run behind the next rollout)")
+    p.add_argument("--no-host-staged-transfers", action="store_true",
+                   help="pipelined rollout: one transfer at the end "
+                   "instead of each group's slice as it finishes")
+    p.add_argument("--host-inference", choices=("device", "cpu"),
+                   help="host envs: run the rollout's policy on the card "
+                   "(default) or on the CPU")
+    p.add_argument("--stats-drain-maxsize", type=int,
+                   help="async driver: bound on the pending stats (0 = "
+                   "unbounded)")
     p.add_argument("--log-jsonl", help="append one JSON row per iteration")
     p.add_argument("--checkpoint-dir")
     p.add_argument("--checkpoint-every", type=_positive_int)
@@ -135,6 +165,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def build_config(args):
     cfg = get_preset(args.preset)
     overrides = {
+        "env": args.env,
+        "cg_precond_probes": args.cg_precond_probes,
+        "fvp_mode": args.fvp_mode,
+        "host_pipeline_groups": args.host_pipeline_groups,
+        "host_inference": args.host_inference,
+        "stats_drain_maxsize": args.stats_drain_maxsize,
         "seed": args.seed,
         "n_envs": args.n_envs,
         "batch_timesteps": args.batch_timesteps,
@@ -174,6 +210,10 @@ def build_config(args):
         overrides["adaptive_damping"] = True
     if args.cg_budget_adaptive:
         overrides["cg_budget_adaptive"] = True
+    if args.host_async_pipeline:
+        overrides["host_async_pipeline"] = True
+    if args.no_host_staged_transfers:
+        overrides["host_staged_transfers"] = False
     if args.cg_precondition is not None:
         overrides["cg_precondition"] = (
             False if args.cg_precondition == "off" else args.cg_precondition
@@ -212,6 +252,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         checkpointer = Checkpointer(cfg.checkpoint_dir)
         if args.resume and checkpointer.latest_step() is not None:
             state = checkpointer.restore(agent.init_state())
+            agent.restore_host_env(checkpointer.restore_host_env())
             print(f"resumed from step {checkpointer.latest_step()}",
                   flush=True)
     logger = StatsLogger(jsonl_path=cfg.log_jsonl)

@@ -24,6 +24,10 @@ ladder's dtype) — a choice made when the operator is selected — and under
 families have no ``mlp_spec``, so they always take the GGN, as the
 reference takes the XLA GGN for them; a recurrent batch passes its window
 as a ``SeqObs`` through ``policy.apply`` and the GGN alike.
+``fvp_mode="jvp_grad"`` applies the Hessian of the stop-gradient KL
+(``ops/fvp.make_fvp``) instead. ``cg_precondition="jacobi"`` (or True)
+preconditions CG with a Hutchinson diagonal of the cheap operator
+(``ops/precond.py``): ``cg_precond_probes`` more runs of it per update.
 
 The solver precision ladder (a :class:`LadderState` passed in): every
 ``cfg.solve_audit_every`` updates the same system is re-solved at full
@@ -58,13 +62,14 @@ from trpo_torch.ops.fused_fvp import (
     fused_fvp_supported,
     make_fused_gaussian_mlp_fvp,
 )
-from trpo_torch.ops.fvp import make_ggn_fvp
+from trpo_torch.ops.fvp import make_fvp, make_ggn_fvp
 from trpo_torch.ops.linesearch import backtracking_linesearch
 from trpo_torch.ops.precond import (
     PrecondState,
     apply_gaussian_head_block_inv,
     gaussian_head_gram,
     head_gram_eigh,
+    hutchinson_diag_inv,
 )
 from trpo_torch.ops.treemath import tree_where
 
@@ -360,7 +365,8 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
 def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                  x0: torch.Tensor, batch: TRPOBatch, damping=None,
                  precond: Optional[PrecondState] = None,
-                 ladder: Optional[LadderState] = None) -> SolvePack:
+                 ladder: Optional[LadderState] = None,
+                 jacobi_probes=None) -> SolvePack:
     """Gradient and surrogate in one pass → damped-Fisher operator →
     (audited / budget-adaptive) CG solve → KL-radius step scaling."""
     x0 = x0.detach()
@@ -402,7 +408,17 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         op = None
         if fused_ok:
             op = _maybe_fused_fvp(policy, cfg, params0, b, damping, dtype)
-        if op is None:
+        if op is None and cfg.fvp_mode == "jvp_grad":
+            # the Hessian of KL(stop_grad(π_θ) ‖ π_x) at x = θ, with the
+            # anchor at the policy's own dtype
+            with torch.no_grad():
+                anchor = policy.apply(params0, b.obs)
+
+            def kl_fixed(x):
+                return _wmean(policy.dist.kl(anchor, apply_b(x)), b.weight)
+
+            op = make_fvp(kl_fixed, x0, damping=damping)
+        elif op is None:
             op = make_ggn_fvp(apply_b, policy.dist.fisher_weight, x0,
                               b.weight, damping=damping)
         if skew:
@@ -417,6 +433,13 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         M_inv, precond_next = _head_block_inv(
             policy, cfg, params0, fb, damping, to_params, precond
         )
+    elif cfg.cg_precondition:
+        # Jacobi: a Hutchinson diagonal of the operator CG iterates (one
+        # more run of it per probe), floored at λ; fixed-seed probes
+        with torch.no_grad():
+            d_inv = hutchinson_diag_inv(fvp, neg_g, cfg.cg_precond_probes,
+                                        damping, probes=jacobi_probes)
+        M_inv = lambda r: d_inv * r  # noqa: E731
 
     audit_on = (ladder is not None and cfg.solve_audit_every > 0
                 and ladder_enabled(cfg))
@@ -632,13 +655,15 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     return to_params(x_new), stats
 
 
-def make_trpo_update(policy: Policy, cfg: TRPOConfig):
+def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
     """The update in the flat-vector domain: ``update(params, batch,
     damping=None, precond=None, ladder=None) -> (new_params, stats)``.
     ``damping`` (a device scalar) overrides ``cfg.cg_damping``;
     ``precond`` (a ``PrecondState``) arms the amortized head-block refresh;
     ``ladder`` (a :class:`LadderState`) arms the solve audit and the
-    adaptive CG budget, and without it the cheap path runs unaudited."""
+    adaptive CG budget, and without it the cheap path runs unaudited.
+    ``jacobi_probes`` (``cg_precond_probes`` flat ±1 vectors) replaces the
+    Jacobi preconditioner's own draws (a test lever)."""
     check_ported(cfg)
 
     def update(params, batch: TRPOBatch, damping=None,
@@ -647,7 +672,7 @@ def make_trpo_update(policy: Policy, cfg: TRPOConfig):
         flat0, unravel = flatten_params(params)
         flat0 = flat0.float().detach()
         pack = _solve_stage(policy, cfg, unravel, flat0, batch, damping,
-                            precond, ladder)
+                            precond, ladder, jacobi_probes)
         return _finish_stage(policy, cfg, unravel, flat0, batch, pack)
 
     return update

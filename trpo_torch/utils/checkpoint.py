@@ -19,8 +19,15 @@ without one of its own is a torn save: never selected by
 ``.markers_enabled`` before any save, so a tear during its first save
 cannot pass for a directory written before markers existed.
 
-There is no host-env sidecar: the port runs device envs only, and their
-state is inside ``TrainState.env_carry``.
+A host env's simulator state (``envs/*.env_state_snapshot``: numpy arrays
+in nested dicts and lists, per-env uint64 RNG streams among them) is not in
+``TrainState``; :meth:`Checkpointer.save` writes it beside the state as
+``step_<n>/host_env.npz``, a pickle-free sidecar: the arrays as npz
+entries, the nesting as JSON, read back with ``allow_pickle=False``. It is
+written before the step's marker, so every marked step of a host-env run
+has its sidecar, and it is pruned with its step. A step without a sidecar
+(a device-env run) restores none; a sidecar that is there but unreadable
+raises.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import shutil
 import sys
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 __all__ = ["Checkpointer"]
@@ -39,7 +47,10 @@ __all__ = ["Checkpointer"]
 # TrainState fields whose presence follows the config (adaptive damping,
 # the amortized head-block preconditioner, the solver ladder): a restore
 # across a flip keeps the template's fresh value, or drops the saved one.
-FLIPPABLE = ("cg_damping", "precond", "ladder")
+# host_rng follows host_inference. A field the saved state predates
+# restores as absent (None).
+FLIPPABLE = ("cg_damping", "precond", "ladder", "host_rng")
+SIDECAR = "host_env.npz"
 
 
 def _join(path: str, key) -> str:
@@ -198,9 +209,10 @@ class Checkpointer:
         if os.path.exists(self._marker_path(step)):
             os.remove(self._marker_path(step))
 
-    def save(self, step: int, state: Any) -> None:
-        """Write ``state`` as ``step`` (replacing an existing one), its
-        marker last, then keep the newest ``max_to_keep`` steps."""
+    def save(self, step: int, state: Any, host_env: Any = None) -> None:
+        """Write ``state`` as ``step`` (replacing an existing one), with
+        ``host_env`` (a host adapter's snapshot, or None) as its sidecar,
+        its marker last, then keep the newest ``max_to_keep`` steps."""
         tensors: dict = {}
         structure = _encode(state, "", tensors)
         tmp = os.path.join(self.directory, f".step_{step}.tmp-{os.getpid()}")
@@ -210,6 +222,11 @@ class Checkpointer:
                       lambda f: torch.save(tensors, f))
         _write_synced(os.path.join(tmp, "state.json"), lambda f: f.write(
             json.dumps({"step": step, "state": structure}).encode()))
+        if host_env is not None:
+            nesting, arrays = _flatten_snapshot(host_env)
+            arrays["__structure__"] = np.asarray(nesting)
+            _write_synced(os.path.join(tmp, SIDECAR),
+                          lambda f: np.savez(f, **arrays))
         self._delete(step)
         os.replace(tmp, self._step_dir(step))
         _write_synced(self._marker_path(step), lambda f: None)
@@ -217,6 +234,24 @@ class Checkpointer:
             self._delete(old)
         for orphan in self._marked_steps() - set(self.all_steps()):
             os.remove(self._marker_path(orphan))
+
+    def restore_host_env(self, step: Optional[int] = None) -> Any:
+        """The host-env snapshot saved with ``step`` (default: the newest
+        complete one); None when the step has no sidecar. An unreadable
+        sidecar raises ``ValueError`` naming its path."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        path = os.path.join(self._step_dir(step), SIDECAR)
+        if not os.path.exists(path):
+            return None
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                return _unflatten_snapshot(str(z["__structure__"]), z)
+        except Exception as e:
+            raise ValueError(
+                f"host-env sidecar {path} exists but is unreadable "
+                f"({type(e).__name__}: {e})") from e
 
     def latest_step(self) -> Optional[int]:
         """The newest complete step, or None."""
@@ -241,7 +276,8 @@ class Checkpointer:
         writes: to it, a save in flight looks torn). ``cg_damping``,
         ``precond`` and ``ladder`` may differ in presence between the save
         and the template: a field the template gains keeps the template's
-        fresh value, one it lost is dropped."""
+        fresh value, one it lost is dropped (``host_rng`` likewise, with
+        ``host_inference``)."""
         if prune:
             self.prune_incomplete()
         step = self.latest_step() if step is None else step
@@ -254,6 +290,10 @@ class Checkpointer:
                              weights_only=True,
                              map_location=_first_device(template))
         fields = saved.get("fields", {}) if isinstance(saved, dict) else {}
+        if hasattr(template, "_fields") and set(fields) < set(
+                template._fields):
+            fields = {f: fields.get(f) for f in template._fields}
+            saved = {**saved, "fields": fields}
         if hasattr(template, "_fields") and all(
                 f in fields and f in template._fields for f in FLIPPABLE):
             kept = {}
@@ -266,3 +306,53 @@ class Checkpointer:
                                tensors)
             return restored._replace(**kept)
         return _decode(template, saved, "", tensors)
+
+
+def _flatten_snapshot(obj: Any) -> tuple:
+    """``(JSON nesting, {key: array})`` of a host-env snapshot: nested
+    dicts, lists, tuples, None, scalars and numeric arrays (Python ints of
+    any size, like a bit generator's state words, stay exact in JSON). An
+    object array or another type raises here, at save time."""
+    arrays: dict = {}
+
+    def flatten(x):
+        if x is None or isinstance(x, (bool, int, float, str)):
+            return x
+        if isinstance(x, np.bool_):
+            return bool(x)
+        if isinstance(x, np.integer):
+            return int(x)
+        if isinstance(x, np.floating):
+            return float(x)
+        if isinstance(x, np.ndarray):
+            if x.dtype == object:
+                raise TypeError("host-env snapshot holds an object-dtype "
+                                "array; snapshots must be numeric")
+            key = f"a{len(arrays)}"
+            arrays[key] = x
+            return {"__npz__": key}
+        if isinstance(x, dict):
+            return {"__dict__": {str(k): flatten(v) for k, v in x.items()}}
+        if isinstance(x, tuple):
+            return {"__tuple__": [flatten(v) for v in x]}
+        if isinstance(x, list):
+            return {"__list__": [flatten(v) for v in x]}
+        raise TypeError(f"host-env snapshot holds a {type(x).__name__}")
+
+    return json.dumps(flatten(obj)), arrays
+
+
+def _unflatten_snapshot(nesting: str, npz) -> Any:
+    def unflatten(x):
+        if isinstance(x, dict):
+            if "__npz__" in x:
+                return np.asarray(npz[x["__npz__"]])
+            if "__dict__" in x:
+                return {k: unflatten(v) for k, v in x["__dict__"].items()}
+            if "__list__" in x:
+                return [unflatten(v) for v in x["__list__"]]
+            if "__tuple__" in x:
+                return tuple(unflatten(v) for v in x["__tuple__"])
+        return x
+
+    return unflatten(json.loads(nesting))

@@ -19,7 +19,8 @@ from typing import IO, Optional
 
 import torch
 
-__all__ = ["StatsLogger", "explained_variance", "repair_jsonl_tail"]
+__all__ = ["StatsLogger", "explained_variance", "quantile_nearest_rank",
+           "repair_jsonl_tail"]
 
 
 def explained_variance(ypred: torch.Tensor, y: torch.Tensor,
@@ -37,6 +38,15 @@ def explained_variance(ypred: torch.Tensor, y: torch.Tensor,
         return torch.sum((v - m) ** 2 * weight) / wsum
 
     return 1.0 - wvar(y - ypred) / wvar(y)
+
+
+def quantile_nearest_rank(vals, q: float):
+    """Nearest-rank quantile (no interpolation) of ``vals``: the value at
+    rank ``min(n − 1, ⌊q·n⌋)`` of the sorted values; None when empty."""
+    vals = sorted(vals)
+    if not vals:
+        return None
+    return vals[min(len(vals) - 1, int(q * len(vals)))]
 
 
 def repair_jsonl_tail(path: str) -> int:

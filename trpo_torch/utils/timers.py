@@ -4,9 +4,14 @@
 nest: each thread carries a stack of open phase names, and a phase entered
 inside another records under the slash-joined path ("iteration/rollout").
 With ``use_profiler`` each phase is also a ``torch.profiler.record_function``
-range, so it shows up by name in a profiler trace. The reference's
-cross-thread spans serve its asynchronous host-env pipeline, which is not
-ported (ROADMAP.md Queue 1 item 13).
+range, so it shows up by name in a profiler trace.
+
+Stages that start on one thread and record on another (the pipelined
+rollout's group threads, the async driver's stats drain) use
+:meth:`PhaseTimer.span`: an explicit begin/end handle whose name is
+prefixed with a :meth:`PhaseTimer.current_context` capture of the
+launching thread's open phases, so it nests under the phase that started
+it. All accounting is under one lock.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
+from typing import Tuple
 
 import torch
 
@@ -33,6 +39,26 @@ def synchronize_tree(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
+class _Span:
+    """An open span; ``end()`` records it (only the first call)."""
+
+    __slots__ = ("_timer", "name", "_start", "_done")
+
+    def __init__(self, timer: "PhaseTimer", name: str):
+        self._timer = timer
+        self.name = name
+        self._start = time.perf_counter()
+        self._done = False
+
+    def end(self) -> float:
+        """Close the span; returns its duration in seconds."""
+        dt = time.perf_counter() - self._start
+        if not self._done:
+            self._done = True
+            self._timer.record(self.name, dt)
+        return dt
+
+
 class PhaseTimer:
     def __init__(self, use_profiler: bool = False):
         self.totals = defaultdict(float)
@@ -47,6 +73,16 @@ class PhaseTimer:
         if stack is None:
             stack = self._tls.stack = []
         return stack
+
+    def current_context(self) -> Tuple[str, ...]:
+        """This thread's open-phase path, for :meth:`span` on another
+        thread."""
+        return tuple(self._stack())
+
+    def span(self, name: str, context: Tuple[str, ...] = ()) -> _Span:
+        """Begin a span recorded under ``context + (name,)`` when its
+        ``end()`` runs, on whichever thread."""
+        return _Span(self, "/".join(tuple(context) + (name,)))
 
     def record(self, name: str, seconds: float) -> None:
         """Fold one completed measurement in."""
