@@ -51,7 +51,19 @@ Phases:
      ``pong-sim`` each resumed from step 1 of 2, bitwise;
  14. ``[norm]`` ``halfcheetah-sim`` with ``normalize_obs``, 2 iterations:
      the update still goes through K1;
- 15. ``[host]`` the host envs (``native:``; the card's machine has no
+ 15. ``[overlap]`` ``humanoid-sim-fleet`` as published with
+     ``train_overlap=1``: one overlapped iteration bitwise equal to one
+     serial iteration; 4 overlapped iterations (K1 exactly
+     Σ(cg_iterations + 1), K2 once an iteration, every stale update's KL
+     within 1.5·max_kl); iteration ms, thread CPU and the device's idle
+     share, serial against overlapped (serial, overlap, overlap, serial),
+     with the learner's stage times; ``train.main --overlap`` with a
+     checkpoint and a resume;
+ 16. ``[population]`` 8 members of ``humanoid-sim`` as published, 2
+     lockstep iterations (K1 exactly, K2 16 times); member 5 bitwise
+     equal to a solo run of seed 5; member-updates/s and env-steps/s
+     beside 8 × a solo iteration, and the idle share;
+ 17. ``[host]`` the host envs (``native:``; the card's machine has no
      gymnasium, so ``gym:`` is held against the reference on the CPU and
      must refuse here): the C++ toolchain and the native library under
      ``build/``; native:cartpole/pendulum step for step against the device
@@ -66,11 +78,11 @@ Phases:
      bitwise); one
      ``jacobi`` update (K1 Σ(cg_iterations + 1) + probes) and one
      ``jvp_grad`` update (step cosine with K1's ≥ 0.999);
- 16. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
+ 18. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
      SIGTERM after its first checkpoint: it must exit 75 with its last
      finished iteration as the newest complete checkpoint;
- 17. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-15) is driven with the launch counts set to 0 just
+ 19. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17) is driven with the launch counts set to 0 just
 before it and read just after. The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
@@ -633,35 +645,60 @@ def _finite(torch, value) -> bool:
 
 @contextlib.contextmanager
 def _updates():
-    """Record every TRPO update of every agent built inside: its launches
-    of K1 and K1-bf16, and its stats' cg_iterations_cheap, cg_iterations
+    """Record every TRPO update of every agent built inside (the staged
+    update of the overlapped loop too): its launches of K1 and K1-bf16, and its stats' cg_iterations_cheap, cg_iterations
     and solve_fallback (device scalars, read after the run: the recorder
     adds no sync)."""
     import trpo_torch.agent as agent_mod
     from trpo_torch.ops import _build
 
     real = agent_mod.make_trpo_update
+    real_staged = agent_mod.make_staged_trpo_update
     log = []
+
+    def launches():
+        return {k: _build.LAUNCHES[k] for k in _FVP_KERNELS}
+
+    def record(before, stats):
+        log.append(({k: _build.LAUNCHES[k] - n for k, n in before.items()},
+                    stats.cg_iterations_cheap, stats.cg_iterations,
+                    stats.solve_fallback))
 
     def make(policy, cfg):
         update = real(policy, cfg)
 
         def recorded(*args, **kw):
-            before = {k: _build.LAUNCHES[k] for k in _FVP_KERNELS}
+            before = launches()
             params, stats = update(*args, **kw)
-            log.append(({k: _build.LAUNCHES[k] - n
-                         for k, n in before.items()},
-                        stats.cg_iterations_cheap, stats.cg_iterations,
-                        stats.solve_fallback))
+            record(before, stats)
             return params, stats
 
         return recorded
 
+    def make_staged(policy, cfg):
+        """The overlap's (solve, finish): one update spans both calls,
+        made in turn by its one learner thread."""
+        solve, finish = real_staged(policy, cfg)
+        pending = []
+
+        def solve_recorded(*args, **kw):
+            pending.append(launches())
+            return solve(*args, **kw)
+
+        def finish_recorded(*args, **kw):
+            params, stats = finish(*args, **kw)
+            record(pending.pop(), stats)
+            return params, stats
+
+        return solve_recorded, finish_recorded
+
     agent_mod.make_trpo_update = make
+    agent_mod.make_staged_trpo_update = make_staged
     try:
         yield log
     finally:
         agent_mod.make_trpo_update = real
+        agent_mod.make_staged_trpo_update = real_staged
 
 
 _FVP_KERNELS = ("fused_fvp", "fused_fvp_bf16")
@@ -1233,6 +1270,327 @@ def phase_norm(torch, dev):
     print(f"[norm] obs_norm after 2 iterations: count {float(stats.count):g}"
           f", |mean| max {stats.mean.abs().max().item():.4g}, std range "
           f"[{std.min().item():.4g}, {std.max().item():.4g}]", flush=True)
+    return counts
+
+
+def _device_busy_ms(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: (ms the device ran anything, as
+    the union of its kernel and copy intervals over every stream; the sum
+    of those intervals). The sum above the union is work that ran
+    concurrently on two streams."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    union = total = 0.0
+    end = None
+    for a, b in spans:
+        total += b - a
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    return union / 1e3, total / 1e3
+
+
+def _serial_iters(torch, agent, state, n, cpu=None):
+    """``n`` serial iterations, each ended by a synchronize: (state, ms
+    of each); with ``cpu`` (a dict), the calling thread's CPU ms of each
+    under ``cpu["serial"]``."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.thread_time()
+        state, _ = agent.run_iteration(state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if cpu is not None:
+            cpu.setdefault("serial", []).append(
+                (time.thread_time() - c0) * 1e3)
+    return state, ms
+
+
+@contextlib.contextmanager
+def _thread_cpu(agent, names, cpu):
+    """Wrap the agent's methods ``names`` so that each call adds the CPU ms
+    of the thread it ran on to ``cpu[name]``."""
+    def wrap(name):
+        real = getattr(agent, name)
+
+        def timed(*args, **kw):
+            c0 = time.thread_time()
+            try:
+                return real(*args, **kw)
+            finally:
+                cpu.setdefault(name, []).append(
+                    (time.thread_time() - c0) * 1e3)
+        return timed
+
+    for name in names:
+        setattr(agent, name, wrap(name))
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(agent, name)
+
+
+def _overlap_iters(torch, agent, state, n, timer=None, cpu=None):
+    """``n`` overlapped iterations: (state, ms of each, from the learner's
+    submission to its join, the next window collected meanwhile); with
+    ``cpu`` (a dict), each learner step's and each window's thread CPU ms
+    under their method names."""
+    ms = []
+
+    def on_row(k, st, row, iter_ms):
+        ms.append(iter_ms)
+        return False
+
+    torch.cuda.synchronize()
+    with (_thread_cpu(agent, ("_overlap_learner_step", "_overlap_collect"),
+                      cpu) if cpu is not None else contextlib.nullcontext()):
+        state, _ = agent._overlap_run(state, n, timer=timer, on_row=on_row)
+    torch.cuda.synchronize()
+    return state, ms
+
+
+def phase_overlap(torch, dev):
+    """Queue 1 item 15: ``humanoid-sim-fleet`` as published with
+    ``train_overlap=1``. (a) one overlapped iteration against one serial
+    one from seed 0, bitwise on every state leaf; (b) 4 overlapped
+    iterations with K1 exactly Σ(cg_iterations + 1), K2 once an
+    iteration, no plain version, and every stale update's KL within
+    1.5·max_kl; (c) iteration ms and the device's idle share, serial
+    against overlapped in the order serial, overlap, overlap, serial
+    (median of the 3 iterations after one warm-up, each leg from seed 0;
+    the device's busy time from 2 more iterations of each under the
+    profiler, from (b)'s state), with the learner's stage times; (d)
+    ``train.main --overlap``, 2 iterations with a checkpoint at 2, then 1
+    more resumed from it."""
+    from trpo_torch.agent import TRPOAgent, _host_rows
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.resilience.recovery import copy_state
+    from trpo_torch.utils.timers import PhaseTimer
+
+    cfg = get_preset("humanoid-sim-fleet")
+    serial = TRPOAgent(cfg.env, cfg, device=dev)
+    with _updates() as log:
+        over = TRPOAgent(cfg.env, cfg.replace(train_overlap=1), device=dev)
+    _check(over.n_envs == 1024 and over.n_steps == 49,
+           f"[overlap] window {over.n_steps}x{over.n_envs}")
+
+    # (a) the fill window is the plain synchronous batch
+    want, _ = serial.run_iterations(serial.init_state(seed=0), 1)
+    got, _ = over.run_iterations(over.init_state(seed=0), 1)
+    torch.cuda.synchronize()
+    diff = _state_diff(torch, want, got)
+    print(f"[overlap] one overlapped iteration against one serial from seed"
+          f" 0: {'bitwise equal' if not diff else diff}", flush=True)
+    _check(not diff, f"[overlap] first iteration differs: {diff}")
+
+    # (b) the main path, its launches counted
+    n_iter = 4
+    del log[:]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    state, stack = over.run_iterations(over.init_state(seed=0), n_iter)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    rows = _host_rows(stack)
+    for i, row in enumerate(rows):
+        print(f"[overlap] iter {i + 1} {'stale' if i else 'fill'} "
+              + json.dumps(row), flush=True)
+        for k, v in row.items():
+            if k in ("mean_episode_reward", "mean_episode_length") \
+                    and not row["episodes_in_batch"]:
+                continue
+            if k == "solve_cosine" and not row["solve_audited"]:
+                continue
+            _check(math.isfinite(v), f"[overlap] stat {k} = {v}")
+    print(f"[overlap] launches over {n_iter} iterations: {counts}",
+          flush=True)
+    _check(counts.get("reverse_scan", 0) == n_iter,
+           f"[overlap] reverse scan launched {counts.get('reverse_scan', 0)}"
+           f" times over {n_iter} iterations")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[overlap] a plain version ran: {plain}")
+    _check(counts.get("fused_fvp_bf16", 0) == 0,
+           f"[overlap] K1-bf16 ran: {counts}")
+    _exact_fvp_launches("overlap", "fused_fvp", rows, log, counts)
+    kl = [r["kl_old_new"] for r in rows[1:]]
+    print(f"[overlap] stale updates' kl_old_new {kl} against 1.5·max_kl = "
+          f"{1.5 * cfg.max_kl:g}", flush=True)
+    _check(all(x <= 1.5 * cfg.max_kl for x in kl),
+           f"[overlap] a stale update's kl_old_new {kl} > 1.5·max_kl")
+    _check(state.iteration == n_iter
+           and state.total_timesteps == n_iter * 49 * 1024,
+           f"[overlap] accounting: {state.iteration} iterations, "
+           f"{state.total_timesteps} timesteps")
+
+    # (c) serial against overlapped
+    legs = {"serial": [], "overlap": []}
+    timer, cpu = PhaseTimer(), {}
+    for tag in ("serial", "overlap", "overlap", "serial"):
+        if tag == "serial":
+            _, ms = _serial_iters(torch, serial, serial.init_state(seed=0), 4,
+                                  cpu)
+            del cpu["serial"][-4]  # the warm-up
+        else:
+            _, ms = _overlap_iters(torch, over, over.init_state(seed=0), 4,
+                                   timer, cpu)
+        legs[tag].append(sorted(ms[1:])[1])
+    # the same work on each side: 2 windows and 2 unaudited updates
+    busy = {
+        "serial": _device_busy_ms(torch, lambda: _serial_iters(
+            torch, serial, copy_state(state), 2)),
+        "overlap": _device_busy_ms(torch, lambda: _overlap_iters(
+            torch, over, copy_state(state), 2)),
+    }
+    card = _card_line()
+    for tag in ("serial", "overlap"):
+        med = sum(legs[tag]) / len(legs[tag])
+        union, total = busy[tag]
+        print(f"[overlap] {tag}: iteration ms {med:.1f} (medians "
+              f"{', '.join(f'{x:.1f}' for x in legs[tag])}), device busy "
+              f"{union / 2:.1f} ms an iteration (kernel sum {total / 2:.1f}"
+              f"), idle {1.0 - union / 2 / med:.2f} ({card})", flush=True)
+    med_cpu = {k: sorted(v)[len(v) // 2] for k, v in cpu.items()}
+    print(f"[overlap] thread CPU ms (median of calls; the card machine's "
+          f"thread clock ticks coarsely): serial iteration "
+          f"{med_cpu['serial']:.1f} on its one thread; overlap: learner step "
+          f"{med_cpu['_overlap_learner_step']:.1f} on the learner thread, "
+          f"window {med_cpu['_overlap_collect']:.1f} on the calling thread",
+          flush=True)
+    summary = timer.summary()
+    stages = ", ".join(
+        f"{name} {summary[name]['mean_ms']:.2f}"
+        for name in ("update", "update/advantage", "update/fvp_cg_solve",
+                     "update/linesearch", "update/vf_fit", "rollout_chunk")
+        if name in summary)
+    print(f"[overlap] learner stage ms (mean over both overlap legs, each "
+          f"stage ended on the learner's stream): {stages}; chunks of "
+          f"{cfg.rollout_chunk} steps on the actor's stream", flush=True)
+    return _add(counts, _overlap_cli(torch, dev))
+
+
+def _overlap_cli(torch, dev) -> dict:
+    """``train.main --overlap`` on ``humanoid-sim-fleet``: 2 iterations with
+    a checkpoint at 2, K1 and K2 counted exactly, then 1 iteration resumed
+    from the checkpoint (a fresh fill window)."""
+    from trpo_torch.ops import _build
+
+    work = WORK / "overlap"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--preset", "humanoid-sim-fleet", "--overlap", "--device",
+            str(dev), "--checkpoint-dir", str(work / "ck"),
+            "--checkpoint-every", "2"]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with _updates() as log:
+        code, lines = _main_quiet(base + [
+            "--iterations", "2", "--log-jsonl", str(work / "a.jsonl")])
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    for line in lines:
+        print(f"[overlap] {line}", flush=True)
+    _check(code == 0, f"[overlap] train.main --overlap exited {code}")
+    rows = [json.loads(x) for x in
+            (work / "a.jsonl").read_text().splitlines()]
+    _check([r["iteration"] for r in rows] == [1, 2],
+           f"[overlap] JSONL iterations {[r['iteration'] for r in rows]}")
+    _exact_fvp_launches("overlap", "fused_fvp", rows, log, counts)
+    _check(counts.get("reverse_scan", 0) == 2,
+           f"[overlap] K2 launched {counts.get('reverse_scan', 0)} times")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[overlap] a plain version ran: {plain}")
+    code, lines = _main_quiet(base + ["--iterations", "1", "--resume"])
+    for line in lines:
+        print(f"[overlap] resumed: {line}", flush=True)
+    _check(code == 0 and any(x.startswith("resumed from step 2")
+                             for x in lines)
+           and any(x.startswith("done: 3 iterations") for x in lines),
+           f"[overlap] the resumed train.main --overlap: {code} {lines}")
+    return counts
+
+
+def phase_population(torch, dev):
+    """8 members of ``humanoid-sim`` as published (the reference's
+    evidence row, ``scripts/population_row_r04.py``), 2 lockstep
+    iterations: K1 exactly Σ(cg_iterations + 1) over every member's
+    updates, K2 16 times; member 5 bitwise equal to a solo run of seed 5;
+    member-updates/s and env-steps/s beside 8 × a solo iteration."""
+    from trpo_torch.agent import TRPOAgent, _host_rows
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.population import Population
+    from trpo_torch.resilience.recovery import copy_state
+
+    cfg = get_preset("humanoid-sim")
+    members, n_iter = 8, 2
+    with _updates() as log:
+        agent = TRPOAgent(cfg.env, cfg, device=dev)
+    pop = Population(agent, seeds=range(members))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    steps, pop_ms = [], []
+    for _ in range(n_iter):
+        t0 = time.perf_counter()
+        steps.append(pop.run_iteration())
+        torch.cuda.synchronize()
+        pop_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(_build.LAUNCHES)
+    # rows in the order the updates ran: iteration-major, then member
+    rows = _host_rows({k: torch.stack([s[k] for s in steps]).reshape(-1)
+                       for k in steps[0]})
+    print(f"[population] launches over {n_iter} iterations of {members} "
+          f"members: {counts}", flush=True)
+    _check(counts.get("reverse_scan", 0) == members * n_iter,
+           f"[population] reverse scan launched "
+           f"{counts.get('reverse_scan', 0)} times")
+    plain = {k: n for k, n in counts.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[population] a plain version ran: {plain}")
+    _exact_fvp_launches("population", "fused_fvp", rows, log, counts)
+    for i, row in enumerate(rows):
+        _check(math.isfinite(row["entropy"])
+               and row["kl_old_new"] <= 2 * cfg.max_kl,
+               f"[population] update {i + 1}: {row}")
+    scores = pop.member_scores({k: torch.stack([s[k] for s in steps], dim=1)
+                                for k in steps[0]})
+    print(f"[population] member scores after {n_iter} iterations: "
+          f"{[round(float(x), 3) for x in scores]}, best member "
+          f"{int(torch.argmax(scores))}", flush=True)
+
+    solo, solo_ms = _serial_iters(torch, agent, agent.init_state(seed=5),
+                                  n_iter)
+    diff = _state_diff(torch, pop.member_state(5), solo)
+    print(f"[population] member 5 against a solo run of seed 5 after "
+          f"{n_iter} iterations: {'bitwise equal' if not diff else diff}",
+          flush=True)
+    _check(not diff, f"[population] member 5 differs: {diff}")
+    # the members step one after another, so the population's device time
+    # is the sum of theirs: one member's next iteration under the profiler
+    # (the whole population's would take the profiler minutes)
+    union, total = _device_busy_ms(
+        torch, lambda: agent.run_iteration(copy_state(pop.member_state(0))))
+    steps_per_member = agent.n_steps * agent.n_envs
+    print(f"[population] iteration ms {', '.join(f'{x:.1f}' for x in pop_ms)}"
+          f" (update 1 audited) against 8 × the solo iteration "
+          f"{', '.join(f'{8 * x:.1f}' for x in solo_ms)}; at iteration 2: "
+          f"{members / pop_ms[-1] * 1e3:.2f} member-updates/s, "
+          f"{members * steps_per_member / pop_ms[-1] * 1e3:.0f} env-steps/s;"
+          f" member 0's iteration 3: device busy {union:.1f} ms (kernel sum "
+          f"{total:.1f}), idle {1.0 - members * union / pop_ms[-1]:.2f} "
+          f"against an eighth of iteration 2's ms ({_card_line()})",
+          flush=True)
     return counts
 
 
@@ -2006,6 +2364,8 @@ def main() -> int:
                 ("moe", lambda: phase_moe(torch, dev)),
                 ("learn", lambda: phase_learn(torch, dev)),
                 ("norm", lambda: phase_norm(torch, dev)),
+                ("overlap", lambda: phase_overlap(torch, dev)),
+                ("population", lambda: phase_population(torch, dev)),
                 ("host", lambda: phase_host(torch, np, dev)),
                 ("preempt", lambda: phase_preempt(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):

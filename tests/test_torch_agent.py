@@ -210,12 +210,12 @@ def test_train_cli_on_cpu(capsys):
 
 
 def test_unported_env_and_preset_paths_raise():
-    # the ladder, the fleet presets, the pixel, recurrent and MoE families
-    # and the gym:/native: host envs run now; the overlap and the gymproc:
-    # worker pool still raise, naming their ROADMAP item
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TRPOAgent("cartpole", get_preset("cartpole").replace(
-            train_overlap=1), device="cpu")
+    # the ladder, the fleet presets, the pixel, recurrent and MoE families,
+    # the gym:/native: host envs and the overlapped loop run now; the
+    # gymproc: worker pool still raises, naming its ROADMAP item
+    agent = TRPOAgent("cartpole", get_preset("cartpole").replace(
+        train_overlap=1, rollout_chunk=5), device="cpu")
+    assert agent._overlap and agent.n_steps == 125
     with pytest.raises(NotImplementedError, match="item 18"):
         TRPOAgent("gymproc:CartPole-v1", get_preset("cartpole"),
                   device="cpu")

@@ -135,7 +135,6 @@ def test_presets_match_reference_training_fields():
 @pytest.mark.parametrize(
     "override",
     [
-        {"train_overlap": 1, "rollout_chunk": 1},
         {"env": "gymproc:CartPole-v1"},
         {"mesh_shape": (2,)},
     ],
@@ -144,6 +143,20 @@ def test_unported_paths_raise(override):
     cfg = port_config.TRPOConfig(**override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port_config.check_ported(cfg)
+
+
+@pytest.mark.parametrize(
+    "preset, override",
+    [
+        # Queue 1 item 15: the overlapped actor/learner loop
+        (None, {"train_overlap": 1, "rollout_chunk": 1}),
+        ("humanoid-sim-fleet", {"train_overlap": 1}),
+    ],
+)
+def test_overlap_paths_are_ported(preset, override):
+    cfg = (port_config.TRPOConfig(**override) if preset is None
+           else port_config.get_preset(preset).replace(**override))
+    port_config.check_ported(cfg)
 
 
 @pytest.mark.parametrize(

@@ -48,9 +48,14 @@ brought to the host in one transfer, a JSONL row per iteration
 ``cfg.checkpoint_every`` iterations, the preemption exit and the NaN
 recovery (``resilience``). With ``cfg.host_async_pipeline`` (host envs)
 it runs the asynchronous driver (:meth:`TRPOAgent._learn_host_async`),
-bitwise equal to the serial one. The reference's overlapped loop, its
-telemetry and its fault injector are not ported (ROADMAP.md Queue 1 items
-15 and 18).
+bitwise equal to the serial one. With ``cfg.train_overlap=1`` (device
+envs with ``cfg.rollout_chunk``) ``learn`` and ``run_iterations`` run the
+overlapped actor/learner loop (:meth:`TRPOAgent._overlap_run`): update k on
+a learner thread and its own CUDA stream while the calling thread collects
+window k+1 on another, with the params the learner started from; the stale
+window is importance-weighted (``trpo.TRPOBatch.is_weight``). The
+reference's telemetry and its fault injector are not ported (ROADMAP.md
+Queue 1 item 18).
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -59,8 +64,10 @@ never carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -77,7 +84,9 @@ from trpo_torch.ops.flat import tree_leaves, tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.ops.returns import gae_from_next_values
 from trpo_torch.rollout import (
+    ChunkedRollout,
     Trajectory,
+    concat_chunks,
     device_rollout,
     host_rollout,
     init_env_states,
@@ -89,6 +98,7 @@ from trpo_torch.trpo import (
     TRPOBatch,
     init_ladder,
     ladder_stateful,
+    make_staged_trpo_update,
     make_trpo_update,
     standardize_advantages,
 )
@@ -183,6 +193,14 @@ class TRPOAgent:
                                 **kwargs)
         self.env = env
         self.is_device_env = envs_lib.is_device_env(env)
+        self._overlap = bool(cfg.train_overlap)
+        if self._overlap and not self.is_device_env:
+            raise ValueError(
+                "train_overlap applies to device envs (the overlapped "
+                "pipeline streams rollout.ChunkedRollout chunks on the "
+                "actor's stream while the learner updates); host-simulator "
+                "envs overlap host stepping with host_async_pipeline "
+                "instead")
         self._obs_norm_on_device = cfg.normalize_obs and self.is_device_env
         self._obs_norm_host = (not self.is_device_env
                                and bool(getattr(env, "has_obs_norm", False)))
@@ -233,6 +251,11 @@ class TRPOAgent:
             compute_dtype=compute_dtype,
         )
         self.trpo_update = make_trpo_update(self.policy, cfg)
+        if self._overlap:
+            # the update split at the solve → line-search seam, so the
+            # learner's stage times are real
+            self._overlap_solve, self._overlap_finish = \
+                make_staged_trpo_update(self.policy, cfg)
         self._precond_stateful = (
             cfg.cg_precondition == "head_block"
             and cfg.precond_refresh_every > 1
@@ -387,7 +410,10 @@ class TRPOAgent:
         return (join(traj.obs, traj.policy_h),
                 join(traj.next_obs, traj.policy_h_next))
 
-    def _advantages(self, vf_state: VFState, traj: Trajectory):
+    def _advantages(self, vf_state: VFState, traj: Trajectory, lam=None):
+        """``(advantages, value targets, values)``; ``lam`` (a float)
+        overrides ``cfg.lam``: the per-member axis of ``Population``
+        sweeps."""
         T, N = traj.rewards.shape
         vf_in, vf_next_in = self._vf_features(traj)
         with torch.no_grad():
@@ -395,29 +421,43 @@ class TRPOAgent:
             next_values = self.vf.predict(vf_state, vf_next_in).reshape(T, N)
         adv, vtarg = gae_from_next_values(
             traj.rewards, values, next_values, traj.terminated, traj.done,
-            self.cfg.gamma, self.cfg.lam,
+            self.cfg.gamma, self.cfg.lam if lam is None else lam,
         )
         return adv, vtarg, values
 
-    def _policy_phase(self, train_state: TrainState, traj: Trajectory):
-        """Advantages → TRPO policy update → episode scalars. Returns the
-        state advanced in everything but ``vf_state``, and the pack the
-        critic phase consumes."""
+    def _batch_phase(self, train_state: TrainState, traj: Trajectory,
+                     roll_stats, lam=None, stale: bool = False):
+        """The head of the policy phase: obs-norm fold → GAE → advantage
+        standardization → ``TRPOBatch``. Returns ``(batch, aux)``, ``aux``
+        holding what :meth:`_merge_phase` needs.
+
+        ``roll_stats`` are the normalization statistics the rollout used:
+        ``train_state.obs_norm`` on the serial path, one window older under
+        the overlap. The trajectory, the behavior distributions and the
+        anchor all live in that one normalization space; the raw window is
+        folded into the current statistics exactly once.
+
+        ``stale`` (the overlap's steady windows, collected by the params
+        one update old): the KL/Fisher anchor is recomputed at the current
+        params (detached) and the importance weight π_anchor/π_behavior
+        multiplies the surrogate's ratio, so the trust region is taken
+        around the policy being updated."""
         cfg = self.cfg
         T, N = traj.rewards.shape
         flat = lambda x: x.reshape((T * N,) + x.shape[2:])  # noqa: E731
 
         new_obs_norm = train_state.obs_norm
-        stats = train_state.obs_norm if self._obs_norm_on_device else None
-        if stats is not None:
+        if self._obs_norm_on_device:
             # the statistics the rollout used, so the replayed
             # distributions match old_dist; the raw observations are
             # folded in afterwards, for the next iteration
-            new_obs_norm = update_stats(stats, flat(traj.obs))
-            traj = traj._replace(obs=normalize(stats, traj.obs),
-                                 next_obs=normalize(stats, traj.next_obs))
+            new_obs_norm = update_stats(train_state.obs_norm, flat(traj.obs))
+            traj = traj._replace(obs=normalize(roll_stats, traj.obs),
+                                 next_obs=normalize(roll_stats,
+                                                    traj.next_obs))
 
-        adv, vtarg, values = self._advantages(train_state.vf_state, traj)
+        adv, vtarg, values = self._advantages(train_state.vf_state, traj,
+                                              lam)
         weight = torch.ones(T * N, device=adv.device)
         adv_flat = flat(adv)
         if cfg.standardize_advantages:
@@ -441,53 +481,88 @@ class TRPOAgent:
                 old_dist=tree_map(flat, traj.old_dist),
                 weight=weight,
             )
-        new_policy_params, trpo_stats = self.trpo_update(
-            train_state.policy_params, batch, train_state.cg_damping,
-            train_state.precond, train_state.ladder,
-        )
+        if stale:
+            with torch.no_grad():
+                anchor = self.policy.apply(train_state.policy_params,
+                                           batch.obs)
+                logp_anchor = self.policy.dist.logp(anchor, batch.actions)
+                logp_behavior = self.policy.dist.logp(batch.old_dist,
+                                                      batch.actions)
+            batch = batch._replace(
+                old_dist=anchor,
+                is_weight=torch.exp(logp_anchor - logp_behavior))
 
         done_f = traj.done.float()
         n_episodes = traj.done.sum()
         ep_denom = torch.clamp(n_episodes, min=1)
         no_eps = n_episodes == 0
         nan = torch.full((), float("nan"), device=adv.device)
-        mean_ep_reward = torch.where(
-            no_eps, nan, torch.sum(traj.episode_return * done_f) / ep_denom
-        )
-        mean_ep_length = torch.where(
-            no_eps, nan,
-            torch.sum(traj.episode_length.float() * done_f) / ep_denom,
-        )
-        new_state = train_state._replace(
-            policy_params=new_policy_params,
-            iteration=train_state.iteration + 1,
-            total_episodes=train_state.total_episodes + n_episodes,
-            total_timesteps=train_state.total_timesteps + T * N,
-            precond=trpo_stats.precond_next
-            if trpo_stats.precond_next is not None
-            else train_state.precond,
-            cg_damping=trpo_stats.damping_next
-            if cfg.adaptive_damping else train_state.cg_damping,
-            ladder=trpo_stats.ladder_next
-            if trpo_stats.ladder_next is not None
-            else train_state.ladder,
-            obs_norm=new_obs_norm,
-        )
-        fit_pack = {
+        aux = {
             "vf_in": vf_in,
             "vtarg": flat(vtarg),
             "values": flat(values),
             "weight": weight,
+            "new_obs_norm": new_obs_norm,
+            "n_episodes": n_episodes,
+            "mean_episode_reward": torch.where(
+                no_eps, nan,
+                torch.sum(traj.episode_return * done_f) / ep_denom),
+            "mean_episode_length": torch.where(
+                no_eps, nan,
+                torch.sum(traj.episode_length.float() * done_f) / ep_denom),
+        }
+        return batch, aux
+
+    def _merge_phase(self, train_state: TrainState, new_policy_params,
+                     trpo_stats, aux):
+        """The tail of the policy phase: the update's outputs folded into
+        the state (all of it but ``vf_state``), and the pack the critic
+        phase consumes."""
+        T_N = aux["weight"].shape[0]
+        new_state = train_state._replace(
+            policy_params=new_policy_params,
+            iteration=train_state.iteration + 1,
+            total_episodes=train_state.total_episodes + aux["n_episodes"],
+            total_timesteps=train_state.total_timesteps + T_N,
+            precond=trpo_stats.precond_next
+            if trpo_stats.precond_next is not None
+            else train_state.precond,
+            cg_damping=trpo_stats.damping_next
+            if self.cfg.adaptive_damping else train_state.cg_damping,
+            ladder=trpo_stats.ladder_next
+            if trpo_stats.ladder_next is not None
+            else train_state.ladder,
+            obs_norm=aux["new_obs_norm"],
+        )
+        fit_pack = {
+            "vf_in": aux["vf_in"],
+            "vtarg": aux["vtarg"],
+            "values": aux["values"],
+            "weight": aux["weight"],
             "trpo_stats": trpo_stats._replace(precond_next=None,
                                               ladder_next=None),
             "total_episodes": new_state.total_episodes,
-            "mean_episode_reward": mean_ep_reward,
-            "mean_episode_length": mean_ep_length,
-            "episodes_in_batch": n_episodes.to(torch.int32),
+            "mean_episode_reward": aux["mean_episode_reward"],
+            "mean_episode_length": aux["mean_episode_length"],
+            "episodes_in_batch": aux["n_episodes"].to(torch.int32),
             # the post-update ladder: its counters surface in the stats
             "ladder": new_state.ladder,
         }
         return new_state, fit_pack
+
+    def _policy_phase(self, train_state: TrainState, traj: Trajectory,
+                      lam=None):
+        """Advantages → TRPO policy update → episode scalars. Returns the
+        state advanced in everything but ``vf_state``, and the pack the
+        critic phase consumes."""
+        batch, aux = self._batch_phase(train_state, traj,
+                                       train_state.obs_norm, lam)
+        new_policy_params, trpo_stats = self.trpo_update(
+            train_state.policy_params, batch, train_state.cg_damping,
+            train_state.precond, train_state.ladder,
+        )
+        return self._merge_phase(train_state, new_policy_params, trpo_stats,
+                                 aux)
 
     def _vf_stats_phase(self, vf_state: VFState, fit_pack):
         """Critic fit (after the advantages, the reference's ordering) and
@@ -537,25 +612,29 @@ class TRPOAgent:
             })
         return new_vf_state, stats
 
-    def _process_trajectory(self, train_state: TrainState, traj: Trajectory):
-        """advantages → TRPO update → critic fit → stats."""
-        state, fit_pack = self._policy_phase(train_state, traj)
+    def _process_trajectory(self, train_state: TrainState, traj: Trajectory,
+                            lam=None):
+        """advantages → TRPO update → critic fit → stats; ``lam``
+        overrides ``cfg.lam``."""
+        state, fit_pack = self._policy_phase(train_state, traj, lam)
         new_vf_state, stats = self._vf_stats_phase(state.vf_state, fit_pack)
         return state._replace(vf_state=new_vf_state), stats
 
-    def run_iteration(self, train_state: TrainState):
+    def run_iteration(self, train_state: TrainState, lam=None):
         """One training iteration; returns ``(new_state, stats)`` with the
-        stats as 0-d tensors (read them on the host when needed)."""
+        stats as 0-d tensors (read them on the host when needed). ``lam``
+        (a float) overrides ``cfg.lam`` for this iteration's GAE
+        (``Population`` sweeps)."""
         if not self.is_device_env:
             train_state, traj = self._host_collect(train_state)
-            return self._process_trajectory(train_state, traj)
+            return self._process_trajectory(train_state, traj, lam)
         new_carry, traj = device_rollout(
             self.env, self._normed_policy(train_state.obs_norm),
             train_state.policy_params, train_state.env_carry,
             train_state.rng, self.n_steps, chunk=self.cfg.rollout_chunk,
         )
         train_state = train_state._replace(env_carry=new_carry)
-        return self._process_trajectory(train_state, traj)
+        return self._process_trajectory(train_state, traj, lam)
 
     # ------------------------------------------------------------------
     # host envs
@@ -640,10 +719,15 @@ class TRPOAgent:
         along a leading ``(n,)`` axis."""
         if n < 1:
             raise ValueError(f"n must be >= 1, got {n}")
-        rows = []
-        for _ in range(n):
-            train_state, stats = self.run_iteration(train_state)
-            rows.append(stats)
+        if self._overlap:
+            # the overlapped loop is a host-driven pipeline with the same
+            # (state, stacked stats) contract
+            train_state, rows = self._overlap_run(train_state, n)
+        else:
+            rows = []
+            for _ in range(n):
+                train_state, stats = self.run_iteration(train_state)
+                rows.append(stats)
         return train_state, {
             k: torch.stack([torch.as_tensor(r[k], device=self.device)
                             for r in rows])
@@ -818,7 +902,10 @@ class TRPOAgent:
         chunk; with ``cfg.host_async_pipeline`` they run the asynchronous
         driver (:meth:`_learn_host_async`), where the stop rules act as
         the stats drain (up to ``cfg.stats_drain_maxsize`` iterations
-        late) and ``callback`` runs on the drain thread."""
+        late) and ``callback`` runs on the drain thread. With
+        ``cfg.train_overlap`` it runs the overlapped loop
+        (:meth:`_learn_overlap`): one iteration a chunk, and a stop
+        discards the window already collected for the next update."""
         cfg = self.cfg
         n_iterations = n_iterations or cfg.n_iterations
         state = self.init_state() if state is None else state
@@ -828,12 +915,19 @@ class TRPOAgent:
         recovery = (RecoveryPolicy(cfg) if cfg.recover_on_nan == "restore"
                     else None)
         guard = PreemptionGuard(enabled=cfg.on_preempt == "checkpoint")
+        driver = None
         if cfg.host_async_pipeline and not self.is_device_env:
+            driver = lambda: self._learn_host_async(  # noqa: E731
+                n_iterations, state, logger, checkpointer, callback, timer,
+                recovery, guard)
+        elif self._overlap:
+            driver = lambda: self._learn_overlap(  # noqa: E731
+                n_iterations, state, logger, checkpointer, callback, timer,
+                guard)
+        if driver is not None:
             try:
                 with guard:
-                    return self._learn_host_async(
-                        n_iterations, state, logger, checkpointer,
-                        callback, timer, recovery, guard)
+                    return driver()
             finally:
                 if own_logger:
                     logger.close()
@@ -967,6 +1061,205 @@ class TRPOAgent:
             signum=guard.signum,
             exit_code=self.cfg.requeue_exit_code,
         )
+
+    # ------------------------------------------------------------------
+    # the overlapped actor/learner loop (cfg.train_overlap)
+    # ------------------------------------------------------------------
+
+    def _overlap_collect(self, params, roll_stats, carry, rng, timer):
+        """One ``(T, N)`` window from ``params`` normalized by
+        ``roll_stats``, streamed chunk by chunk
+        (:meth:`rollout.ChunkedRollout.iter_chunks`) on the calling
+        thread's stream, each chunk timed as ``rollout_chunk`` up to its
+        end on that stream. Returns ``(carry, Trajectory)``.
+
+        The window stays on the device, where the reference brings it to
+        host memory so that it never pins the actor device's: on one card
+        the two windows in flight are ≈ 0.3 GB at humanoid-sim-fleet's
+        width, and a host copy would only add a transfer each way. The
+        rollout builds new tensors every step, so the carry it returns
+        never aliases one that ``TrainState.env_carry`` holds."""
+        chunks = ChunkedRollout(self.env, self._normed_policy(roll_stats),
+                                self.cfg.rollout_chunk).iter_chunks(
+            params, carry, rng, self.n_steps)
+        parts = []
+        for _ in range(self.n_steps // self.cfg.rollout_chunk):
+            with timer.phase("rollout_chunk"):
+                carry, part = next(chunks)
+                _sync_stream(self.device)
+            parts.append(part)
+        return carry, concat_chunks(parts)
+
+    def _overlap_learner_step(self, state: TrainState, window: Trajectory,
+                              roll_stats, stale: bool, timer):
+        """One update on a window, on the calling thread's stream: the
+        batch, the CG solve, the line search, the merge and the critic fit,
+        the policy phase of the serial loop split into stages. Each stage
+        is timed (``update/advantage``, ``update/fvp_cg_solve``,
+        ``update/linesearch``, ``update/vf_fit``) up to its end on this
+        stream only: a device-wide synchronize would also wait for the
+        actor's work. Returns ``(state, stats, host_row)``."""
+        def staged(name, fn, *args):
+            with timer.phase(name):
+                out = fn(*args)
+                _sync_stream(self.device)
+            return out
+
+        with timer.phase("update"):
+            batch, aux = staged("advantage", self._batch_phase, state,
+                                window, roll_stats, None, stale)
+            pack = staged("fvp_cg_solve", self._overlap_solve,
+                          state.policy_params, batch, state.cg_damping,
+                          state.precond, state.ladder)
+            new_params, trpo_stats = staged(
+                "linesearch", self._overlap_finish, state.policy_params,
+                batch, pack)
+            new_state, fit_pack = self._merge_phase(state, new_params,
+                                                    trpo_stats, aux)
+            new_vf, stats = staged("vf_fit", self._vf_stats_phase,
+                                   new_state.vf_state, fit_pack)
+            row = _host_row(stats)
+        return new_state._replace(vf_state=new_vf), stats, row
+
+    def _overlap_run(self, state: TrainState, n_iterations: int, *,
+                     timer: Optional[PhaseTimer] = None, on_row=None,
+                     pre_iter=None):
+        """The overlapped actor/learner loop (``cfg.train_overlap``).
+
+        Schedule, staleness hard-bounded at one window: collect window 0
+        with the current state; then at iteration k submit the update on
+        window k to one learner thread, while this thread collects window
+        k+1 with the params and normalization statistics the learner
+        STARTED from. The fill window (k = 0) was collected by the current
+        params and is the plain synchronous batch (``stale=False``), so
+        the first iteration is bitwise equal to the serial loop's; every
+        later window is one update stale and importance-weighted.
+
+        On CUDA the learner runs on a stream of its own and this thread
+        on another. Each window crosses to the learner behind an event,
+        each new state back to the actor behind one, and every tensor
+        read on the other stream is marked for it (``record_stream``), so
+        the caching allocator does not hand its memory out under the
+        reader. Only this thread draws from ``state.rng``, in the serial
+        loop's order.
+
+        ``pre_iter(k, state)`` runs before each submission;
+        ``on_row(k, state, host_row, iter_ms) -> stop`` after each join,
+        with ``state.env_carry`` already the carry after the window in
+        flight (and ``state.rng`` past it), so a checkpoint taken there
+        resumes both chains; a stop discards that window. Returns
+        ``(state, [stats of each iteration])``."""
+        timer = PhaseTimer() if timer is None else timer
+        cuda = self.device.type == "cuda"
+        actor = learner = caller = None
+        if cuda:
+            caller = torch.cuda.current_stream(self.device)
+            actor = torch.cuda.Stream(self.device)
+            learner = torch.cuda.Stream(self.device)
+            for stream in (actor, learner):
+                stream.wait_stream(caller)
+                _record_stream(state, stream)
+
+        def on_stream(stream):
+            return (torch.cuda.stream(stream) if stream is not None
+                    else contextlib.nullcontext())
+
+        def learner_step(st, window, roll_stats, stale, ready):
+            with on_stream(learner):
+                if ready is not None:
+                    learner.wait_event(ready)
+                out = self._overlap_learner_step(st, window, roll_stats,
+                                                 stale, timer)
+                done = None
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(learner)
+            return out, done
+
+        def hand_over(window):
+            """The window's event on this stream, the window marked as
+            used on the learner's."""
+            if not cuda:
+                return None
+            _record_stream(window, learner)
+            ready = torch.cuda.Event()
+            ready.record(actor)
+            return ready
+
+        rows = []
+        try:
+            with on_stream(actor), ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="trpo-learner") as pool:
+                roll_stats = state.obs_norm
+                carry, window = self._overlap_collect(
+                    state.policy_params, roll_stats, state.env_carry,
+                    state.rng, timer)
+                for k in range(n_iterations):
+                    if pre_iter is not None:
+                        pre_iter(k, state)
+                    t0 = time.perf_counter()
+                    fut = pool.submit(learner_step, state, window, roll_stats,
+                                      k > 0, hand_over(window))
+                    next_window = next_stats = None
+                    if k + 1 < n_iterations:
+                        # read before the join: the state the learner started
+                        # from is the behavior policy of the stale window
+                        next_stats = state.obs_norm
+                        carry, next_window = self._overlap_collect(
+                            state.policy_params, next_stats, carry, state.rng,
+                            timer)
+                    (new_state, stats, row), done = fut.result()
+                    if done is not None:
+                        actor.wait_event(done)
+                        _record_stream((new_state, stats), actor)
+                    state = new_state._replace(env_carry=carry)
+                    iter_s = time.perf_counter() - t0
+                    timer.record("iteration", iter_s)
+                    rows.append(stats)
+                    if on_row is not None and on_row(k, state, row,
+                                                     iter_s * 1e3):
+                        break
+                    window, roll_stats = next_window, next_stats
+        finally:
+            if cuda:
+                # the caller's stream runs after both sides, and what it
+                # frees is not handed out again under their work
+                caller.wait_stream(actor)
+                caller.wait_stream(learner)
+                _record_stream((state, rows), caller)
+        return state, rows
+
+    def _learn_overlap(self, n_iterations, state, logger, checkpointer,
+                       callback, timer, guard) -> TrainState:
+        """``learn``'s overlapped driver: every row goes through
+        :meth:`_finish_iteration_stats` (stop rules, NaN abort, logging),
+        then the callback and the checkpoint cadence, as in the serial
+        loop with one iteration a chunk. NaN recovery is refused by the
+        config for this driver."""
+        cfg = self.cfg
+        reward_running = RunningEpisodeMean()
+        it0 = state.iteration
+
+        def pre_iter(k, st):
+            if guard.triggered:
+                # every finished iteration's row is processed, and st holds
+                # the refreshed carry and generator
+                self._preempt_shutdown(st, checkpointer, guard)
+
+        def on_row(k, st, row, iter_ms):
+            it = it0 + k + 1
+            stop = self._finish_iteration_stats(
+                row, reward_running, logger, iteration=it,
+                iteration_ms=iter_ms, timesteps_total=st.total_timesteps)
+            if callback is not None:
+                callback(st, row)
+            if checkpointer is not None and it % cfg.checkpoint_every == 0:
+                checkpointer.save(it, st)
+            return stop
+
+        state, _ = self._overlap_run(state, n_iterations, timer=timer,
+                                     on_row=on_row, pre_iter=pre_iter)
+        return state
 
     # ------------------------------------------------------------------
     # learn: the asynchronous host-env driver
@@ -1117,6 +1410,13 @@ def _host_row(stats: dict) -> dict:
                if isinstance(v, torch.Tensor))
     return _host_rows({k: torch.as_tensor(v, device=dev)[None]
                        for k, v in stats.items()})[0]
+
+
+def _sync_stream(device: torch.device) -> None:
+    """Wait for the calling thread's current stream on ``device`` (nothing
+    on the CPU); other streams run on."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _record_stream(tree, stream) -> None:

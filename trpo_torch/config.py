@@ -11,8 +11,8 @@ Two differences from the reference:
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* Paths that are not ported yet (``train_overlap``, ``mesh_shape``, the
-  ``gymproc:`` envs) raise ``NotImplementedError`` naming the
+* Paths that are not ported yet (``mesh_shape``, the ``gymproc:`` envs)
+  raise ``NotImplementedError`` naming the
   ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
   never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
@@ -134,7 +134,11 @@ class TRPOConfig:
     #                                (the CLI exits requeue_exit_code);
     #                                "ignore": default signal behaviour
     requeue_exit_code: int = 75
-    train_overlap: int = 0         # not ported (ROADMAP Queue 1 item 15)
+    train_overlap: int = 0         # 1: the overlapped actor/learner
+    #                                loop (agent._overlap_run): rollout
+    #                                k+1 runs while update k does, one
+    #                                window stale, importance-weighted;
+    #                                device envs with rollout_chunk
     host_pipeline_groups: int = 1  # host envs: split the envs into this
     #                                many groups, each stepped by its own
     #                                thread while the others' inference
@@ -182,14 +186,47 @@ class TRPOConfig:
                 )
         if self.train_overlap not in (0, 1):
             raise ValueError(
-                f"train_overlap must be 0 or 1, got {self.train_overlap}"
+                f"train_overlap must be 0 (synchronous) or 1 (one-window "
+                f"staleness), got {self.train_overlap} — the bound is a "
+                "hard contract, not a queue depth"
             )
-        if self.train_overlap and self.host_async_pipeline:
-            raise ValueError(
-                "train_overlap and host_async_pipeline are mutually "
-                "exclusive pipelines (device-env overlap vs host-env "
-                "overlap) — pick the one matching the env family"
-            )
+        if self.train_overlap:
+            # each of these owns the iteration's sequencing in a way the
+            # overlapped driver cannot compose with (the reference's
+            # inject_faults check lands with its field, item 18)
+            if self.rollout_chunk is None:
+                raise ValueError(
+                    "train_overlap=1 streams the rollout through the "
+                    "chunked-rollout seam (rollout.ChunkedRollout) — set "
+                    "rollout_chunk (a divisor of the steps per window)"
+                )
+            if self.host_async_pipeline:
+                raise ValueError(
+                    "train_overlap and host_async_pipeline are mutually "
+                    "exclusive pipelines (device-env overlap vs host-env "
+                    "overlap) — pick the one matching the env family"
+                )
+            if self.fuse_iterations != 1:
+                raise ValueError(
+                    f"train_overlap=1 is incompatible with fuse_iterations="
+                    f"{self.fuse_iterations}: the overlap driver already "
+                    "owns the iteration boundary (rollout k+1 streams "
+                    "inside update k) — a fused multi-iteration chunk "
+                    "has no boundary to overlap across"
+                )
+            if self.mesh_shape is not None:
+                raise ValueError(
+                    "train_overlap=1 places the actor and learner work "
+                    "on streams itself and cannot compose with a mesh "
+                    "(mesh_shape) — drop one of the two"
+                )
+            if self.recover_on_nan == "restore":
+                raise ValueError(
+                    'train_overlap=1 does not support recover_on_nan='
+                    '"restore": the rewind would have to unwind an '
+                    "in-flight stale window as well as the update — run "
+                    "the synchronous loop when restore-recovery matters"
+                )
         if self.host_inference not in ("device", "cpu"):
             raise ValueError(
                 'host_inference must be "device" or "cpu", got '
@@ -339,8 +376,6 @@ def _not_ported(what: str, item: str):
 def check_ported(cfg: TRPOConfig) -> None:
     """Raise ``NotImplementedError`` for every configured path the port
     does not run yet, naming the ROADMAP item that ports it."""
-    if cfg.train_overlap:
-        _not_ported("train_overlap", "item 15")
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
     if cfg.env.startswith("gymproc:"):

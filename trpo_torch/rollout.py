@@ -72,8 +72,8 @@ import torch
 from trpo_torch.models.policy import Policy
 from trpo_torch.ops.flat import tree_leaves, tree_map
 
-__all__ = ["ChunkedRollout", "Trajectory", "device_rollout", "host_rollout",
-           "init_carry", "init_env_states", "make_host_act_fn",
+__all__ = ["ChunkedRollout", "Trajectory", "concat_chunks", "device_rollout",
+           "host_rollout", "init_carry", "init_env_states", "make_host_act_fn",
            "params_device", "pipelined_host_rollout"]
 
 
@@ -190,7 +190,7 @@ def _rollout_steps(env, policy: Policy, params, carry, generator,
     return new_carry, traj
 
 
-def _concat(parts):
+def concat_chunks(parts):
     """Trajectories of consecutive chunks joined along time; the window's
     ``policy_h0`` is the first chunk's."""
     if len(parts) == 1:
@@ -257,7 +257,7 @@ class ChunkedRollout:
                                             n_steps, action_noise,
                                             deterministic):
             parts.append(traj)
-        return carry, _concat(parts)
+        return carry, concat_chunks(parts)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@
         [--host-pipeline-groups 2] [--host-async-pipeline] \
         [--host-inference cpu]
     python -m trpo_torch.train --preset halfcheetah --device cpu  # gymnasium
+    python -m trpo_torch.train --preset humanoid-sim-fleet --overlap
 
 Runs ``TRPOAgent.learn`` on CUDA unless ``--device cpu`` is given. Each
 iteration prints the stats block and a one-line summary (one per chunk
@@ -20,7 +21,9 @@ iteration. ``--resume`` continues from the newest complete checkpoint in
 and exits with the requeue code (75). ``--evaluate STEPS`` runs a greedy
 rollout of STEPS per env after training. A host env's (``native:``,
 ``gym:``) simulator state is checkpointed beside each step and restored
-with ``--resume``.
+with ``--resume``. ``--overlap`` runs the overlapped actor/learner loop
+(device envs with a rollout chunk: rollout k+1 runs while update k does,
+one window stale, importance-weighted).
 """
 
 from __future__ import annotations
@@ -146,6 +149,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--host-inference", choices=("device", "cpu"),
                    help="host envs: run the rollout's policy on the card "
                    "(default) or on the CPU")
+    p.add_argument("--overlap", action="store_true",
+                   help="device envs with --rollout-chunk: the overlapped "
+                   "actor/learner loop (rollout k+1 runs while update k "
+                   "does, staleness one window, importance-weighted; "
+                   "train_overlap=1)")
     p.add_argument("--stats-drain-maxsize", type=int,
                    help="async driver: bound on the pending stats (0 = "
                    "unbounded)")
@@ -212,6 +220,8 @@ def build_config(args):
         overrides["cg_budget_adaptive"] = True
     if args.host_async_pipeline:
         overrides["host_async_pipeline"] = True
+    if args.overlap:
+        overrides["train_overlap"] = 1
     if args.no_host_staged_transfers:
         overrides["host_staged_transfers"] = False
     if args.cg_precondition is not None:

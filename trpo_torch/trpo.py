@@ -81,6 +81,7 @@ __all__ = [
     "init_ladder",
     "ladder_enabled",
     "ladder_stateful",
+    "make_staged_trpo_update",
     "make_trpo_update",
     "standardize_advantages",
     "surrogate_and_dist",
@@ -97,6 +98,11 @@ class TRPOBatch(NamedTuple):
     advantages: torch.Tensor  # (B,) — already standardized
     old_dist: Any             # {"mean": (B, A), "log_std": (B, A)}
     weight: torch.Tensor      # (B,) — 1.0 real step, 0.0 padding
+    is_weight: Any = None     # (B,) importance weight of a STALE window
+    #   (the overlapped loop, cfg.train_overlap): π_anchor(a|s) /
+    #   π_behavior(a|s), detached, multiplied into the surrogate's ratio
+    #   while old_dist holds the anchor (the current params' dist). None
+    #   (every on-policy caller) leaves the surrogate's ops unchanged.
 
 
 class TRPOStats(NamedTuple):
@@ -215,6 +221,10 @@ def surrogate_and_dist(policy: Policy, params, batch: TRPOBatch,
     dist_params = policy.apply(params, batch.obs)
     logp = policy.dist.logp(dist_params, batch.actions)
     ratio = torch.exp(logp - logp_old)
+    if batch.is_weight is not None:
+        # stale-window correction: the ratio is anchored at the current
+        # params, the behavior policy's mismatch a constant weight
+        ratio = ratio * batch.is_weight.detach()
     surr = -_wmean(ratio * batch.advantages, batch.weight)
     return surr, dist_params
 
@@ -615,6 +625,9 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         final_dist = tree_where(rollback, pack.dist0, dist_ls)
         logp_new = policy.dist.logp(final_dist, batch.actions)
         ratio_new = torch.exp(logp_new - logp_old)
+        if batch.is_weight is not None:
+            # the same weighting as the surrogate the search optimized
+            ratio_new = ratio_new * batch.is_weight
         surr_after = -_wmean(ratio_new * batch.advantages, batch.weight)
         entropy = _wmean(policy.dist.entropy(final_dist), batch.weight)
         damping_next = (
@@ -655,6 +668,33 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     return to_params(x_new), stats
 
 
+def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
+                            jacobi_probes=None):
+    """:func:`make_trpo_update` split at the solve → line-search seam:
+    ``(solve, finish)`` with ``solve(params, batch, damping=None,
+    precond=None, ladder=None) -> SolvePack`` (gradient, CG solve, step
+    scaling) and ``finish(params, batch, pack) -> (new_params, stats)``
+    (line search, KL rollback, stats). ``finish(params, batch,
+    solve(params, batch, ...))`` runs the same two stage bodies as the
+    fused update, so it is bitwise equal to it. The overlapped loop
+    (``agent._overlap_learner_step``) times the two stages apart."""
+    check_ported(cfg)
+
+    def solve(params, batch: TRPOBatch, damping=None,
+              precond: Optional[PrecondState] = None,
+              ladder: Optional[LadderState] = None) -> SolvePack:
+        flat0, unravel = flatten_params(params)
+        return _solve_stage(policy, cfg, unravel, flat0.float().detach(),
+                            batch, damping, precond, ladder, jacobi_probes)
+
+    def finish(params, batch: TRPOBatch, pack: SolvePack):
+        flat0, unravel = flatten_params(params)
+        return _finish_stage(policy, cfg, unravel, flat0.float().detach(),
+                             batch, pack)
+
+    return solve, finish
+
+
 def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
     """The update in the flat-vector domain: ``update(params, batch,
     damping=None, precond=None, ladder=None) -> (new_params, stats)``.
@@ -663,17 +703,15 @@ def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
     ``ladder`` (a :class:`LadderState`) arms the solve audit and the
     adaptive CG budget, and without it the cheap path runs unaudited.
     ``jacobi_probes`` (``cg_precond_probes`` flat ±1 vectors) replaces the
-    Jacobi preconditioner's own draws (a test lever)."""
-    check_ported(cfg)
+    Jacobi preconditioner's own draws (a test lever). It is the two stages
+    of :func:`make_staged_trpo_update` composed."""
+    solve, finish = make_staged_trpo_update(policy, cfg, jacobi_probes)
 
     def update(params, batch: TRPOBatch, damping=None,
                precond: Optional[PrecondState] = None,
                ladder: Optional[LadderState] = None):
-        flat0, unravel = flatten_params(params)
-        flat0 = flat0.float().detach()
-        pack = _solve_stage(policy, cfg, unravel, flat0, batch, damping,
-                            precond, ladder, jacobi_probes)
-        return _finish_stage(policy, cfg, unravel, flat0, batch, pack)
+        return finish(params, batch,
+                      solve(params, batch, damping, precond, ladder))
 
     return update
 
