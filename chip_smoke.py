@@ -81,8 +81,19 @@ Phases:
  18. ``[preempt]`` ``python -m trpo_torch.train`` in a child process, sent
      SIGTERM after its first checkpoint: it must exit 75 with its last
      finished iteration as the newest complete checkpoint;
- 19. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17) is driven with the launch counts set to 0 just
+ 19. ``[serve]`` the serving data plane (``trpo_torch.serve``) at full
+     width: ``humanoid-sim`` (the engine's rungs 1/8/64 and n = 70
+     chunked against eager ``act``; ``PolicyServer`` on TCP and a Unix
+     socket, JSON and binary; ``/act`` p50/p99 and requests/s at 1 and
+     64 clients; a hot reload from step 2 to step 4 under 16 clients, 0
+     failed or mislabelled), ``pong-sim`` (84×84×4 uint8), ``cartpole-po``
+     GRU and LSTM (the session engine against ``act(policy_carry=...)``,
+     64 concurrent HTTP sessions × 20 steps) and the 4-expert
+     ``cartpole``; per rung the host-clock p50/p99 and the graph
+     replay's device ms; 0 graph captures on the request path and 0
+     launches of any kernel or plain version;
+ 20. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19) is driven with the launch counts set to 0 just
 before it and read just after. The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
@@ -114,6 +125,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 # Peak rates of one H100 (NVIDIA data sheets, dense): f32 outside the
 # tensor cores, TF32 on the tensor cores, and device-memory bandwidth.
@@ -2314,6 +2327,641 @@ def phase_moe(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [serve]: the serving data plane
+# ---------------------------------------------------------------------------
+
+# served actions and carries against eager act: the engine's graph and act
+# run the same ops, but cuBLAS may pick another kernel at another width
+SERVE_ATOL = 1e-5
+
+
+def _uds_connection(path: str, timeout: float = 30.0):
+    """An ``http.client.HTTPConnection`` over an ``AF_UNIX`` socket."""
+    import http.client
+    import socket
+
+    class Conn(http.client.HTTPConnection):
+        def connect(self):
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.settimeout(timeout)
+            self.sock.connect(path)
+
+    return Conn("localhost", timeout=timeout)
+
+
+def _post(conn, path: str, payload=None, binary: bool = False):
+    """``(status, answer)`` of one POST on a keep-alive connection: JSON
+    (``payload`` may come encoded already), or the wire codec's frames
+    with ``binary``."""
+    from trpo_torch.serve import wire
+
+    if binary:
+        body = wire.encode_frame(None, payload)
+        headers = {"Content-Type": wire.WIRE_CONTENT_TYPE,
+                   "Accept": wire.WIRE_CONTENT_TYPE}
+    else:
+        body = (payload if isinstance(payload, bytes) else b""
+                if payload is None else json.dumps(payload).encode())
+        headers = {"Content-Type": "application/json"}
+    conn.request("POST", path, body=body, headers=headers)
+    resp = conn.getresponse()
+    data = resp.read()
+    if resp.getheader("Content-Type", "").startswith(
+            wire.WIRE_CONTENT_TYPE):
+        scalars, arrays = wire.decode_frame(data)
+        return resp.status, dict(scalars, **arrays)
+    return resp.status, json.loads(data)
+
+
+def _quantiles(ms: list) -> tuple:
+    """Nearest-rank (p50, p99)."""
+    ms = sorted(ms)
+    return ms[len(ms) // 2], ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+
+
+def _ladder_timing(torch, engine, call, inputs, calls: int = 200) -> dict:
+    """Per rung: ``call(*inputs(rung))`` host-clock p50/p99 over ``calls``
+    calls, and the rung's graph replayed alone, device ms by CUDA events
+    around 100 replays."""
+    out = {}
+    for rung in engine.batch_shapes:
+        args = inputs(rung)
+        lat = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            call(*args)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        graph = engine._snapshot.graphs[rung].graph
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(100):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out[rung] = _quantiles(lat) + (start.elapsed_time(end) / 100,)
+    return out
+
+
+def _print_ladder(label: str, timing: dict, card: str) -> None:
+    line = "; ".join(f"rung {r}: p50 {p50:.4f} p99 {p99:.4f} ms, graph "
+                     f"replay {dev:.5f} ms" for r, (p50, p99, dev)
+                     in timing.items())
+    print(f"[serve] {label}, host clock over 200 calls and graph replay "
+          f"device ms: {line} ({card})", flush=True)
+
+
+def _rungs_vs_eager(torch, agent, state, engine, obs, tag) -> tuple:
+    """Actions at every rung and chunked past the top one against eager
+    ``act`` at the same batch and at batch 1 row by row: ``(max |engine −
+    act at the same batch|, max |engine − act at batch 1|)``. Categorical
+    actions must be identical either way."""
+    single = np.stack([agent.act(state, o, eval_mode=True)[0].cpu().numpy()
+                       for o in obs])
+    discrete = np.issubdtype(single.dtype, np.integer)
+    err_batch = err_single = 0.0
+    for n in engine.batch_shapes + (len(obs),):
+        got = engine.infer(obs[:n])
+        eager = agent.act(state, obs[:n], eval_mode=True)[0].cpu().numpy()
+        if discrete:
+            _check(np.array_equal(got, eager)
+                   and np.array_equal(got, single[:n]),
+                   f"[serve] {tag}: categorical actions at n={n} differ "
+                   "from eager act")
+        err_batch = max(err_batch, float(np.abs(got - eager).max()))
+        err_single = max(err_single, float(np.abs(got - single[:n]).max()))
+    _check(err_batch <= SERVE_ATOL and err_single <= SERVE_ATOL,
+           f"[serve] {tag}: engine against eager act max err {err_batch}, "
+           f"{err_single} > {SERVE_ATOL}")
+    return err_batch, err_single
+
+
+def _http_load(port: int, n_clients: int, n_requests: int, make_obs,
+               on_start=None):
+    """``n_clients`` threads, each on its own keep-alive connection, POST
+    /act ``n_requests`` times: ``(latencies ms, wall s, failures)``. Each
+    client encodes its bodies, connects and sends one untimed request
+    first, so the server has accepted the connection and started its
+    handler thread; the clocks start when every client is ready (then
+    ``on_start()`` runs), so a latency is the round trip of an encoded
+    request on a warm connection and the decoding of its answer, and the
+    wall time covers the timed requests alone."""
+    import http.client
+    import threading
+
+    lats, fails, start = [], [], []
+    lock = threading.Lock()
+
+    def go():
+        if on_start is not None:
+            on_start()
+        start.append(time.perf_counter())
+
+    barrier = threading.Barrier(n_clients, action=go)
+
+    def client(k):
+        rng = np.random.default_rng(100 + k)
+        bodies = [json.dumps({"obs": make_obs(rng)}).encode()
+                  for _ in range(n_requests + 1)]
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        mine = []
+        try:
+            status, _ = _post(conn, "/act", bodies[0])
+            if status != 200:
+                raise RuntimeError(f"warm-up /act: {status}")
+            barrier.wait(timeout=60)
+            for body in bodies[1:]:
+                t0 = time.perf_counter()
+                status, _ = _post(conn, "/act", body)
+                mine.append((time.perf_counter() - t0) * 1e3)
+                if status != 200:
+                    with lock:
+                        fails.append(status)
+        except Exception as e:  # collected and checked by the caller
+            barrier.abort()
+            with lock:
+                fails.append(repr(e))
+        finally:
+            conn.close()
+        with lock:
+            lats.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    wall = time.perf_counter() - start[0] if start else float("nan")
+    return lats, wall, fails
+
+
+class _NoOpEngine:
+    """The engine's interface with an ``infer`` that touches no device: it
+    returns a fixed action for every row. /act through it times the HTTP
+    front end, the JSON codec and the micro-batcher alone."""
+
+    def __init__(self, engine):
+        self._engine = engine
+        self._action = engine.infer(
+            np.zeros((1,) + engine.obs_shape, engine.obs_dtype))[0]
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def infer(self, obs, return_step: bool = False):
+        actions = np.repeat(self._action[None], len(obs), axis=0)
+        return (actions, self._engine.loaded_step) if return_step \
+            else actions
+
+
+def _act_load(engine, cfg, clients: int, per: int, make_obs) -> dict:
+    """/act on loopback TCP from ``clients`` keep-alive clients x ``per``
+    requests, through a fresh MicroBatcher and PolicyServer over
+    ``engine``: the client's p50/p99 and requests/s, and the batcher's own
+    p50/p99 (enqueue to answer: queue wait + ``infer``) and mean batch
+    width over the timed requests alone."""
+    from trpo_torch.serve import MicroBatcher, PolicyServer
+
+    batcher = MicroBatcher(engine, deadline_ms=cfg.serve_deadline_ms,
+                           adaptive_deadline=cfg.serve_adaptive_deadline,
+                           latency_window=clients * per)
+    server = PolicyServer(engine, batcher, port=0)
+    batches0 = []
+    try:
+        lats, wall, fails = _http_load(
+            server.port, clients, per, make_obs,
+            on_start=lambda: batches0.append(batcher.batches_total))
+        _check(not fails, f"[serve] /act x{clients}: {fails[:3]}")
+        batches = batcher.batches_total - batches0[0]
+        q = batcher.latency_quantiles_ms()
+    finally:
+        server.close()
+        batcher.close()
+    p50, p99 = _quantiles(lats)
+    return {"p50": p50, "p99": p99, "rps": len(lats) / wall,
+            "batcher_p50": q[0.5], "batcher_p99": q[0.99],
+            "width": len(lats) / batches}
+
+
+def _hot_reload(torch, agent, cfg, ck, s2, s4, card) -> dict:
+    """A PolicyServer watching ``ck`` (step 2) while 16 clients POST /act;
+    step 4 lands mid-run. Every response's step must label the params
+    that computed it (checked against eager act with each step's params),
+    and none may fail."""
+    import http.client
+    import threading
+
+    from trpo_torch.serve import MicroBatcher, PolicyServer
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    engine = agent.serve_engine()
+    batcher = MicroBatcher(engine, deadline_ms=cfg.serve_deadline_ms,
+                           adaptive_deadline=cfg.serve_adaptive_deadline)
+    server = PolicyServer(engine, batcher, port=0,
+                          checkpointer=Checkpointer(ck.directory),
+                          template=agent.init_state(), poll_interval=0.05)
+    records, fails, lats = [], [], []
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def client(k):
+        r = np.random.default_rng(1000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+        try:
+            while not stop.is_set():
+                o = r.standard_normal(agent.obs_shape).astype(np.float32)
+                body = json.dumps({"obs": o.tolist()}).encode()
+                t0 = time.perf_counter()
+                status, ans = _post(conn, "/act", body)
+                with lock:
+                    lats.append((time.perf_counter() - t0) * 1e3)
+                    if status == 200:
+                        records.append((o, np.asarray(ans["action"],
+                                                      np.float32),
+                                        ans["step"]))
+                    else:
+                        fails.append((status, ans))
+        except Exception as e:  # collected and checked below
+            with lock:
+                fails.append(repr(e))
+        finally:
+            conn.close()
+
+    try:
+        _check(engine.loaded_step == 2, "[serve] the first load is not "
+               "step 2")
+        first_ms = server.last_reload_ms
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(16)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        ck.save(4, s4)
+        deadline = time.monotonic() + 30
+        while engine.loaded_step != 4 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        _check(engine.loaded_step == 4, "[serve] the reload never landed")
+        _check(not fails, f"[serve] reload under load: {fails[:3]}")
+        by_step = {2: [], 4: []}
+        for o, a, step in records:
+            _check(step in by_step, f"[serve] a response labelled {step}")
+            by_step[step].append((o, a))
+        _check(all(by_step.values()), "[serve] responses per step "
+               f"{ {k: len(v) for k, v in by_step.items()} }")
+        mislabelled, worst = 0, 0.0
+        for step, state, other in ((2, s2, s4), (4, s4, s2)):
+            o = np.stack([x for x, _ in by_step[step]])
+            a = np.stack([y for _, y in by_step[step]])
+            for i in range(0, len(o), 64):
+                want = agent.act(state, o[i:i + 64], eval_mode=True)[0]
+                alt = agent.act(other, o[i:i + 64], eval_mode=True)[0]
+                err = np.abs(a[i:i + 64] - want.cpu().numpy()).max(axis=1)
+                err_alt = np.abs(a[i:i + 64] - alt.cpu().numpy()).max(
+                    axis=1)
+                worst = max(worst, float(err.max()))
+                mislabelled += int(((err > SERVE_ATOL)
+                                    | (err_alt <= SERVE_ATOL)).sum())
+        _check(mislabelled == 0,
+               f"[serve] {mislabelled} responses mislabelled")
+        _check(engine.captures_total == 6,
+               f"[serve] {engine.captures_total} captures over two loads")
+        p50, p99 = _quantiles(lats)
+        print(f"[serve] humanoid-sim hot reload step 2 -> 4 under 16 "
+              f"clients: {len(records)} responses ({len(by_step[2])} at "
+              f"step 2, {len(by_step[4])} at step 4), 0 failed, 0 "
+              f"mislabelled (each within {SERVE_ATOL} of eager act with "
+              f"its step's params, max {worst:.3g}); reload ms (restore + "
+              f"capture) {server.last_reload_ms:.2f}, the capture of 3 "
+              f"rungs {engine.last_load_ms:.2f}; first load, idle "
+              f"{first_ms:.2f} ms; /act over the leg p50 {p50:.3f} p99 "
+              f"{p99:.3f} ms ({card})", flush=True)
+    finally:
+        stop.set()
+        server.close()
+        batcher.close()
+    return engine.captures_total - 6
+
+
+def _serve_humanoid(torch, dev, card) -> int:
+    """humanoid-sim as published: the engine at every rung and chunked,
+    PolicyServer on TCP and a Unix socket (JSON and binary), /act under 1
+    and 64 clients, and the hot reload from step 2 to step 4."""
+    import http.client
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops.flat import tree_map
+    from trpo_torch.serve import MicroBatcher, PolicyServer
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    work = WORK / "serve"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cfg = get_preset("humanoid-sim")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    s2 = agent.init_state(seed=0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    s4 = s2._replace(policy_params=tree_map(
+        lambda t: t + 0.05 * torch.randn(t.shape, generator=gen,
+                                         device=dev), s2.policy_params))
+    ck = Checkpointer(str(work / "ck"))
+    ck.save(2, s2)
+
+    engine = agent.serve_engine()
+    _check(engine.batch_shapes == (1, 8, 64), "[serve] humanoid rungs")
+    engine.load(s2.policy_params, s2.obs_norm, step=2)
+    _check(engine.captures_total == 3,
+           f"[serve] {engine.captures_total} captures for 3 rungs")
+    rng = np.random.default_rng(0)
+    obs = rng.standard_normal((70,) + agent.obs_shape).astype(np.float32)
+    err_b, err_1 = _rungs_vs_eager(torch, agent, s2, engine, obs,
+                                   "humanoid-sim")
+    print(f"[serve] humanoid-sim engine (376→256→256→17 Gaussian, rungs "
+          f"1/8/64, n=70 chunked 64+6): max |engine − eager act| "
+          f"{err_b:.3g} at the same batch, {err_1:.3g} against act at "
+          f"batch 1 row by row (bitwise: {err_1 == 0.0}; tolerance "
+          f"{SERVE_ATOL}); graph capture of 3 rungs "
+          f"{engine.last_load_ms:.2f} ms", flush=True)
+    timing = _ladder_timing(torch, engine, engine.infer, lambda r: (
+        rng.standard_normal((r,) + agent.obs_shape).astype(np.float32),))
+    _print_ladder("humanoid-sim infer", timing, card)
+
+    batcher = MicroBatcher(engine, deadline_ms=cfg.serve_deadline_ms,
+                           adaptive_deadline=cfg.serve_adaptive_deadline)
+    uds = str(work / "s.sock")
+    server = PolicyServer(engine, batcher, port=0, uds_path=uds)
+    try:
+        want = engine.infer(obs[:1])[0]
+        for name, conn in (
+                ("tcp", http.client.HTTPConnection(
+                    "127.0.0.1", server.port, timeout=30)),
+                ("uds", _uds_connection(uds))):
+            for binary in (False, True):
+                status, ans = _post(conn, "/act", {
+                    "obs": obs[0] if binary else obs[0].tolist()},
+                    binary=binary)
+                _check(status == 200 and ans["step"] == 2
+                       and np.array_equal(
+                           np.asarray(ans["action"], np.float32), want),
+                       f"[serve] /act over {name} binary={binary}: "
+                       f"{status} {ans}")
+            conn.close()
+        print("[serve] humanoid-sim PolicyServer: /act over TCP and the "
+              "Unix socket, JSON and binary frames, each bitwise equal to "
+              "infer", flush=True)
+    finally:
+        server.close()
+        batcher.close()
+    def obs_json(r):
+        return r.standard_normal(agent.obs_shape).tolist()
+
+    for label, eng in (("", engine),
+                       (" through an engine that computes nothing",
+                        _NoOpEngine(engine))):
+        for clients, per in ((1, 200), (64, 20)):
+            r = _act_load(eng, cfg, clients, per, obs_json)
+            print(f"[serve] humanoid-sim /act loopback TCP{label}, "
+                  f"{clients} client(s) x {per} requests (keep-alive, "
+                  f"connected and warmed before the clock): p50 "
+                  f"{r['p50']:.3f} ms, p99 {r['p99']:.3f} ms, "
+                  f"{r['rps']:.1f} requests/s; in the batcher (queue + "
+                  f"infer) p50 {r['batcher_p50']:.3f} ms, p99 "
+                  f"{r['batcher_p99']:.3f} ms, mean batch width "
+                  f"{r['width']:.2f} ({card})", flush=True)
+    on_path = engine.captures_total - 3
+    return on_path + _hot_reload(torch, agent, cfg, ck, s2, s4, card)
+
+
+def _serve_pong(torch, dev, card) -> int:
+    """pong-sim as published: 84×84×4 uint8 frames, the 1.69M-parameter
+    conv policy, categorical, rungs 1/8/64, /act in JSON and binary."""
+    import http.client
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops.flat import tree_leaves
+    from trpo_torch.serve import MicroBatcher, PolicyServer
+
+    cfg = get_preset("pong-sim")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(state.policy_params))
+    engine = agent.serve_engine()
+    _check(engine.obs_dtype == np.uint8, "[serve] pong-sim is not uint8")
+    engine.load(state.policy_params, state.obs_norm, step=0)
+    rng = np.random.default_rng(1)
+    obs = rng.integers(0, 256, (70,) + agent.obs_shape, dtype=np.uint8)
+    _rungs_vs_eager(torch, agent, state, engine, obs, "pong-sim")
+    print(f"[serve] pong-sim engine (84x84x4 uint8, {n_params} parameters, "
+          "categorical, rungs 1/8/64, n=70 chunked): actions identical to "
+          f"eager act at the same batch and at batch 1; graph capture of 3 "
+          f"rungs {engine.last_load_ms:.2f} ms", flush=True)
+    captures = engine.captures_total
+    timing = _ladder_timing(torch, engine, engine.infer, lambda r: (
+        rng.integers(0, 256, (r,) + agent.obs_shape, dtype=np.uint8),))
+    _print_ladder("pong-sim infer", timing, card)
+    batcher = MicroBatcher(engine, deadline_ms=cfg.serve_deadline_ms,
+                           adaptive_deadline=cfg.serve_adaptive_deadline)
+    server = PolicyServer(engine, batcher, port=0)
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+        want = engine.infer(obs[:1])[0]
+        for binary in (False, True):
+            status, ans = _post(conn, "/act", {
+                "obs": obs[0] if binary else obs[0].tolist()},
+                binary=binary)
+            _check(status == 200 and int(np.asarray(ans["action"])) == want,
+                   f"[serve] pong-sim /act binary={binary}: {status}")
+        conn.close()
+    finally:
+        server.close()
+        batcher.close()
+    print("[serve] pong-sim /act in JSON and binary frames equal to infer",
+          flush=True)
+    return engine.captures_total - captures
+
+
+def _serve_sessions(torch, dev, card, cell) -> int:
+    """cartpole-po with a ``cell`` policy: the session engine at every
+    rung against ``act(..., policy_carry=...)`` at batch 1, then 64
+    concurrent HTTP sessions x 20 steps, each held against stepping it
+    alone through ``act``."""
+    import http.client
+    import threading
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.serve import PolicyServer
+
+    cfg = get_preset("cartpole-po").replace(policy_cell=cell)
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    engine = agent.serve_session_engine()
+    _check(engine.batch_shapes == (1, 8, 64), "[serve] session rungs")
+    engine.load(state.policy_params, state.obs_norm, step=0)
+    rng = np.random.default_rng(2)
+    S = engine.state_size
+    carries = (0.5 * rng.standard_normal((70, S))).astype(np.float32)
+    obs = rng.standard_normal((70,) + agent.obs_shape).astype(np.float32)
+    ref = [agent.act(state, obs[i], eval_mode=True,
+                     policy_carry=torch.as_tensor(carries[i], device=dev))
+           for i in range(70)]
+    ref_a = np.array([int(r[0]) for r in ref])
+    ref_c = np.stack([r[2].cpu().numpy() for r in ref])
+    err = 0.0
+    for n in engine.batch_shapes + (70,):
+        a, c = engine.step_batch(carries[:n], obs[:n])
+        _check(np.array_equal(a, ref_a[:n]),
+               f"[serve] {cell}: session actions at n={n} differ from act")
+        err = max(err, float(np.abs(c - ref_c[:n]).max()))
+    _check(err <= SERVE_ATOL, f"[serve] {cell}: carries err {err}")
+    print(f"[serve] cartpole-po {cell} session engine (state {S}, rungs "
+          f"1/8/64, n=70 chunked): actions identical to act(policy_carry) "
+          f"at batch 1 row by row, carries max |err| {err:.3g} (bitwise: "
+          f"{err == 0.0}; tolerance {SERVE_ATOL}); graph capture of 3 "
+          f"rungs {engine.last_load_ms:.2f} ms", flush=True)
+    captures = engine.captures_total
+    timing = _ladder_timing(torch, engine, engine.step_batch,
+                            lambda r: (carries[:r], obs[:r]))
+    _print_ladder(f"cartpole-po {cell} step_batch", timing, card)
+
+    server = PolicyServer(engine, None, port=0,
+                          session_deadline_ms=cfg.serve_session_deadline_ms)
+    n_sess, n_steps = 64, 20
+    results, fails = {}, []
+    lock = threading.Lock()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=30)
+        sids = []
+        for _ in range(n_sess):
+            status, ans = _post(conn, "/session")
+            _check(status == 200, f"[serve] /session: {status}")
+            sids.append(ans["session"])
+        conn.close()
+        sb = server.session_batcher
+        start = []  # (clock, epochs) when every client has connected
+        barrier = threading.Barrier(n_sess, action=lambda: start.append(
+            (time.perf_counter(), sb.epochs_total)))
+
+        def client(k):
+            r = np.random.default_rng(500 + k)
+            c = http.client.HTTPConnection("127.0.0.1", server.port,
+                                           timeout=30)
+            mine = []
+            try:
+                c.connect()
+                barrier.wait(timeout=30)
+                for t in range(n_steps):
+                    o = r.standard_normal(agent.obs_shape).astype(
+                        np.float32)
+                    status, ans = _post(c, f"/session/{sids[k]}/act",
+                                        {"obs": o.tolist(), "seq": t})
+                    if status != 200:
+                        raise RuntimeError(f"{status} {ans}")
+                    mine.append((o, int(ans["action"])))
+            except Exception as e:  # collected and checked below
+                barrier.abort()
+                with lock:
+                    fails.append(repr(e))
+            finally:
+                c.close()
+            with lock:
+                results[k] = mine
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(n_sess)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        _check(not fails, f"[serve] {cell} sessions: {fails[:3]}")
+        wall = time.perf_counter() - start[0][0]
+        epochs = sb.epochs_total - start[0][1]
+        carry_err = 0.0
+        for k in range(n_sess):
+            carry = None
+            for o, a in results[k]:
+                a_ref, _, carry = agent.act(state, o, eval_mode=True,
+                                            policy_carry=carry)
+                _check(int(a_ref) == a,
+                       f"[serve] {cell}: session {k}'s action differs")
+            live = torch.as_tensor(server.sessions.get(sids[k]).carry,
+                                   device=dev)
+            carry_err = max(carry_err, float((live - carry).abs().max()))
+        _check(carry_err <= SERVE_ATOL,
+               f"[serve] {cell}: session carries err {carry_err}")
+        acts = n_sess * n_steps
+        print(f"[serve] cartpole-po {cell} over HTTP: {n_sess} concurrent "
+              f"sessions x {n_steps} steps, every action identical to "
+              f"stepping the session alone through act, carries max "
+              f"|err| {carry_err:.3g}; {epochs} epochs in {wall:.2f} s = "
+              f"{epochs / wall:.1f} epochs/s, mean epoch width "
+              f"{acts / epochs:.2f}, {acts / wall:.1f} session acts/s "
+              f"({card})", flush=True)
+    finally:
+        server.close()
+    return engine.captures_total - captures
+
+
+def _serve_moe(torch, dev, card) -> int:
+    """``cartpole`` with 4 experts: the engine at every rung."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+
+    cfg = get_preset("cartpole").replace(policy_experts=4)
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    engine = agent.serve_engine()
+    engine.load(state.policy_params, state.obs_norm, step=0)
+    rng = np.random.default_rng(3)
+    obs = rng.standard_normal((70,) + agent.obs_shape).astype(np.float32)
+    _rungs_vs_eager(torch, agent, state, engine, obs, "moe")
+    captures = engine.captures_total
+    timing = _ladder_timing(torch, engine, engine.infer, lambda r: (
+        rng.standard_normal((r,) + agent.obs_shape).astype(np.float32),))
+    print("[serve] cartpole 4-expert MoE engine: actions identical to "
+          "eager act at every rung and at batch 1", flush=True)
+    _print_ladder("cartpole 4-expert MoE infer", timing, card)
+    return engine.captures_total - captures
+
+
+def phase_serve(torch, dev):
+    """The serving data plane at full width: humanoid-sim, pong-sim,
+    cartpole-po (GRU and LSTM) and the 4-expert cartpole, with every
+    kernel's launch count read around it (all must stay 0: serving is a
+    forward pass, on no TPU kernel's path) and the graph captures made on
+    the request path (must be 0)."""
+    from trpo_torch.ops import _build
+
+    card = _card_line()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    captures = _serve_humanoid(torch, dev, card)
+    captures += _serve_pong(torch, dev, card)
+    for cell in ("gru", "lstm"):
+        captures += _serve_sessions(torch, dev, card, cell)
+    captures += _serve_moe(torch, dev, card)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check(captures == 0,
+           f"[serve] {captures} graph captures on the request path")
+    _check(not counts, f"[serve] kernels launched while serving: {counts}")
+    print(f"[serve] graph captures on the request path: {captures}; "
+          "launches of K1, K1-bf16, K2 and every plain version during "
+          "[serve]: 0", flush=True)
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -2368,6 +3016,7 @@ def main() -> int:
                 ("population", lambda: phase_population(torch, dev)),
                 ("host", lambda: phase_host(torch, np, dev)),
                 ("preempt", lambda: phase_preempt(torch, dev)),
+                ("serve", lambda: phase_serve(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

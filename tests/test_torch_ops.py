@@ -137,12 +137,24 @@ def test_presets_match_reference_training_fields():
     [
         {"env": "gymproc:CartPole-v1"},
         {"mesh_shape": (2,)},
+        # the serving control plane (item 17's second half)
+        {"serve_replicas": 2},
+        {"serve_replicas": 2, "serve_max_replicas": 3},
+        {"serve_min_replicas": 2, "serve_replicas": 2,
+         "serve_max_replicas": 4},
+        {"serve_hosts": ("a", "b")},
+        {"serve_replica_cmd": "python serve.py"},
+        {"serve_canary_fraction": 0.5},
+        {"serve_reward_window": 4},
     ],
 )
 def test_unported_paths_raise(override):
     cfg = port_config.TRPOConfig(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         port_config.check_ported(cfg)
+    item = ("item 18" if "env" in override else "item 16"
+            if "mesh_shape" in override else "item 17 (the control plane)")
+    assert item in str(e.value)
 
 
 @pytest.mark.parametrize(
@@ -432,6 +444,9 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in pkgutil.walk_packages(trpo_torch.__path__, 'trpo_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('trpo_torch.serve.server', 'trpo_torch.serve.session',\n"
+        "          'trpo_torch.serve.__main__', 'trpo_torch.utils.httpd'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'optax', 'flax', 'trpo_tpu'))\n"
         "assert not bad, bad\n"

@@ -742,7 +742,10 @@ class TRPOAgent:
             eval_mode: bool = False, policy_carry=None):
         """Sample (train) or take the mode (eval: the Gaussian mean, the
         categorical argmax) of the policy at ``obs``, one observation or a
-        batch, normalized with ``state.obs_norm``. Returns ``(action,
+        batch. A device env's statistics (``state.obs_norm``) normalize it
+        here; a host adapter's observations arrive normalized already, so
+        a host-normalized agent applies the policy to ``obs`` as given, as
+        the reference does. Returns ``(action,
         dist_params)``; a recurrent policy returns ``(action, dist_params,
         new_policy_carry)``: pass the carry back on the next call
         (``policy_carry=None`` starts a fresh memory). Train mode needs an
@@ -756,7 +759,7 @@ class TRPOAgent:
         obs = torch.as_tensor(obs, device=self.device)
         if obs.dtype != torch.uint8:
             obs = obs.float()
-        if state.obs_norm is not None:
+        if self._obs_norm_on_device:
             obs = normalize(state.obs_norm, obs)
         squeeze = obs.ndim == len(self.obs_shape)
         if squeeze:
@@ -784,6 +787,70 @@ class TRPOAgent:
         if self.is_recurrent:
             return action, dist, h_new
         return action, dist
+
+    # ------------------------------------------------------------------
+    # serving (trpo_torch/serve)
+    # ------------------------------------------------------------------
+
+    def _serve_obs_dtype(self, obs_dtype):
+        """The observation dtype the engines take: the caller's, else the
+        env's (uint8 pixels stay uint8), else f32."""
+        if obs_dtype is not None:
+            return np.dtype(obs_dtype)
+        return np.uint8 if len(self.obs_shape) == 3 else np.float32
+
+    def serve_engine(self, batch_shapes=None, obs_dtype=None):
+        """The policy-inference engine over this agent's policy
+        (``serve/engine.InferenceEngine``): eval-mode ``act`` at a fixed
+        rung ladder (``cfg.serve_batch_shapes`` by default), one CUDA graph
+        per rung on the agent's card. Load it with a state's
+        ``(policy_params, obs_norm)`` and serve it through
+        ``serve.MicroBatcher``/``serve.PolicyServer``. It normalizes when
+        this agent normalizes (device or host-adapter statistics: both
+        ride ``TrainState.obs_norm``), so clients send raw observations.
+        Feedforward policies only."""
+        from trpo_torch.serve.engine import InferenceEngine
+
+        if self.is_recurrent:
+            raise ValueError(
+                "serve_engine supports feedforward policies only — a "
+                "recurrent policy's hidden state is per-client session "
+                "state the stateless /act data plane cannot carry; use "
+                "serve_session_engine() (the POST /session protocol)"
+            )
+        return InferenceEngine(
+            self.policy,
+            self.obs_shape,
+            batch_shapes=tuple(batch_shapes if batch_shapes is not None
+                               else self.cfg.serve_batch_shapes),
+            with_obs_norm=self._obs_norm_on_device or self._obs_norm_host,
+            obs_dtype=self._serve_obs_dtype(obs_dtype),
+            device=self.device,
+        )
+
+    def serve_session_engine(self, obs_dtype=None, batch_shapes=None):
+        """The recurrent twin of :meth:`serve_engine`
+        (``serve/session.RecurrentServeEngine``): the eval-mode
+        ``policy.step`` over ``(carry, obs)`` at a fixed rung ladder
+        (``cfg.serve_session_batch_shapes`` by default), for the ``POST
+        /session`` protocol. Recurrent policies only."""
+        from trpo_torch.serve.session import RecurrentServeEngine
+
+        if not self.is_recurrent:
+            raise ValueError(
+                "serve_session_engine supports recurrent policies only — "
+                "a feedforward policy has no carry to thread; use "
+                "serve_engine() (the stateless POST /act plane)"
+            )
+        return RecurrentServeEngine(
+            self.policy,
+            self.obs_shape,
+            with_obs_norm=self._obs_norm_on_device or self._obs_norm_host,
+            obs_dtype=self._serve_obs_dtype(obs_dtype),
+            batch_shapes=tuple(batch_shapes if batch_shapes is not None
+                               else self.cfg.serve_session_batch_shapes),
+            device=self.device,
+        )
 
     def evaluate(self, train_state: TrainState,
                  n_steps: Optional[int] = None, seed: int = 0,

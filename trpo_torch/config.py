@@ -1,18 +1,21 @@
 """Configuration for trpo_torch (counterpart: ``trpo_tpu/config.py``).
 
 The port keeps its own copy of the training fields of ``TRPOConfig`` and of
-the preset ladder, so a preset name means the same run in both packages.
-Serving, fleet, chaos and observability fields (``inject_faults``,
-``metrics_jsonl``, ``status_port``, ``memory_accounting``) are left out until
-those layers are ported (ROADMAP.md Queue 1 item 18).
+the preset ladder, so a preset name means the same run in both packages,
+and every ``serve_*`` field with the reference's validation, so a serving
+configuration round-trips. Fleet, chaos and observability fields
+(``inject_faults``, ``metrics_jsonl``, ``status_port``,
+``memory_accounting``, ``trace_sample_rate``) are left out until those
+layers are ported (ROADMAP.md Queue 1 item 18).
 
 Two differences from the reference:
 
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* Paths that are not ported yet (``mesh_shape``, the ``gymproc:`` envs)
-  raise ``NotImplementedError`` naming the
+* Paths that are not ported yet (``mesh_shape``, the ``gymproc:`` envs,
+  the serving control plane: replicas, autoscaling, hosts, launch
+  templates, canary) raise ``NotImplementedError`` naming the
   ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
   never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
@@ -24,7 +27,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported"]
+__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported",
+           "refuse_unported"]
 
 
 @dataclasses.dataclass
@@ -157,6 +161,53 @@ class TRPOConfig:
     host_inference: str = "device"  # host envs: where the rollout's policy
     #                                runs: "device" (the agent's), or "cpu"
     mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
+
+    # --- serving: the data plane (serve/) --------------------------------
+    serve_batch_shapes: Tuple[int, ...] = (1, 8, 64)  # the engine's rung
+    #                                ladder (serve/engine.py): one CUDA
+    #                                graph per rung, requests pad up to
+    #                                the nearest rung, over-sized batches
+    #                                chunk at the top one
+    serve_deadline_ms: float = 10.0  # micro-batcher budget: a batch goes
+    #                                when it fills the top rung or when
+    #                                its oldest request has waited half
+    #                                of this
+    serve_adaptive_deadline: bool = True  # cap the batcher's wait at ~2×
+    #                                the EMA of the observed dispatch cost
+    #                                (never above the half-budget)
+    serve_poll_interval: float = 1.0  # seconds between the checkpoint
+    #                                watcher's latest_step() polls
+    serve_session_batch_shapes: Tuple[int, ...] = (1, 8, 64)  # the
+    #                                session engine's rung ladder
+    #                                (serve/session.py): concurrent
+    #                                sessions gather into one padded
+    #                                (N, carry) step
+    serve_session_deadline_ms: float = 3.0  # session epoch budget
+    serve_session_ttl: float = 300.0  # idle session lifetime (seconds)
+    serve_max_sessions: int = 1024  # bounded session store; LRU beyond it
+    serve_carry_sync_every: int = 1  # journal a session's carry every N
+    #                                applied steps (serve/session.py
+    #                                CarryJournal)
+    # --- serving: the control plane (ROADMAP.md Queue 1 item 17, not
+    # ported): check_ported refuses every value but the default
+    serve_replicas: int = 1
+    serve_health_interval: float = 0.5
+    serve_replica_restarts: int = 3
+    serve_max_inflight: int = 64
+    serve_canary_fraction: float = 0.0
+    serve_canary_window: int = 24
+    serve_reward_window: int = 0
+    serve_reward_min_episodes: int = 0
+    serve_reward_budget: float = 0.0
+    serve_min_replicas: int = 1
+    serve_max_replicas: Optional[int] = None
+    serve_slo_p99_ms: float = 250.0
+    serve_drain_timeout: float = 30.0
+    serve_autoscale_interval: float = 0.5
+    serve_autoscale_min_samples: int = 16
+    serve_hosts: Optional[Tuple[str, ...]] = None
+    serve_lease_ttl: float = 3.0
+    serve_replica_cmd: Optional[str] = None
 
     # --- io --------------------------------------------------------------
     checkpoint_dir: Optional[str] = None
@@ -351,6 +402,86 @@ class TRPOConfig:
                     "need 0 < damping_min <= damping_max, got "
                     f"({self.damping_min}, {self.damping_max})"
                 )
+        self._check_serve()
+
+    def _check_serve(self) -> None:
+        """The reference's validation of the ``serve_*`` fields."""
+        for name in ("serve_batch_shapes", "serve_session_batch_shapes"):
+            shapes = getattr(self, name)
+            if not shapes or any(not isinstance(b, int) or b < 1
+                                 for b in shapes):
+                raise ValueError(
+                    f"{name} must be a non-empty tuple of positive ints, "
+                    f"got {shapes!r}"
+                )
+        positive = ("serve_deadline_ms", "serve_poll_interval",
+                    "serve_session_deadline_ms", "serve_health_interval",
+                    "serve_session_ttl", "serve_slo_p99_ms",
+                    "serve_drain_timeout", "serve_autoscale_interval")
+        at_least_one = ("serve_replicas", "serve_max_inflight",
+                        "serve_max_sessions", "serve_carry_sync_every",
+                        "serve_canary_window", "serve_min_replicas",
+                        "serve_autoscale_min_samples")
+        non_negative = ("serve_replica_restarts", "serve_reward_window",
+                        "serve_reward_min_episodes", "serve_reward_budget")
+        for name in positive:
+            if getattr(self, name) <= 0:
+                raise ValueError(
+                    f"{name} must be > 0, got {getattr(self, name)}")
+        for name in at_least_one:
+            if getattr(self, name) < 1:
+                raise ValueError(
+                    f"{name} must be >= 1, got {getattr(self, name)}")
+        for name in non_negative:
+            if getattr(self, name) < 0:
+                raise ValueError(
+                    f"{name} must be >= 0, got {getattr(self, name)}")
+        if not 0.0 <= self.serve_canary_fraction <= 1.0:
+            raise ValueError(
+                "serve_canary_fraction must be in [0, 1], got "
+                f"{self.serve_canary_fraction}"
+            )
+        if self.serve_max_replicas is not None:
+            if self.serve_max_replicas < self.serve_min_replicas:
+                raise ValueError(
+                    "need serve_min_replicas <= serve_max_replicas, got "
+                    f"({self.serve_min_replicas}, "
+                    f"{self.serve_max_replicas})"
+                )
+            if not (self.serve_min_replicas <= self.serve_replicas
+                    <= self.serve_max_replicas):
+                raise ValueError(
+                    "with autoscaling armed, serve_replicas must be in "
+                    "[serve_min_replicas, serve_max_replicas], got "
+                    f"{self.serve_replicas} outside "
+                    f"[{self.serve_min_replicas}, "
+                    f"{self.serve_max_replicas}]"
+                )
+        if self.serve_replica_cmd is not None and (
+                not self.serve_replica_cmd.strip()):
+            raise ValueError(
+                "serve_replica_cmd must be a non-empty command template "
+                "(or None for the local scripts/serve.py child)"
+            )
+        if self.serve_hosts is not None:
+            if self.serve_lease_ttl <= self.serve_health_interval:
+                raise ValueError(
+                    "serve_lease_ttl must exceed serve_health_interval (a "
+                    "lease shorter than its renewal cadence expires "
+                    f"between polls), got ttl={self.serve_lease_ttl} "
+                    f"interval={self.serve_health_interval}"
+                )
+            hosts = tuple(self.serve_hosts)
+            if not hosts or any(not isinstance(h, str) or not h
+                                for h in hosts):
+                raise ValueError(
+                    "serve_hosts must be a non-empty tuple of host "
+                    f"names, got {self.serve_hosts!r}"
+                )
+            if len(set(hosts)) != len(hosts):
+                raise ValueError(
+                    f"serve_hosts has duplicate names: {self.serve_hosts!r}"
+                )
 
     def resolved_n_envs(self) -> int:
         """``fleet_n_envs`` when set, else ``n_envs``."""
@@ -381,6 +512,27 @@ def check_ported(cfg: TRPOConfig) -> None:
     if cfg.env.startswith("gymproc:"):
         _not_ported(f"env {cfg.env!r} (the gymproc: worker pool)",
                     "item 18")
+    control = (
+        ("serve_replicas > 1", cfg.serve_replicas > 1),
+        ("serve_min_replicas/serve_max_replicas (the autoscaler)",
+         cfg.serve_min_replicas != 1 or cfg.serve_max_replicas is not None),
+        ("serve_hosts (multi-host serving)", cfg.serve_hosts is not None),
+        ("serve_replica_cmd (subprocess replicas)",
+         cfg.serve_replica_cmd is not None),
+        ("serve_canary_fraction/serve_reward_window (canary deployment)",
+         cfg.serve_canary_fraction > 0 or cfg.serve_reward_window > 0),
+    )
+    for what, armed in control:
+        if armed:
+            _not_ported(what, "item 17 (the control plane)")
+
+
+def refuse_unported(name: str, value, item: str) -> None:
+    """Raise ``NotImplementedError`` unless ``value`` is None: a hook of a
+    layer the port does not have yet (an event bus, a tracer, a fault
+    injector) is refused, never silently dropped."""
+    if value is not None:
+        _not_ported(name, item)
 
 
 # ---------------------------------------------------------------------------

@@ -24,12 +24,15 @@ import torch
 from trpo_torch.ops.flat import tree_map
 from trpo_torch.rollout import Trajectory
 from trpo_torch.trpo import LADDER_FIELDS, LadderState
+from trpo_torch.utils.normalize import RunningStats
 from trpo_torch.vf import AdamState, VFState
 
 __all__ = [
     "damping_from_numpy",
     "ladder_from_numpy",
     "ladder_to_numpy",
+    "obs_norm_from_numpy",
+    "obs_norm_to_numpy",
     "policy_params_from_numpy",
     "policy_params_to_numpy",
     "trajectory_from_numpy",
@@ -84,6 +87,27 @@ def ladder_to_numpy(ladder: LadderState) -> dict:
     """The seven device fields of a :class:`LadderState` as numpy."""
     return {k: getattr(ladder, k).detach().cpu().numpy()
             for k in LADDER_FIELDS}
+
+
+def obs_norm_from_numpy(stats: Any, device="cpu") -> Any:
+    """The reference's ``RunningStats`` (``count``, ``mean``, ``m2``: an
+    object with those fields, or a dict) of numpy arrays →
+    :class:`~trpo_torch.utils.normalize.RunningStats` of f32 tensors;
+    None stays None."""
+    if stats is None:
+        return None
+    get = (stats.get if isinstance(stats, dict)
+           else lambda name: getattr(stats, name))
+    return RunningStats(*(_tensor(get(f), device).float()
+                          for f in RunningStats._fields))
+
+
+def obs_norm_to_numpy(stats: Any) -> Any:
+    """The inverse of :func:`obs_norm_from_numpy`, as a dict."""
+    if stats is None:
+        return None
+    return {f: getattr(stats, f).detach().cpu().numpy()
+            for f in RunningStats._fields}
 
 
 def damping_from_numpy(x, device="cpu") -> torch.Tensor:

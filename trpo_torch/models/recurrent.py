@@ -68,6 +68,9 @@ class RecurrentPolicy(NamedTuple):
     state_size: int      # carried width: H (GRU) or 2H (LSTM [h|c])
     mlp_spec: Any = None     # no fused FVP kernel for this family
     apply_cast: Any = None   # no bf16 rung for this family
+    # (params, state (..., S)) -> dist params: the state→dist head alone,
+    # which the session engine recomputes per row (serve/session.py)
+    head: Any = None
 
 
 def _fused_gates(generator: torch.Generator, rows: int, hidden: int,
@@ -235,4 +238,5 @@ def make_recurrent_policy(
         initial_state=initial_state,
         step=step,
         state_size=gru_size * state_mult,
+        head=_head,
     )
