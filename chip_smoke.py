@@ -92,9 +92,25 @@ Phases:
      ``cartpole``; per rung the host-clock p50/p99 and the graph
      replay's device ms; 0 graph captures on the request path and 0
      launches of any kernel or plain version;
- 20. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19) is driven with the launch counts set to 0 just
-before it and read just after. The fused kernel's launches on each path
+ 20. ``[control]`` the serving control plane at full width (``humanoid-sim``
+     rungs 1/8/64, ``cartpole-po`` GRU 64): ``/act`` p50/p99 and
+     requests/s at 64 clients x 20 on one bare replica and through the
+     router (async core) over 1, 2 and 4 in-process replicas and over 2
+     and 4 ``python -m trpo_torch.serve`` children placed by
+     ``TemplateTransport`` on hosts h0/h1 (their startup seconds and device
+     memory), the load from client threads here and from a load process;
+     one engine's ``infer`` while another captures; a replica killed under
+     16 clients (0 client errors, retried, relaunched); 16 sessions x 20
+     steps with the replica pinned by half of them killed at step 10
+     (resumed from the journal, actions identical, carries within 1e-6);
+     a canary promoted (step 4) and a NaN step rolled back under 8
+     clients; the autoscaler's one scale-out under load and one lossless
+     scale-in; ``python -m trpo_torch.serve --replicas 2`` SIGTERMed (exit
+     0). 0 launches, 0 captures on the request path, device memory back
+     within 1% once every in-process replica is closed;
+ 21. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19, 20) is driven with the launch counts set to 0
+just before it and read just after. The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -2353,10 +2369,11 @@ def _uds_connection(path: str, timeout: float = 30.0):
 def _post(conn, path: str, payload=None, binary: bool = False):
     """``(status, answer)`` of one POST on a keep-alive connection: JSON
     (``payload`` may come encoded already), or the wire codec's frames
-    with ``binary``."""
-    from trpo_torch.serve import wire
-
+    with ``binary``. JSON alone imports nothing of the port (a load
+    process stays light)."""
     if binary:
+        from trpo_torch.serve import wire
+
         body = wire.encode_frame(None, payload)
         headers = {"Content-Type": wire.WIRE_CONTENT_TYPE,
                    "Accept": wire.WIRE_CONTENT_TYPE}
@@ -2367,11 +2384,12 @@ def _post(conn, path: str, payload=None, binary: bool = False):
     conn.request("POST", path, body=body, headers=headers)
     resp = conn.getresponse()
     data = resp.read()
-    if resp.getheader("Content-Type", "").startswith(
-            wire.WIRE_CONTENT_TYPE):
-        scalars, arrays = wire.decode_frame(data)
-        return resp.status, dict(scalars, **arrays)
-    return resp.status, json.loads(data)
+    if resp.getheader("Content-Type", "").startswith("application/json"):
+        return resp.status, json.loads(data)
+    from trpo_torch.serve import wire
+
+    scalars, arrays = wire.decode_frame(data)
+    return resp.status, dict(scalars, **arrays)
 
 
 def _quantiles(ms: list) -> tuple:
@@ -2962,6 +2980,926 @@ def phase_serve(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [control]: the serving control plane
+# ---------------------------------------------------------------------------
+
+# the carries of a session resumed or stepped on another replica, against
+# the same session stepped alone: the GEMMs round a row differently at
+# another batch width (ROADMAP.md Queue 3)
+CONTROL_CARRY_ATOL = 1e-6
+# the closed-loop load of the scaling legs, as [serve]'s 64-client leg
+CONTROL_CLIENTS, CONTROL_PER = 64, 20
+# the canary leg's gate window, in canary requests
+CONTROL_CANARY_WINDOW = 200
+
+
+class _Loads:
+    """Every engine the phase builds, with its loads counted: a load on a
+    card captures one graph per rung, so captures beyond rungs x loads
+    were made on the request path."""
+
+    def __init__(self):
+        import threading
+
+        self._lock = threading.Lock()
+        self.engines = []  # [engine, loads]
+
+    def track(self, engine):
+        entry = [engine, 0]
+        load = engine.load
+
+        def counted(*args, **kwargs):
+            with self._lock:
+                entry[1] += 1
+            return load(*args, **kwargs)
+
+        engine.load = counted
+        with self._lock:
+            self.engines.append(entry)
+        return engine
+
+    def request_path_captures(self, on_card: bool) -> int:
+        with self._lock:
+            return sum(e.captures_total - (len(e.batch_shapes) * n
+                                           if on_card else 0)
+                       for e, n in self.engines)
+
+
+def _ff_replica(loads, agent, params, **server_kw):
+    """``factory()`` of one in-process feedforward replica on ``params``
+    (or, with a checkpointer in ``server_kw``, on its checkpoint)."""
+    from trpo_torch.serve import MicroBatcher, PolicyServer
+
+    def factory():
+        engine = loads.track(agent.serve_engine())
+        if params is not None:
+            engine.load(params, None, step=0)
+        batcher = MicroBatcher(engine,
+                               deadline_ms=agent.cfg.serve_deadline_ms,
+                               adaptive_deadline=agent.cfg
+                               .serve_adaptive_deadline)
+        return PolicyServer(engine, batcher, port=0, **server_kw), [batcher]
+    return factory
+
+
+def _in_process_set(factory, n, **kw):
+    """``n`` in-process replicas from ``factory`` (a ``rid -> factory()``
+    map), healthy, supervised by the set's own thread."""
+    from trpo_torch.serve import InProcessReplica, ReplicaSet
+
+    kw.setdefault("health_interval", 0.1)
+    kw.setdefault("backoff", 0.2)
+    rs = ReplicaSet(lambda rid: InProcessReplica(factory(rid)), n, **kw)
+    rs.start()
+    _check(rs.wait_healthy(n, timeout=120), f"[control] {n} in-process "
+           f"replicas never became healthy: {rs.snapshot()}")
+    return rs
+
+
+def _load_result(lats, wall, fails, what) -> dict:
+    _check(not fails, f"[control] /act {what}: {fails[:3]}")
+    p50, p99 = _quantiles(lats)
+    return {"p50": p50, "p99": p99, "rps": len(lats) / wall}
+
+
+def _scale_load(port: int, obs_dim: int, what: str) -> dict:
+    """The scaling legs' load on ``port``, twice: from client threads in
+    this process (as ``[serve]`` measures), then from a child process,
+    whose clients share no interpreter with the router or the
+    in-process replicas."""
+    here = _load_result(*_http_load(
+        port, CONTROL_CLIENTS, CONTROL_PER,
+        lambda r: r.standard_normal(obs_dim).tolist()), what)
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import chip_smoke as cs\n"
+        f"lats, wall, fails = cs._http_load({port}, {CONTROL_CLIENTS}, "
+        f"{CONTROL_PER}, lambda r: r.standard_normal({obs_dim}).tolist())\n"
+        "print(json.dumps([lats, wall, [repr(f) for f in fails]]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=300)
+    _check(out.returncode == 0, f"[control] load process: {out.stderr}")
+    child = _load_result(*json.loads(out.stdout.splitlines()[-1]),
+                         what + " from a load process")
+    return {"here": here, "child": child}
+
+
+def _print_scale(kind: str, n, r: dict, card: str, base=None,
+                 extra: str = "") -> None:
+    def one(x, b):
+        ratio = f", {x['rps'] / b['rps']:.3f}x the bare replica" if b else ""
+        return (f"p50 {x['p50']:.3f} ms, p99 {x['p99']:.3f} ms, "
+                f"{x['rps']:.1f} requests/s{ratio}")
+
+    print(f"[control] humanoid-sim /act, {kind}, {n} replica(s), "
+          f"{CONTROL_CLIENTS} keep-alive clients x {CONTROL_PER} (connected "
+          f"before the clock): clients in this process "
+          f"{one(r['here'], base and base['here'])}; clients in a load "
+          f"process {one(r['child'], base and base['child'])}{extra} "
+          f"({card})", flush=True)
+
+
+def _control_scaling_in_process(torch, agent, params, loads, card) -> dict:
+    """Leg 1: one bare replica, then the router (async core) over 1, 2
+    and 4 in-process replicas, under the same closed-loop load."""
+    from trpo_torch.serve import MicroBatcher, PolicyServer, Router
+
+    engine = loads.track(agent.serve_engine())
+    engine.load(params, None, step=0)
+    batcher = MicroBatcher(engine, deadline_ms=agent.cfg.serve_deadline_ms,
+                           adaptive_deadline=agent.cfg
+                           .serve_adaptive_deadline)
+    server = PolicyServer(engine, batcher, port=0)
+    try:
+        bare = _scale_load(server.port, agent.obs_shape[0], "bare replica")
+    finally:
+        server.close()
+        batcher.close()
+    _print_scale("no router (one bare PolicyServer)", 1, bare, card)
+    out = {"bare": bare}
+    for n in (1, 2, 4):
+        rs = _in_process_set(
+            lambda rid: _ff_replica(loads, agent, params), n)
+        router = Router(rs, port=0)
+        try:
+            r = _scale_load(router.port, agent.obs_shape[0],
+                            f"{n} in-process replicas")
+            _check(router.failed_total == 0 and router.retried_total == 0,
+                   f"[control] {n} in-process: failed "
+                   f"{router.failed_total}, retried {router.retried_total}")
+            hops = dict(router.dispatch_transport_total)
+        finally:
+            router.close()
+            rs.close()
+        out[n] = r
+        _print_scale("router over in-process replicas", n, r, card, bare,
+                     f"; hops {hops}")
+    return out
+
+
+def _child_memory(torch, pids) -> str:
+    """The device memory of the given child pids as ``nvidia-smi`` lists
+    them (it may list none inside a container)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi failed: {e!r}"
+    mine = {int(p): m.strip() for p, m in (
+        line.split(",", 1) for line in out.splitlines() if "," in line)
+        if p.strip().isdigit() and int(p) in pids}
+    return ", ".join(f"pid {p}: {m}" for p, m in sorted(mine.items())) \
+        or "nvidia-smi lists none of the children"
+
+
+def _control_scaling_subprocess(torch, dev, ck_dir, bare, card) -> dict:
+    """Leg 2: the same load through the router over 2, then 4
+    ``python -m trpo_torch.serve`` children that ``TemplateTransport``
+    places over hosts h0 and h1. The 4 start together; for the 2-child
+    load, r2 and r3 are held out of rotation (``begin_drain``), then put
+    back (``abort_drain``)."""
+    from trpo_torch.serve import ReplicaSet, Router, TemplateTransport
+
+    work = WORK / "control" / "replicas"
+    shutil.rmtree(work, ignore_errors=True)
+    template = (f"{sys.executable} -m trpo_torch.serve --device {dev.type} "
+                "--port {port} --checkpoint-dir {checkpoint} "
+                "--replica-name {replica} --preset humanoid-sim")
+    transport = TemplateTransport(template, ("h0", "h1"), checkpoint=ck_dir,
+                                  replica_root=str(work))
+    free0 = torch.cuda.mem_get_info()[0] if dev.type == "cuda" else 0
+    out = {}
+    t0, wall0 = time.perf_counter(), time.time()
+    rs = ReplicaSet(None, 4, transport=transport, health_interval=0.1,
+                    start_timeout=300.0)
+    router = None
+    try:
+        rs.start()
+        started = {}
+
+        def wait_for(n, since):
+            deadline = time.perf_counter() + 300
+            while time.perf_counter() < deadline:
+                for rid, row in rs.snapshot()["replicas"].items():
+                    if row["state"] == "healthy" and rid not in started:
+                        started[rid] = time.perf_counter() - since
+                if len(started) >= n:
+                    return
+                time.sleep(0.05)
+            raise SmokeFailure(f"[control] children never became healthy: "
+                               f"{rs.snapshot()}")
+
+        wait_for(4, t0)
+        # each child's own start: from the launch to the moment it wrote
+        # its descriptor (after its rungs were captured); the set finds
+        # the descriptors on its discovery backoff, so it sees them later
+        ready = {rec.id: os.path.getmtime(rec.handle.inner.descriptor_path)
+                 - wall0 for rec in rs.replicas.values()}
+        router = Router(rs, port=0)
+        for n in (2, 4):
+            for rid in ("r2", "r3"):
+                _check((rs.begin_drain if n == 2 else rs.abort_drain)(rid)
+                       is not False, f"[control] {rid} rotation")
+            _check(len(rs.in_rotation()) == n, "[control] rotation "
+                   f"{[r.id for r in rs.in_rotation()]}")
+            r = _scale_load(router.port, 376, f"{n} children")
+            out[n] = r
+            hosts = {rec.id: rec.host for rec in rs.in_rotation()}
+            _print_scale("router over subprocess replicas", n, r, card,
+                         bare, f"; hosts {hosts}")
+        _check(router.failed_total == 0, "[control] subprocess replicas: "
+               f"{router.failed_total} failed")
+        pids = {rec.handle.inner.proc.pid for rec in rs.replicas.values()}
+        used = ((free0 - torch.cuda.mem_get_info()[0]) / 2**20
+                if dev.type == "cuda" else float("nan"))
+        print(f"[control] children's startup seconds (launch to the "
+              f"child's descriptor written: import torch, CUDA context, "
+              f"restore, capture of 3 rungs): "
+              + ", ".join(f"{rid} {s:.2f}" for rid, s in
+                          sorted(ready.items()))
+              + "; launch to healthy in the set (its discovery backoff "
+              f"included): {max(started.values()):.2f}"
+              + f"; device memory taken by the 4 children "
+              f"{used:.0f} MiB in all (free memory before and after), "
+              f"{_child_memory(torch, pids)} ({card})", flush=True)
+        out["startup_s"] = ready
+    finally:
+        if router is not None:
+            router.close()
+        rs.close()  # reaps every child through the transport
+    for rec in rs.replicas.values():
+        proc = rec.handle.inner.proc
+        _check(proc.poll() is not None, f"[control] child {proc.pid} alive")
+    return out
+
+
+def _control_failover(torch, agent, params, loads, card) -> None:
+    """Leg 3: 16 clients on two in-process replicas; r0 is killed 1 s in.
+    No client sees an error, the router retries, and r0 is relaunched and
+    answers again."""
+    import http.client
+    import threading
+
+    from trpo_torch.serve import Router
+
+    rs = _in_process_set(lambda rid: _ff_replica(loads, agent, params), 2)
+    router = Router(rs, port=0)
+    stop = threading.Event()
+    fails, answered = [], [0]
+    lock = threading.Lock()
+
+    def client(k):
+        r = np.random.default_rng(2000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", router.port,
+                                          timeout=30)
+        try:
+            while not stop.is_set():
+                status, ans = _post(conn, "/act", json.dumps({
+                    "obs": r.standard_normal(agent.obs_shape).tolist()}
+                ).encode())
+                with lock:
+                    if status == 200:
+                        answered[0] += 1
+                    else:
+                        fails.append((status, ans))
+        except Exception as e:  # collected and checked below
+            with lock:
+                fails.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        # kill r0 while it holds requests: they are lost with it
+        deadline = time.monotonic() + 10
+        while (rs.replicas["r0"].inflight == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        inflight = rs.replicas["r0"].inflight
+        t_kill = time.perf_counter()
+        rs.replicas["r0"].handle.kill()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            row = rs.snapshot()["replicas"]["r0"]
+            if row["state"] == "healthy" and row["restarts"] == 1:
+                break
+            time.sleep(0.02)
+        back_s = time.perf_counter() - t_kill
+        time.sleep(0.5)
+        router.reset_replica_latencies()
+        time.sleep(0.5)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        row = rs.snapshot()["replicas"]["r0"]
+        _check(not fails, f"[control] failover: {len(fails)} client "
+               f"errors, {fails[:3]}")
+        _check(router.retried_total > 0 and router.failed_total == 0,
+               f"[control] failover: retried {router.retried_total}, "
+               f"failed {router.failed_total}, {inflight} in flight on r0 "
+               f"at the kill, {answered[0]} answers, {row}")
+        _check(row["state"] == "healthy" and row["restarts"] == 1,
+               f"[control] the killed replica did not come back: {row}")
+        r0_after = len(router.replica_latencies_ms("r0"))
+        _check(r0_after > 0, "[control] the relaunched replica is not in "
+               "rotation")
+        print(f"[control] failover: r0 killed under 16 clients with "
+              f"{inflight} requests in flight on it; "
+              f"{answered[0]} answers, 0 client errors, "
+              f"{router.retried_total} retried, 0 failed; r0 relaunched "
+              f"and healthy {back_s:.2f} s after the kill "
+              f"({row['last_death_reason']!r}), then answered {r0_after} "
+              f"requests in 0.5 s ({card})", flush=True)
+    finally:
+        stop.set()
+        router.close()
+        rs.close()
+
+
+def _control_capture_beside_replays(torch, agent, params, loads,
+                                    card) -> None:
+    """Two engines of one process, as two in-process replicas hold them:
+    engine A's ``infer`` (rung 1) alone, then while engine B captures
+    new snapshots back to back on another thread. A capture runs on B's
+    own side stream in ``thread_local`` mode; whether it holds A's
+    replays back is what this measures."""
+    import threading
+
+    a = loads.track(agent.serve_engine())
+    b = loads.track(agent.serve_engine())
+    a.load(params, None, step=0)
+    b.load(params, None, step=0)
+    obs = np.zeros((1,) + agent.obs_shape, np.float32)
+
+    def timed(n):
+        lat = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            a.infer(obs)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        return _quantiles(lat)
+
+    timed(50)
+    alone = timed(400)
+    stop = threading.Event()
+    ms = []
+
+    def capture():
+        while not stop.is_set():
+            b.load(params, None, step=1)
+            ms.append(b.last_load_ms)
+
+    thread = threading.Thread(target=capture)
+    switch = sys.getswitchinterval()
+    thread.start()
+    try:
+        during = timed(400)
+        # the interpreter's switch interval bounds how long A's thread
+        # waits for B's to let go of the interpreter lock
+        sys.setswitchinterval(0.0005)
+        during_fast = timed(400)
+    finally:
+        sys.setswitchinterval(switch)
+        stop.set()
+        thread.join(timeout=60)
+    print(f"[control] capture beside replays (humanoid-sim, two engines in "
+          f"one process): engine A's infer at rung 1 alone p50 "
+          f"{alone[0]:.4f} ms, p99 {alone[1]:.4f}; while engine B captured "
+          f"{len(ms)} snapshots (3 rungs each, median "
+          f"{sorted(ms)[len(ms) // 2]:.2f} ms) p50 {during[0]:.4f} ms, p99 "
+          f"{during[1]:.4f} at the {switch * 1e3:g} ms switch interval, "
+          f"p50 {during_fast[0]:.4f} ms, p99 {during_fast[1]:.4f} at 0.5 ms "
+          f"({card})", flush=True)
+
+
+def _session_factory(loads, agent, params, jdir):
+    from trpo_torch.serve import PolicyServer
+
+    def make(rid):
+        def factory():
+            engine = loads.track(agent.serve_session_engine())
+            engine.load(params, None, step=0)
+            return PolicyServer(
+                engine, None, port=0, replica_name=rid,
+                carry_journal_dir=jdir, carry_sync_every=1,
+                session_deadline_ms=agent.cfg.serve_session_deadline_ms), []
+        return factory
+    return make
+
+
+def _control_sessions(torch, dev, loads, card) -> None:
+    """Leg 4: 16 cartpole-po GRU sessions x 20 steps over two journaled
+    replicas; the replica pinned by half of them is killed at step 10.
+    The next act resumes from the journal; the rest of each session
+    matches the session stepped alone."""
+    import threading
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.serve import Router
+
+    cfg = get_preset("cartpole-po")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    jdir = str(WORK / "control" / "journal")
+    shutil.rmtree(jdir, ignore_errors=True)
+    rs = _in_process_set(_session_factory(loads, agent, state.policy_params,
+                                          jdir), 2)
+    router = Router(rs, port=0, journal_dir=jdir)
+    n_sess, n_steps, cut = 16, 20, 10
+    rng = np.random.default_rng(7)
+    obs = rng.standard_normal((n_sess, n_steps) + agent.obs_shape).astype(
+        np.float32)
+    try:
+        sids, pins = [], []
+        for k in range(n_sess):
+            # odd sessions land on r1: a held reservation makes r0 the
+            # busier replica for the create (the router's own signal)
+            held = router._pick(stateless=False) if k % 2 else None
+            status, out = _post_url(router.url + "/session")
+            if held is not None:
+                router._release(held)
+            _check(status == 200, f"[control] /session: {status} {out}")
+            sids.append(out["session"])
+            pins.append(out["replica"])
+        _check(pins.count("r0") == pins.count("r1") == n_sess // 2,
+               f"[control] session pins {pins}")
+        answers = [[None] * n_steps for _ in range(n_sess)]
+        fails = []
+
+        def steps(k, lo, hi):
+            for t in range(lo, hi):
+                status, out = _post_url(
+                    router.url + f"/session/{sids[k]}/act",
+                    {"obs": obs[k, t].tolist()})
+                if status != 200:
+                    fails.append((k, t, status, out))
+                    return
+                answers[k][t] = out
+
+        def run(lo, hi):
+            threads = [threading.Thread(target=steps, args=(k, lo, hi))
+                       for k in range(n_sess)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+
+        run(0, cut)
+        rs.replicas["r0"].handle.server.sessions.journal.drain()
+        rs.replicas["r0"].handle.kill()
+        run(cut, n_steps)
+        _check(not fails, f"[control] sessions: {fails[:3]}")
+        carry_err = 0.0
+        for k in range(n_sess):
+            carry = None
+            for t in range(n_steps):
+                a, _, carry = agent.act(state, obs[k, t], eval_mode=True,
+                                        policy_carry=carry)
+                out = answers[k][t]
+                _check(int(a) == out["action"], f"[control] session {k} "
+                       f"step {t}: action {out['action']} != {int(a)}")
+                moved = pins[k] == "r0" and t == cut
+                _check(bool(out.get("resumed")) == moved
+                       and (not moved or out["resumed_steps"] == cut),
+                       f"[control] session {k} step {t}: {out}")
+            live = router._affinity[sids[k]].replica
+            got = rs.replicas[live].handle.server.sessions.get(
+                sids[k]).carry
+            carry_err = max(carry_err, float(
+                (torch.as_tensor(got, device=dev) - carry).abs().max()))
+        _check(carry_err <= CONTROL_CARRY_ATOL,
+               f"[control] resumed carries err {carry_err}")
+        _check(router.sessions_resumed_total == n_sess // 2,
+               f"[control] {router.sessions_resumed_total} resumed")
+        print(f"[control] sessions: {n_sess} cartpole-po GRU sessions x "
+              f"{n_steps} steps over 2 journaled replicas; r0, pinned by "
+              f"{n_sess // 2}, killed at step {cut}: each of those resumed "
+              f"from its journal (resumed_steps {cut}) on r1, every action "
+              f"identical to the session stepped alone, carries max |err| "
+              f"{carry_err:.3g} (tolerance {CONTROL_CARRY_ATOL}) ({card})",
+              flush=True)
+    finally:
+        router.close()
+        rs.close()
+
+
+def _post_url(url, payload=None, timeout=30.0):
+    """``(status, answer)`` of one JSON POST on a fresh connection."""
+    import urllib.error
+    import urllib.request
+
+    data = b"" if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _control_canary(torch, dev, agent, state, loads, card) -> None:
+    """Leg 5: three managed replicas serve step 2. Step 4 is published
+    and promoted through a canary (canary_fraction 0.25, a parity
+    tolerance); a step 6 with NaN params is rolled back. 8 clients see
+    no failed answer throughout."""
+    import threading
+
+    from trpo_torch.ops.flat import tree_map
+    from trpo_torch.serve import CanaryController, Router
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    ck_dir = str(WORK / "control" / "canary_ck")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    trainer = Checkpointer(ck_dir)
+    trainer.save(2, state)
+    incumbent = {"step": None}
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def make(rid):
+        return _ff_replica(loads, agent, None,
+                           checkpointer=Checkpointer(ck_dir),
+                           template=agent.init_state(), poll_interval=60.0,
+                           managed_reload=True,
+                           initial_step=incumbent["step"])
+
+    rs = _in_process_set(make, 3)
+    router = Router(rs, port=0, canary_fraction=0.25)
+    # the controller's p99 budget (50%); a window of 200 canary requests
+    # puts its p99 on the third-largest sample, not on one hiccup
+    ctrl = CanaryController(rs, router, Checkpointer(ck_dir).latest_step,
+                            incumbent=incumbent,
+                            window_requests=CONTROL_CANARY_WINDOW,
+                            parity_tol=1.0, gate_timeout_s=60.0)
+    stop = threading.Event()
+    fails, answered = [], [0]
+    lock = threading.Lock()
+
+    def client(k):
+        import http.client
+
+        r = np.random.default_rng(3000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", router.port,
+                                          timeout=30)
+        try:
+            while not stop.is_set():
+                status, ans = _post(conn, "/act", json.dumps({
+                    "obs": r.standard_normal(agent.obs_shape).tolist()}
+                ).encode())
+                with lock:
+                    if status == 200:
+                        answered[0] += 1
+                    else:
+                        fails.append((status, ans))
+        except Exception as e:  # collected and checked below
+            with lock:
+                fails.append(repr(e))
+        finally:
+            conn.close()
+
+    def settle(step):
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            steps = {row["loaded_step"]
+                     for row in rs.snapshot()["replicas"].values()}
+            if steps == {step}:
+                return steps
+            time.sleep(0.05)
+        return steps
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(8)]
+    try:
+        ctrl.tick()
+        _check(incumbent["step"] == 2, f"[control] adopted {incumbent}")
+        for t in threads:
+            t.start()
+        time.sleep(0.3)
+        trainer.save(4, state._replace(policy_params=tree_map(
+            lambda t: t + 0.005 * torch.randn(t.shape, generator=gen,
+                                              device=dev),
+            state.policy_params)))
+        ctrl.tick()
+        promote_s, promote_p99 = ctrl.last_decision_s, ctrl.last_p99_ms
+        _check(ctrl.last_decision == "promoted" and incumbent["step"] == 4,
+               f"[control] step 4: {ctrl.last_decision} "
+               f"({ctrl.last_reason})")
+        _check(settle(4) == {4}, f"[control] after promotion: "
+               f"{rs.snapshot()['replicas']}")
+        trainer.save(6, state._replace(policy_params=tree_map(
+            lambda t: t * float("nan"), state.policy_params)))
+        ctrl.tick()
+        _check(ctrl.last_decision == "rolled_back" and ctrl.last_step == 6,
+               f"[control] step 6: {ctrl.last_decision}")
+        _check(settle(4) == {4}, f"[control] after the rollback: "
+               f"{rs.snapshot()['replicas']}")
+        time.sleep(0.3)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        _check(not fails, f"[control] canary: {len(fails)} failed answers "
+               f"{fails[:3]}")
+        def p99s(pair):
+            return ("not reached" if pair is None else
+                    f"{pair[0]:.3f} ms against the incumbents' "
+                    f"{pair[1]:.3f} ms, {pair[0] / pair[1]:.3f}x")
+
+        print(f"[control] canary: 3 replicas on step 2; step 4 promoted "
+              f"through the canary (fraction 0.25, window "
+              f"{CONTROL_CANARY_WINDOW}, p99 budget "
+              f"{ctrl.p99_budget_pct:g}%, parity tolerance 1.0) in "
+              f"{promote_s:.2f} s (canary p99 {p99s(promote_p99)}), every "
+              f"replica on step 4; step 6 (NaN params) rolled back in "
+              f"{ctrl.last_decision_s:.2f} s ({ctrl.last_reason}; canary "
+              f"p99 {p99s(ctrl.last_p99_ms)}), the set on step 4; "
+              f"{answered[0]} answers to 8 clients, 0 failed ({card})",
+              flush=True)
+    finally:
+        stop.set()
+        ctrl.close()
+        router.close()
+        rs.close()
+
+
+def _control_autoscaler(torch, dev, leg1_p99, loads, card) -> None:
+    """Leg 6: the autoscaler (min 1, max 3) over journaled cartpole-po
+    replicas. 16 session clients load one replica for 1 s; the SLO is set
+    to half the lower of that p99 and leg 1's, and the autoscaler scales
+    out once. A session created on the new replica is stepped; when the
+    load stops the autoscaler scales in once, draining that live session
+    onto the survivor (``resumed: true`` on its next act)."""
+    import http.client
+    import threading
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.serve import Autoscaler, Router
+
+    cfg = get_preset("cartpole-po")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    jdir = str(WORK / "control" / "journal_autoscale")
+    shutil.rmtree(jdir, ignore_errors=True)
+    rs = _in_process_set(_session_factory(loads, agent, state.policy_params,
+                                          jdir), 1)
+    router = Router(rs, port=0, journal_dir=jdir)
+    asc = None
+    stop = threading.Event()
+    fails = []
+    lock = threading.Lock()
+
+    def client(k):
+        r = np.random.default_rng(4000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", router.port,
+                                          timeout=30)
+        try:
+            status, out = _post(conn, "/session")
+            path = f"/session/{out['session']}/act"
+            while status == 200 and not stop.is_set():
+                status, out = _post(conn, path, {
+                    "obs": r.standard_normal(agent.obs_shape).tolist()})
+            if status != 200:
+                with lock:
+                    fails.append((status, out))
+        except Exception as e:  # collected and checked below
+            with lock:
+                fails.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(16)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        warm_p99 = router.latency_window((0.99,))[0][0.99]
+        slo_ms = 0.5 * min(warm_p99, leg1_p99)
+        # a cooldown well past the time the new replica takes to join and
+        # the load to stop: the leg wants exactly one scale-out
+        asc = Autoscaler(rs, router, min_replicas=1, max_replicas=3,
+                         slo_p99_ms=slo_ms, interval=0.2, cooldown_s=6.0,
+                         latency_window_s=1.5)
+        t0 = time.perf_counter()
+        asc.start()
+        deadline = time.monotonic() + 60
+        while asc.scale_outs_total == 0 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        out_s = time.perf_counter() - t0
+        _check(asc.scale_outs_total == 1, "[control] no scale-out under "
+               f"load ({asc.last_reason})")
+        new, out_reason = asc.last_replica, asc.last_reason
+        _check(rs.wait_healthy(2, timeout=60), "[control] the new replica "
+               f"never became healthy: {rs.snapshot()}")
+        healthy_s = time.perf_counter() - t0
+        # r0 carries the load, so a create lands on the new replica
+        deadline = time.monotonic() + 30
+        status, out = _post_url(router.url + "/session")
+        while out.get("replica") != new and time.monotonic() < deadline:
+            status, out = _post_url(router.url + "/session")
+        _check(out.get("replica") == new, f"[control] no session on {new}")
+        sid = out["session"]
+        obs = np.random.default_rng(5).standard_normal(
+            (4,) + agent.obs_shape).astype(np.float32)
+        for t in range(3):
+            status, ans = _post_url(router.url + f"/session/{sid}/act",
+                                    {"obs": obs[t].tolist()})
+            _check(status == 200, f"[control] {status} {ans}")
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        t1 = time.perf_counter()
+        deadline = time.monotonic() + 60
+        while (asc.drains_completed_total == 0
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        in_s = time.perf_counter() - t1
+        _check(asc.drains_completed_total == 1 and asc.last_replica == new,
+               f"[control] scale-in: {asc.last_action} {asc.last_replica} "
+               f"({asc.last_reason})")
+        _check(asc.last_drain_moved == 1, "[control] the drain moved "
+               f"{asc.last_drain_moved} sessions")
+        status, ans = _post_url(router.url + f"/session/{sid}/act",
+                                {"obs": obs[3].tolist()})
+        carry = None
+        for o in obs:
+            a, _, carry = agent.act(state, o, eval_mode=True,
+                                    policy_carry=carry)
+        _check(status == 200 and ans.get("resumed") is True
+               and ans["resumed_steps"] == 3 and ans["action"] == int(a),
+               f"[control] the drained session's next act: {ans}")
+        _check(asc.scale_outs_total == 1 and asc.drains_aborted_total == 0,
+               f"[control] autoscaler: {asc.scale_outs_total} scale-outs, "
+               f"{asc.drains_aborted_total} aborted drains")
+        _check(not fails, f"[control] autoscaler load: {fails[:3]}")
+        print(f"[control] autoscaler (min 1, max 3, SLO p99 {slo_ms:.3f} "
+              f"ms = half the lower of the session load's p99 "
+              f"{warm_p99:.3f} and leg 1's {leg1_p99:.3f}): scale-out to "
+              f"{new} {out_s:.2f} s after it started under 16 session "
+              f"clients ({out_reason}), {new} healthy at {healthy_s:.2f} "
+              f"s; after the load stopped, one scale-in {in_s:.2f} s later "
+              f"draining {new} in {asc.last_drain_s * 1e3:.1f} ms, its "
+              f"live session resumed on the survivor (resumed_steps 3, the "
+              f"action of the session stepped alone) ({card})", flush=True)
+    finally:
+        stop.set()
+        if asc is not None:
+            asc.close()
+        router.close()
+        rs.close()
+
+
+def _control_cli(torch, dev, ck_dir, card) -> None:
+    """Leg 7: ``python -m trpo_torch.serve --replicas 2`` in a child,
+    answered through its router, SIGTERMed: exit 0 and its routed line."""
+    work = WORK / "control" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    desc = work / "run.json"
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "trpo_torch.serve", "--device", dev.type,
+         "--preset", "humanoid-sim", "--checkpoint-dir", ck_dir,
+         "--port", "0", "--replicas", "2", "--health-interval", "0.1",
+         "--run-descriptor", str(desc)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not desc.exists():
+            _check(child.poll() is None and time.monotonic() < deadline,
+                   f"[control] the CLI child: {child.poll()}")
+            time.sleep(0.1)
+        url = json.loads(desc.read_text())["url"]
+        while json.loads(_get_url(url + "/status"))["healthy"] < 2:
+            _check(time.monotonic() < deadline, "[control] CLI replicas")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        rng = np.random.default_rng(6)
+        for _ in range(8):
+            status, ans = _post_url(url + "/act", {
+                "obs": rng.standard_normal(376).tolist()})
+            _check(status == 200 and len(ans["action"]) == 17,
+                   f"[control] CLI /act: {status} {ans}")
+        child.send_signal(signal.SIGTERM)
+        text, _ = child.communicate(timeout=120)
+        _check(child.returncode == 0, f"[control] CLI exit "
+               f"{child.returncode}: {text[-2000:]}")
+        routed = [ln for ln in text.splitlines() if ln.startswith("routed ")]
+        _check(routed == ["routed 8 requests (0 retried, 0 failed, 0 "
+                          "backpressured)"], f"[control] CLI: {routed}")
+        print(f"[control] CLI: python -m trpo_torch.serve --replicas 2 "
+              f"(humanoid-sim) up with 2 healthy replicas in {up_s:.2f} s, "
+              f"8 /act answered through its router, SIGTERM: exit 0, "
+              f"{routed[0]!r} ({card})", flush=True)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+
+
+def _get_url(url, timeout=30.0) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read().decode()
+
+
+def _allocated(torch, clear_workspaces: bool) -> int:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    if clear_workspaces:
+        torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def phase_control(torch, dev):
+    """The serving control plane at full width (``humanoid-sim``: 376 →
+    256 → 256 → 17, rungs 1/8/64; ``cartpole-po`` GRU 64) from seed 0:
+    scaling through the router over in-process and subprocess replicas, a
+    failover, sessions resumed from the journal, a canary promoted and
+    rolled back, the autoscaler out and in, and the CLI. Every kernel's
+    launches (0: serving is a forward pass), the graph captures on the
+    request path (0) and the device memory before and after (back within
+    1% once every in-process replica is closed) are checked."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    on_card = dev.type == "cuda"
+    card = _card_line() if on_card else "cpu"
+    mem0 = (_allocated(torch, False), _allocated(torch, True)) \
+        if on_card else (0, 0)
+    _build.reset_launches()
+    loads = _Loads()
+    t_phase = time.perf_counter()
+    cfg = get_preset("humanoid-sim")
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    state = agent.init_state(seed=0)
+    ck_dir = str(WORK / "control" / "ck")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    Checkpointer(ck_dir).save(2, state)
+    seconds = {}
+
+    def leg(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    scale = leg("in-process", lambda: _control_scaling_in_process(
+        torch, agent, state.policy_params, loads, card))
+    leg("subprocess", lambda: _control_scaling_subprocess(
+        torch, dev, ck_dir, scale["bare"], card))
+    leg("capture", lambda: _control_capture_beside_replays(
+        torch, agent, state.policy_params, loads, card))
+    leg("failover", lambda: _control_failover(
+        torch, agent, state.policy_params, loads, card))
+    leg("sessions", lambda: _control_sessions(torch, dev, loads, card))
+    leg("canary", lambda: _control_canary(torch, dev, agent, state, loads,
+                                          card))
+    leg("autoscaler", lambda: _control_autoscaler(
+        torch, dev, scale[1]["here"]["p99"], loads, card))
+    leg("cli", lambda: _control_cli(torch, dev, ck_dir, card))
+    if on_card:
+        torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    captures = loads.request_path_captures(on_card)
+    engines = len(loads.engines)
+    del agent, state, loads
+    _check(not counts, f"[control] kernels launched: {counts}")
+    _check(captures == 0,
+           f"[control] {captures} graph captures on the request path")
+    if on_card:
+        mem1 = (_allocated(torch, False), _allocated(torch, True))
+        drift = abs(mem1[1] - mem0[1]) / max(mem0[1], 1)
+        print(f"[control] device memory allocated before the phase "
+              f"{mem0[0] / 2**20:.1f} MiB, after every in-process replica "
+              f"closed {mem1[0] / 2**20:.1f} MiB; without cuBLAS's "
+              f"per-stream workspaces {mem0[1] / 2**20:.1f} -> "
+              f"{mem1[1] / 2**20:.1f} MiB ({100 * drift:.3f}%, limit 1%)",
+              flush=True)
+        _check(drift <= 0.01, f"[control] device memory {mem0} -> {mem1}")
+    print(f"[control] {engines} engines built; graph captures on the "
+          f"request path: 0; launches of K1, K1-bf16, K2 and every plain "
+          f"version during [control]: 0; seconds by leg: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f}", flush=True)
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -3017,6 +3955,7 @@ def main() -> int:
                 ("host", lambda: phase_host(torch, np, dev)),
                 ("preempt", lambda: phase_preempt(torch, dev)),
                 ("serve", lambda: phase_serve(torch, dev)),
+                ("control", lambda: phase_control(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

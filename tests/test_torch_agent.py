@@ -211,9 +211,8 @@ def test_train_cli_on_cpu(capsys):
 
 def test_unported_env_and_preset_paths_raise():
     # the ladder, the fleet presets, the pixel, recurrent and MoE families,
-    # the gym:/native: host envs, the overlapped loop and the serving data
-    # plane run now; the gymproc: worker pool and the serving control
-    # plane still raise, naming their ROADMAP items
+    # the gym:/native: host envs, the overlapped loop and serving run now;
+    # the gymproc: worker pool still raises, naming its ROADMAP item
     agent = TRPOAgent("cartpole", get_preset("cartpole").replace(
         train_overlap=1, rollout_chunk=5), device="cpu")
     assert agent._overlap and agent.n_steps == 125
@@ -223,14 +222,14 @@ def test_unported_env_and_preset_paths_raise():
     with pytest.raises(NotImplementedError, match="item 18"):
         TRPOAgent("cartpole", get_preset("cartpole").replace(
             env="gymproc:CartPole-v1"), device="cpu")
-    # the serving data plane runs now; its control plane still raises
+    # the serving data plane and its control plane run now
     assert agent.serve_engine().batch_shapes == (1, 8, 64)
     for control in ({"serve_replicas": 2}, {"serve_hosts": ("a",)},
                     {"serve_canary_fraction": 0.25}):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 17 \(the control plane\)"):
-            TRPOAgent("cartpole", get_preset("cartpole").replace(**control),
-                      device="cpu")
+        built = TRPOAgent("cartpole", get_preset("cartpole").replace(
+            **control), device="cpu")
+        for name, value in control.items():
+            assert getattr(built.cfg, name) == value
     pytest.importorskip("mujoco")
     agent = TRPOAgent("gym:HalfCheetah-v4", get_preset("halfcheetah")
                       .replace(n_envs=2), device="cpu")

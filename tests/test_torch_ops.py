@@ -137,7 +137,19 @@ def test_presets_match_reference_training_fields():
     [
         {"env": "gymproc:CartPole-v1"},
         {"mesh_shape": (2,)},
-        # the serving control plane (item 17's second half)
+    ],
+)
+def test_unported_paths_raise(override):
+    cfg = port_config.TRPOConfig(**override)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+        port_config.check_ported(cfg)
+    item = "item 18" if "env" in override else "item 16"
+    assert item in str(e.value)
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
         {"serve_replicas": 2},
         {"serve_replicas": 2, "serve_max_replicas": 3},
         {"serve_min_replicas": 2, "serve_replicas": 2,
@@ -148,13 +160,23 @@ def test_presets_match_reference_training_fields():
         {"serve_reward_window": 4},
     ],
 )
-def test_unported_paths_raise(override):
+def test_control_plane_fields_are_ported(override):
+    # the serving control plane runs now: check_ported accepts its fields,
+    # and the port's config validates them as the reference's does
     cfg = port_config.TRPOConfig(**override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        port_config.check_ported(cfg)
-    item = ("item 18" if "env" in override else "item 16"
-            if "mesh_shape" in override else "item 17 (the control plane)")
-    assert item in str(e.value)
+    port_config.check_ported(cfg)
+    ref = tpu_config.TRPOConfig(**override)
+    for name in override:
+        assert getattr(cfg, name) == getattr(ref, name)
+    bad = {"serve_replicas": 0, "serve_max_replicas": 1,
+           "serve_min_replicas": 0, "serve_hosts": (),
+           "serve_replica_cmd": " ", "serve_canary_fraction": 1.5,
+           "serve_reward_window": -1}
+    for name in override:
+        wrong = {**override, name: bad[name]}
+        for cls in (tpu_config.TRPOConfig, port_config.TRPOConfig):
+            with pytest.raises(ValueError):
+                cls(**wrong)
 
 
 @pytest.mark.parametrize(

@@ -726,13 +726,17 @@ def test_managed_reload_step_and_rollback(tmp_path):
         batcher.close()
 
 
-def test_server_answers_on_a_unix_socket(loaded_engine, tmp_path):
+def test_server_answers_on_a_unix_socket(loaded_engine, tmp_path,
+                                         monkeypatch):
     import http.client
     import socket
 
     _, engine = loaded_engine
     batcher = MicroBatcher(engine, deadline_ms=2.0)
-    path = str(tmp_path / "s.sock")
+    # relative to the test's directory: an absolute path under a deep
+    # temporary directory can pass AF_UNIX's 107 bytes
+    monkeypatch.chdir(tmp_path)
+    path = "s.sock"
     srv = PolicyServer(engine, batcher, port=0, uds_path=path)
 
     class Conn(http.client.HTTPConnection):
@@ -781,12 +785,21 @@ def test_cli_parser_overrides_and_refusals():
     assert cfg.serve_deadline_ms == 7.5 and cfg.serve_poll_interval == 0.2
     assert cfg.serve_adaptive_deadline is False
     assert cfg.serve_session_batch_shapes == (1, 8)
-    for flags in (["--replicas", "2"], ["--max-replicas", "3"],
-                  ["--hosts", "a,b"], ["--replica-cmd", "x"],
-                  ["--slo-p99-ms", "5"], ["--router-core", "async"],
-                  ["--lease-ttl", "3"], ["--canary-fraction", "0.5"]):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            main(["--checkpoint-dir", "/nonexistent", *flags])
+    # the control plane's flags parse and build its config now
+    for flags, field, value in (
+            (["--replicas", "2"], "serve_replicas", 2),
+            (["--max-replicas", "3"], "serve_max_replicas", 3),
+            (["--hosts", "a,b"], "serve_hosts", ("a", "b")),
+            (["--replica-cmd", "x"], "serve_replica_cmd", "x"),
+            (["--slo-p99-ms", "5"], "serve_slo_p99_ms", 5.0),
+            (["--lease-ttl", "3"], "serve_lease_ttl", 3.0),
+            (["--canary-fraction", "0.5"], "serve_canary_fraction", 0.5)):
+        cfg = config_from_args(build_parser().parse_args(
+            ["--checkpoint-dir", "/nonexistent", *flags]))
+        assert getattr(cfg, field) == value
+    assert build_parser().parse_args(
+        ["--checkpoint-dir", "x", "--router-core", "thread"]
+    ).router_core == "thread"
     for flags in (["--metrics-jsonl", "x"], ["--trace-sample-rate", "1"],
                   ["--capture"], ["--inject-faults", "x"]):
         with pytest.raises(NotImplementedError, match="item 18"):
@@ -924,7 +937,8 @@ def _async_exchanges(server_cls, headers_fn, transport, sock_path):
 
 
 @pytest.mark.parametrize("transport", ["tcp", "uds"])
-def test_async_httpd_answers_like_the_reference(transport, tmp_path):
+def test_async_httpd_answers_like_the_reference(transport, tmp_path,
+                                               monkeypatch):
     """The port's copy of ``AsyncBackgroundServer`` against
     ``trpo_tpu``'s: the same status, content type, body and connection
     header for sync, prefix and async routes, handler failures, unknown
@@ -932,12 +946,14 @@ def test_async_httpd_answers_like_the_reference(transport, tmp_path):
     from trpo_torch.utils import httpd
     from trpo_tpu.utils import httpd as tpu_httpd
 
+    # socket paths relative to the test's directory: an absolute path
+    # under a deep temporary directory can pass AF_UNIX's 107 bytes
+    monkeypatch.chdir(tmp_path)
     got = _async_exchanges(httpd.AsyncBackgroundServer,
-                           httpd.request_headers, transport,
-                           str(tmp_path / "port.sock"))
+                           httpd.request_headers, transport, "port.sock")
     want = _async_exchanges(tpu_httpd.AsyncBackgroundServer,
                             tpu_httpd.request_headers, transport,
-                            str(tmp_path / "ref.sock"))
+                            "ref.sock")
     assert got == want
     statuses = [s for s, *_ in got[0]]
     assert statuses == [200, 500, 404, 200, 200, 200, 200, 500, 404, 200,

@@ -33,6 +33,16 @@ Prints one JSON line: ``{"metric": "cg_solve_ms_per_iter", "value": ...,
 "updates_per_s": ..., "device": ..., "power_limit_w": ...}``. Without
 CUDA it raises, unless ``--device cpu`` is given with a small ``--batch``
 (the test path; its numbers are CPU times, named so by ``device``).
+
+``--serving-scale`` runs the serving control plane's block instead (the
+counterpart of ``bench.py``'s ``serving_scale``): closed-loop actions/s
+and p50/p99 through a :class:`~trpo_torch.serve.Router` over 1, 2 and 4
+in-process replicas, and the scaling efficiency ``aps_N / (N × aps_1)``,
+twice: behind ``SimulatedCostEngine`` at the reference's 60 ms (a
+GIL-free sleep per dispatch: it isolates the router), and behind real
+``InferenceEngine``s at ``humanoid-sim``'s width (what the card gives).
+One JSON line, ``{"metric": "serving_scale", "simulated": {...},
+"humanoid": {...}, ...}``.
 """
 
 from __future__ import annotations
@@ -265,14 +275,180 @@ def run(device="cuda", batch: Optional[int] = None) -> dict:
     }
 
 
+def _router_load(router_url: str, body: bytes, clients: int,
+                 per_client: int) -> dict:
+    """``clients`` closed-loop clients, each on its own keep-alive
+    connection (TCP_NODELAY), POST ``body`` to ``/act`` ``per_client``
+    times after one untimed request; the clock starts when every client
+    is connected. Actions/s, p50/p99 ms and the errors."""
+    import http.client
+    import socket
+    import threading
+    import urllib.parse
+
+    from trpo_torch.utils.metrics import quantile_nearest_rank
+
+    netloc = urllib.parse.urlsplit(router_url).netloc
+    lats, errors, start = [], [], []
+    lock = threading.Lock()
+    barrier = threading.Barrier(
+        clients, action=lambda: start.append(time.perf_counter()))
+
+    def post(conn):
+        conn.request("POST", "/act", body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        resp.read()
+        if resp.status != 200:
+            raise RuntimeError(f"status {resp.status}")
+
+    def client():
+        conn = http.client.HTTPConnection(netloc, timeout=60.0)
+        mine = []
+        try:
+            conn.connect()
+            conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            post(conn)
+            barrier.wait(timeout=120)
+            for _ in range(per_client):
+                t0 = time.perf_counter()
+                post(conn)
+                mine.append((time.perf_counter() - t0) * 1e3)
+        except Exception as e:  # counted, never silently dropped
+            barrier.abort()
+            with lock:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+        with lock:
+            lats.extend(mine)
+
+    threads = [threading.Thread(target=client, daemon=True)
+               for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - start[0] if start else float("nan")
+    return {"requests": len(lats), "errors": errors,
+            "actions_per_sec": len(lats) / wall,
+            "p50_ms": quantile_nearest_rank(lats, 0.5),
+            "p99_ms": quantile_nearest_rank(lats, 0.99)}
+
+
+# closed-loop load per engine, (clients, timed requests per client):
+# the reference's 8 x 8 for the 60 ms sleep, which 8 clients saturate
+# at 4 replicas; 64 x 20 for the real engines (~1 ms of service), the
+# load of chip_smoke.py's [control] scaling legs
+SERVING_SCALE_LOAD = {"simulated": (8, 8), "humanoid": (64, 20)}
+
+
+def serving_scale(device="cuda", engine: str = "simulated",
+                  replica_counts=(1, 2, 4), clients: Optional[int] = None,
+                  per_client: Optional[int] = None,
+                  sim_cost_ms: float = 60.0) -> dict:
+    """Closed-loop actions/s and p50/p99 through the router at each
+    replica count, with the scaling efficiency against the first row.
+    ``engine="simulated"``: the reference's block — a cartpole MLP-16
+    engine at rung 1 behind a ``sim_cost_ms`` GIL-free sleep, so each
+    replica is capacity-bound at ~1/sim_cost dispatches/s and the
+    measurement isolates the router. ``engine="humanoid"``: real
+    ``InferenceEngine``s at ``humanoid-sim``'s width (376→256→256→17,
+    rungs 1/8/64), random weights from seed 0. ``clients`` and
+    ``per_client`` default to the engine's ``SERVING_SCALE_LOAD``."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.serve import (InProcessReplica, MicroBatcher,
+                                  PolicyServer, ReplicaSet, Router,
+                                  SimulatedCostEngine)
+
+    device = torch.device(device)
+    if engine == "simulated":
+        cfg = get_preset("cartpole").replace(
+            n_envs=4, batch_timesteps=32, policy_hidden=(16,),
+            vf_hidden=(16,), serve_batch_shapes=(1,))
+    elif engine == "humanoid":
+        cfg = get_preset("humanoid-sim")
+    else:
+        raise ValueError(f"engine must be simulated or humanoid: {engine}")
+    clients = clients or SERVING_SCALE_LOAD[engine][0]
+    per_client = per_client or SERVING_SCALE_LOAD[engine][1]
+    agent = TRPOAgent(cfg.env, cfg, device=device)
+    state = agent.init_state(seed=0)
+    body = json.dumps({"obs": [0.0] * int(np.prod(agent.obs_shape))}
+                      ).encode()
+
+    def factory():
+        eng = agent.serve_engine()
+        eng.load(state.policy_params, state.obs_norm, step=0)
+        if engine == "simulated":
+            eng = SimulatedCostEngine(eng, cost_ms=sim_cost_ms)
+        batcher = MicroBatcher(eng, deadline_ms=cfg.serve_deadline_ms,
+                               adaptive_deadline=cfg.serve_adaptive_deadline)
+        return PolicyServer(eng, batcher, port=0), [batcher]
+
+    rows = []
+    for n in replica_counts:
+        replicaset = ReplicaSet(lambda rid: InProcessReplica(factory), n,
+                                health_interval=0.25)
+        router = None
+        try:
+            replicaset.start()
+            if not replicaset.wait_healthy(n, timeout=300.0):
+                raise RuntimeError(f"{n}-replica set never became healthy")
+            router = Router(replicaset, port=0, max_inflight=256)
+            load = _router_load(router.url, body, clients, per_client)
+            if load["errors"]:
+                raise RuntimeError(f"{n} replicas: {load['errors'][:3]}")
+            rows.append({"replicas": n, "clients": clients,
+                         "requests": load["requests"],
+                         "actions_per_sec": load["actions_per_sec"],
+                         "p50_ms": load["p50_ms"], "p99_ms": load["p99_ms"],
+                         "retried": router.retried_total})
+        finally:
+            if router is not None:
+                router.close()
+            replicaset.close()
+    base = rows[0]["actions_per_sec"] / rows[0]["replicas"]
+    for row in rows:
+        row["scaling_efficiency"] = (
+            row["actions_per_sec"] / row["replicas"] / base)
+    return {"engine": engine, "sim_cost_ms":
+            sim_cost_ms if engine == "simulated" else None,
+            "batch_shapes": list(cfg.serve_batch_shapes), "rows": rows}
+
+
+def run_serving_scale(device="cuda") -> dict:
+    """The ``--serving-scale`` JSON: both engines on ``device``."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("trpo_torch.bench needs a CUDA card; "
+                               "--device cpu is the CPU test path")
+        name, power = _card()
+    else:
+        name, power = "cpu", None
+    out = {"metric": "serving_scale"}
+    for engine in ("simulated", "humanoid"):
+        _progress(f"serving_scale: {engine}")
+        out[engine] = serving_scale(device, engine)
+    out.update(device=name, power_limit_w=power)
+    return out
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--batch", type=int,
                    help=f"rows (default {BATCH}; required with --device cpu)")
+    p.add_argument("--serving-scale", action="store_true",
+                   help="run the router's replica-scaling block instead")
     args = p.parse_args(argv)
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(json.dumps(run(args.device, args.batch)), flush=True)
+    if args.serving_scale:
+        res = run_serving_scale(args.device)
+    else:
+        res = run(args.device, args.batch)
+    print(json.dumps(res), flush=True)
     return 0
 
 

@@ -188,8 +188,8 @@ class TRPOConfig:
     serve_carry_sync_every: int = 1  # journal a session's carry every N
     #                                applied steps (serve/session.py
     #                                CarryJournal)
-    # --- serving: the control plane (ROADMAP.md Queue 1 item 17, not
-    # ported): check_ported refuses every value but the default
+    # --- serving: the control plane (serve/router.py, replicaset.py,
+    # autoscaler.py, transport.py; python -m trpo_torch.serve --replicas)
     serve_replicas: int = 1
     serve_health_interval: float = 0.5
     serve_replica_restarts: int = 3
@@ -512,19 +512,6 @@ def check_ported(cfg: TRPOConfig) -> None:
     if cfg.env.startswith("gymproc:"):
         _not_ported(f"env {cfg.env!r} (the gymproc: worker pool)",
                     "item 18")
-    control = (
-        ("serve_replicas > 1", cfg.serve_replicas > 1),
-        ("serve_min_replicas/serve_max_replicas (the autoscaler)",
-         cfg.serve_min_replicas != 1 or cfg.serve_max_replicas is not None),
-        ("serve_hosts (multi-host serving)", cfg.serve_hosts is not None),
-        ("serve_replica_cmd (subprocess replicas)",
-         cfg.serve_replica_cmd is not None),
-        ("serve_canary_fraction/serve_reward_window (canary deployment)",
-         cfg.serve_canary_fraction > 0 or cfg.serve_reward_window > 0),
-    )
-    for what, armed in control:
-        if armed:
-            _not_ported(what, "item 17 (the control plane)")
 
 
 def refuse_unported(name: str, value, item: str) -> None:

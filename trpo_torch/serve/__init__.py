@@ -1,6 +1,6 @@
-"""Policy-inference serving, the data plane (counterpart:
-``trpo_tpu/serve/``): one replica that answers ``/act`` and ``/session``
-from a checkpoint directory.
+"""Policy-inference serving (counterpart: ``trpo_tpu/serve/``). The data
+plane is one replica that answers ``/act`` and ``/session`` from a
+checkpoint directory:
 
 * :mod:`trpo_torch.serve.engine` — :class:`InferenceEngine`: eval-mode
   ``act`` at a ladder of batch shapes, one CUDA graph per rung on a card,
@@ -16,13 +16,36 @@ from a checkpoint directory.
   watcher.
 * :mod:`trpo_torch.serve.wire` — the binary frame codec.
 
-``python -m trpo_torch.serve`` is the CLI. The control plane (router,
-replica set, autoscaler, transports, canary) is ROADMAP.md Queue 1 item 17;
-the event bus, tracing, fault injection and capture are item 18.
+The control plane composes replicas of the data plane:
+
+* :mod:`trpo_torch.serve.replicaset` — :class:`ReplicaSet` (N supervised
+  replicas, in-process or ``python -m trpo_torch.serve`` children, with
+  leases and a crash budget) and :class:`CanaryController` (gated
+  checkpoint deployment).
+* :mod:`trpo_torch.serve.router` — :class:`Router`: one ``/act`` and
+  session front end over the set (least-queue dispatch, one retry,
+  affinity with journal-backed failover, admission control).
+* :mod:`trpo_torch.serve.autoscaler` — :class:`Autoscaler`: scale-out on
+  an SLO breach, lossless drains on scale-in.
+* :mod:`trpo_torch.serve.transport` — :class:`LocalExecTransport` and
+  :class:`TemplateTransport` (named hosts, placement, bounded discovery).
+
+``python -m trpo_torch.serve`` is the CLI (``--replicas N`` puts a router
+in front of N replicas). The event bus, tracing, fault injection and
+capture are ROADMAP.md Queue 1 item 18.
 """
 
+from trpo_torch.serve.autoscaler import Autoscaler
 from trpo_torch.serve.batcher import MicroBatcher, SessionBatcher
 from trpo_torch.serve.engine import InferenceEngine, SimulatedCostEngine
+from trpo_torch.serve.replicaset import (
+    CanaryController,
+    InProcessReplica,
+    ReplicaSet,
+    SubprocessReplica,
+    render_launch_argv,
+)
+from trpo_torch.serve.router import Router
 from trpo_torch.serve.server import PolicyServer
 from trpo_torch.serve.session import (
     CarryJournal,
@@ -35,6 +58,11 @@ from trpo_torch.serve.session import (
     mint_session_id,
     read_carry_journal,
     read_fences,
+)
+from trpo_torch.serve.transport import (
+    LocalExecTransport,
+    TemplateTransport,
+    TransportPartitioned,
 )
 
 __all__ = [
@@ -53,4 +81,14 @@ __all__ = [
     "fence_session",
     "read_fences",
     "mint_session_id",
+    "InProcessReplica",
+    "SubprocessReplica",
+    "render_launch_argv",
+    "ReplicaSet",
+    "Router",
+    "CanaryController",
+    "Autoscaler",
+    "LocalExecTransport",
+    "TemplateTransport",
+    "TransportPartitioned",
 ]

@@ -1,17 +1,18 @@
 """Serve a trained policy over HTTP: ``python -m trpo_torch.serve``
-(counterpart: ``scripts/serve.py``, its single-replica path).
+(counterpart: ``scripts/serve.py``).
 
     python -m trpo_torch.serve --checkpoint-dir /tmp/ck --port 0
     python -m trpo_torch.serve --checkpoint-dir /tmp/ck --preset pendulum \\
         --port 8700 --deadline-ms 5
     python -m trpo_torch.serve --checkpoint-dir /tmp/ck \\
         --preset cartpole-po                # recurrent: the session protocol
+    python -m trpo_torch.serve --checkpoint-dir /tmp/ck --replicas 4
     python -m trpo_torch.serve --checkpoint-dir /tmp/ck --device cpu
 
 Builds the policy the checkpoint was trained with (``--preset`` and the
-model overrides ``trpo_torch.train`` takes), and serves it from one
-replica on the card (``--device cuda``, the default; ``--device cpu`` is
-the only way onto the CPU):
+model overrides ``trpo_torch.train`` takes), and serves it on the card
+(``--device cuda``, the default; ``--device cpu`` is the only way onto
+the CPU):
 
 * ``POST /act`` — ``{"obs": [...]}`` → ``{"action": ..., "step": N}``
   (feedforward; a typed 409 naming ``/session`` on a recurrent policy)
@@ -26,12 +27,18 @@ port is printed (``--port 0`` lets the OS pick), and ``--run-descriptor``
 writes it with the pid and URL to an atomically replaced ``run.json``.
 SIGTERM or SIGINT closes the server and exits 0.
 
-The control plane's flags (``--replicas`` > 1, ``--min/--max-replicas``,
-``--slo-p99-ms``, ``--hosts``, ``--lease-ttl``, ``--replica-cmd``,
-``--router-core``, canary) raise ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 17; the telemetry and fault flags
+``--replicas N`` (N > 1) puts one :class:`~trpo_torch.serve.Router` on
+``--port`` in front of N supervised replicas on ephemeral ports
+(``GET /status`` too): in this process by default, or ``--replica-cmd``
+children (``--hosts`` places them on named hosts, with leases).
+``--canary-fraction`` gates each new checkpoint through a
+:class:`~trpo_torch.serve.CanaryController`, and ``--max-replicas`` arms
+the :class:`~trpo_torch.serve.Autoscaler`. At exit the router prints
+``routed N requests (…)``. An inconsistent combination of these flags
+exits 2 with the reference's message. The telemetry and fault flags
 (``--metrics-jsonl``, ``--trace-sample-rate``, ``--capture``,
-``--inject-faults``) name item 18.
+``--inject-faults``) raise ``NotImplementedError`` naming ROADMAP.md
+Queue 1 item 18.
 """
 
 from __future__ import annotations
@@ -54,7 +61,7 @@ def _ints(text: str) -> tuple:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m trpo_torch.serve",
-        description="serve a trained TRPO policy over HTTP (one replica)",
+        description="serve a trained TRPO policy over HTTP",
     )
     p.add_argument("--checkpoint-dir", required=True,
                    help="checkpoint directory to serve from (and watch)")
@@ -99,7 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-sessions", type=int)
     p.add_argument("--carry-sync-every", type=int)
     p.add_argument("--carry-journal-dir",
-                   help="journal session carries here (recurrent)")
+                   help="journal session carries here (recurrent; default "
+                        "<checkpoint-dir>/carry_journal with --replicas > "
+                        "1, 'none' turns it off)")
     p.add_argument("--replica-name",
                    help="this replica's name in its journal file (default "
                         "'solo')")
@@ -108,14 +117,54 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-seconds", type=float,
                    help="exit after this many seconds (default: at "
                         "SIGTERM/SIGINT)")
-    # the control plane (item 17) and telemetry/faults (item 18): parsed so
-    # that they refuse by name instead of as unknown flags
-    for flag, kind in (("--replicas", int), ("--min-replicas", int),
-                       ("--max-replicas", int), ("--slo-p99-ms", float),
-                       ("--hosts", str), ("--lease-ttl", float),
-                       ("--replica-cmd", str), ("--router-core", str),
-                       ("--canary-fraction", float),
-                       ("--metrics-jsonl", str),
+    # the replicated control plane
+    p.add_argument("--replicas", type=int,
+                   help="N replicas behind one router on --port (default 1 "
+                        "= one bare replica)")
+    p.add_argument("--router-core", choices=("async", "thread"),
+                   default="async",
+                   help="the router's front end: one event loop (async, "
+                        "default) or a thread per request")
+    p.add_argument("--min-replicas", type=int,
+                   help="autoscaler floor (default 1)")
+    p.add_argument("--max-replicas", type=int,
+                   help="autoscaler ceiling: setting it arms the autoscaler")
+    p.add_argument("--slo-p99-ms", type=float,
+                   help="the p99 the autoscaler defends (default 250)")
+    p.add_argument("--drain-timeout", type=float,
+                   help="seconds before a stalled drain aborts (default 30)")
+    p.add_argument("--replica-cmd",
+                   help="launch replicas as children from this template "
+                        "({port}, {checkpoint}, {replica}, {host})")
+    p.add_argument("--hosts",
+                   help="comma-separated host names for --replica-cmd's "
+                        "{host}: round-robin placement and lease liveness")
+    p.add_argument("--lease-ttl", type=float,
+                   help="replica lease seconds (default 3; armed with "
+                        "--hosts, or by setting it)")
+    p.add_argument("--health-interval", type=float,
+                   help="replica /healthz poll seconds (default 0.5)")
+    p.add_argument("--replica-restarts", type=int,
+                   help="per-replica crash budget (default 3)")
+    p.add_argument("--max-inflight", type=int,
+                   help="per-replica outstanding-request bound (default 64)")
+    p.add_argument("--canary-fraction", type=float,
+                   help="gate each new step through a canary replica "
+                        "taking this fraction of traffic (default 0 = off)")
+    p.add_argument("--canary-window", type=int,
+                   help="canary requests before the gate judges (24)")
+    p.add_argument("--canary-parity-tol", type=float,
+                   help="max mean |canary - incumbent| action on mirrored "
+                        "requests (default: finite actions only)")
+    p.add_argument("--reward-window", type=int,
+                   help="arm the reward gate: canary episodes to judge")
+    p.add_argument("--reward-min-episodes", type=int,
+                   help="incumbent episodes the reward gate needs")
+    p.add_argument("--reward-budget", type=float,
+                   help="mean-return drop the reward gate tolerates")
+    # telemetry and faults (item 18): parsed so that they refuse by name
+    # instead of as unknown flags
+    for flag, kind in (("--metrics-jsonl", str),
                        ("--trace-sample-rate", float),
                        ("--inject-faults", str)):
         p.add_argument(flag, type=kind, help=argparse.SUPPRESS)
@@ -124,22 +173,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    control = [f for f, v in (
-        ("--replicas", args.replicas is not None and args.replicas > 1),
-        ("--min-replicas", args.min_replicas is not None),
-        ("--max-replicas", args.max_replicas is not None),
-        ("--slo-p99-ms", args.slo_p99_ms is not None),
-        ("--hosts", args.hosts is not None),
-        ("--lease-ttl", args.lease_ttl is not None),
-        ("--replica-cmd", args.replica_cmd is not None),
-        ("--router-core", args.router_core is not None),
-        ("--canary-fraction", args.canary_fraction is not None
-         and args.canary_fraction > 0)) if v]
-    if control:
-        raise NotImplementedError(
-            f"{', '.join(control)}: the serving control plane is not "
-            "ported to trpo_torch yet (ROADMAP.md Queue 1 item 17 (the "
-            "control plane)); serve one replica, or use scripts/serve.py")
     telemetry = [f for f, v in (
         ("--metrics-jsonl", args.metrics_jsonl is not None),
         ("--trace-sample-rate", args.trace_sample_rate is not None),
@@ -177,6 +210,23 @@ def config_from_args(args):
         "serve_session_ttl": args.session_ttl,
         "serve_max_sessions": args.max_sessions,
         "serve_carry_sync_every": args.carry_sync_every,
+        "serve_replicas": args.replicas,
+        "serve_min_replicas": args.min_replicas,
+        "serve_max_replicas": args.max_replicas,
+        "serve_slo_p99_ms": args.slo_p99_ms,
+        "serve_drain_timeout": args.drain_timeout,
+        "serve_replica_cmd": args.replica_cmd,
+        "serve_hosts": tuple(h.strip() for h in args.hosts.split(",")
+                             if h.strip()) if args.hosts else None,
+        "serve_lease_ttl": args.lease_ttl,
+        "serve_health_interval": args.health_interval,
+        "serve_replica_restarts": args.replica_restarts,
+        "serve_max_inflight": args.max_inflight,
+        "serve_canary_fraction": args.canary_fraction,
+        "serve_canary_window": args.canary_window,
+        "serve_reward_window": args.reward_window,
+        "serve_reward_min_episodes": args.reward_min_episodes,
+        "serve_reward_budget": args.reward_budget,
     }.items() if v is not None}
     return cfg.replace(**updates) if updates else cfg
 
@@ -189,66 +239,227 @@ def _write_descriptor(path: str, payload: dict) -> None:
     os.replace(tmp, path)
 
 
+def _arming_error(args, cfg, recurrent: bool) -> Optional[str]:
+    """The reference's refusals of inconsistent control-plane flags
+    (``scripts/serve.py``), or None."""
+    if args.min_replicas is not None and cfg.serve_max_replicas is None:
+        return ("--min-replicas only bounds the elastic autoscaler — pass "
+                "--max-replicas to arm it (a floor without a ceiling would "
+                "silently do nothing).")
+    if cfg.serve_hosts and not cfg.serve_replica_cmd:
+        return ("--hosts places replicas through the --replica-cmd launch "
+                "template — pass --replica-cmd with a {host} target or "
+                "drop --hosts.")
+    if cfg.serve_replica_cmd and cfg.serve_replicas < 2:
+        return ("--replica-cmd launches replicas under the replicated "
+                "control plane — run with --replicas >= 2.")
+    if cfg.serve_replica_cmd and recurrent and not all(
+            part in cfg.serve_replica_cmd
+            for part in ("--carry-journal-dir", "--replica-name",
+                         "{replica}")):
+        return ("a RECURRENT --replica-cmd template must wire the carry "
+                "journal the parent router resumes/drains from — include: "
+                "--carry-journal-dir {checkpoint}/carry_journal "
+                "--replica-name {replica}.")
+    if cfg.serve_max_replicas is not None and cfg.serve_replicas < 2:
+        return ("--max-replicas (the elastic autoscaler) needs the "
+                "replicated control plane — run with --replicas >= 2.")
+    canary = cfg.serve_canary_fraction > 0 and cfg.serve_replicas > 1
+    if canary and cfg.serve_replica_cmd:
+        return ("--canary-fraction needs in-process replicas (the canary "
+                "controller pins relaunches to the incumbent step through "
+                "a shared cell) — drop --replica-cmd or the canary gate.")
+    if canary and recurrent and cfg.serve_reward_window < 1:
+        return ("--canary-fraction on a recurrent policy needs the "
+                "reward-aware gate — pass --reward-window N (and have "
+                "clients report reward/done in /session/act bodies), or "
+                "drop --canary-fraction.")
+    return None
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     from trpo_torch.agent import TRPOAgent
-    from trpo_torch.serve import MicroBatcher, PolicyServer
+    from trpo_torch.serve import (
+        Autoscaler,
+        CanaryController,
+        InProcessReplica,
+        MicroBatcher,
+        PolicyServer,
+        ReplicaSet,
+        Router,
+        SubprocessReplica,
+        TemplateTransport,
+        render_launch_argv,
+    )
     from trpo_torch.utils.checkpoint import Checkpointer
 
     cfg = config_from_args(args)
     agent = TRPOAgent(cfg.env, cfg, device=args.device)
     recurrent = agent.is_recurrent
-    batcher = None
-    if recurrent:
-        engine = agent.serve_session_engine()
-    else:
-        engine = agent.serve_engine()
-        batcher = MicroBatcher(engine, deadline_ms=cfg.serve_deadline_ms,
-                               adaptive_deadline=cfg.serve_adaptive_deadline)
-    server = PolicyServer(
-        engine, batcher, args.port, host=args.host,
-        checkpointer=Checkpointer(args.checkpoint_dir),
-        template=agent.init_state(),
-        poll_interval=cfg.serve_poll_interval,
-        session_ttl_s=cfg.serve_session_ttl,
-        max_sessions=cfg.serve_max_sessions,
-        replica_name=args.replica_name,
-        carry_journal_dir=args.carry_journal_dir,
-        carry_sync_every=cfg.serve_carry_sync_every,
-        session_deadline_ms=cfg.serve_session_deadline_ms,
-        session_adaptive_deadline=cfg.serve_adaptive_deadline,
-        uds_path=args.uds_path,
-    )
-    done = threading.Event()
+    error = _arming_error(args, cfg, recurrent)
+    if error is not None:
+        print(f"error: {error}", file=sys.stderr)
+        return 2
+    replicated = cfg.serve_replicas > 1
+    canary = cfg.serve_canary_fraction > 0 and replicated
+    ck_dir = os.path.abspath(args.checkpoint_dir)
+    # replicated recurrent serving journals by default, so a replica's
+    # death resumes its sessions; 'none' opts out
+    journal_dir = None
+    if recurrent and args.carry_journal_dir != "none":
+        journal_dir = args.carry_journal_dir or (
+            os.path.join(ck_dir, "carry_journal") if replicated else None)
+    # the canary controller promotes into this cell; a replica launched
+    # mid-gate reads it, so it never comes up on the step under test
+    incumbent = {"step": None}
+
+    def build_replica(replica_name, port, uds_path=None):
+        """One serving stack: its engine, batcher, checkpoint watcher and
+        port. Under a canary it runs MANAGED reload pinned to the
+        incumbent step."""
+        batcher = None
+        if recurrent:
+            engine = agent.serve_session_engine()
+        else:
+            engine = agent.serve_engine()
+            batcher = MicroBatcher(
+                engine, deadline_ms=cfg.serve_deadline_ms,
+                adaptive_deadline=cfg.serve_adaptive_deadline)
+        server = PolicyServer(
+            engine, batcher, port, host=args.host,
+            checkpointer=Checkpointer(args.checkpoint_dir),
+            template=agent.init_state(),
+            poll_interval=cfg.serve_poll_interval,
+            session_ttl_s=cfg.serve_session_ttl,
+            max_sessions=cfg.serve_max_sessions,
+            replica_name=replica_name,
+            carry_journal_dir=journal_dir,
+            carry_sync_every=cfg.serve_carry_sync_every,
+            managed_reload=canary,
+            initial_step=incumbent["step"],
+            session_deadline_ms=cfg.serve_session_deadline_ms,
+            session_adaptive_deadline=cfg.serve_adaptive_deadline,
+            uds_path=uds_path,
+        )
+        return server, [batcher] if batcher is not None else []
+
+    replicaset = router = controller = autoscaler = None
+    server = None
+    closers: list = []
     try:
+        if replicated:
+            transport = launcher = None
+            replica_root = os.path.join(ck_dir, "replicas")
+            if cfg.serve_hosts:
+                transport = TemplateTransport(
+                    cfg.serve_replica_cmd, cfg.serve_hosts,
+                    checkpoint=ck_dir, replica_root=replica_root)
+            elif cfg.serve_replica_cmd:
+                def launcher(rid):
+                    return SubprocessReplica(
+                        [], os.path.join(replica_root, rid),
+                        command=render_launch_argv(
+                            cfg.serve_replica_cmd, port=0,
+                            checkpoint=ck_dir, replica=rid))
+            else:
+                def launcher(rid):
+                    # each in-process replica owns PATH.<rid> next to the
+                    # front end's socket; the router dials it
+                    return InProcessReplica(lambda: build_replica(
+                        rid, 0, uds_path=(f"{args.uds_path}.{rid}"
+                                          if args.uds_path else None)))
+            # leases: always across hosts (a failed poll proves nothing
+            # through a partition); locally only with --lease-ttl
+            lease_ttl = (cfg.serve_lease_ttl
+                         if cfg.serve_hosts or args.lease_ttl is not None
+                         else None)
+            replicaset = ReplicaSet(
+                launcher, cfg.serve_replicas,
+                health_interval=cfg.serve_health_interval,
+                max_restarts=cfg.serve_replica_restarts,
+                transport=transport, lease_ttl=lease_ttl)
+            replicaset.start()
+            router = Router(
+                replicaset, args.port, host=args.host,
+                max_inflight=cfg.serve_max_inflight,
+                session_ttl_s=cfg.serve_session_ttl,
+                max_sessions=cfg.serve_max_sessions,
+                journal_dir=journal_dir,
+                canary_fraction=cfg.serve_canary_fraction,
+                min_latency_samples=cfg.serve_autoscale_min_samples,
+                uds_path=args.uds_path, core=args.router_core)
+            if canary:
+                controller = CanaryController(
+                    replicaset, router,
+                    Checkpointer(args.checkpoint_dir).latest_step,
+                    incumbent=incumbent,
+                    window_requests=cfg.serve_canary_window,
+                    parity_tol=args.canary_parity_tol,
+                    poll_interval=cfg.serve_poll_interval,
+                    reward_window_episodes=cfg.serve_reward_window,
+                    reward_min_episodes=(
+                        cfg.serve_reward_min_episodes or None),
+                    reward_budget=cfg.serve_reward_budget)
+                controller.start()
+            if cfg.serve_max_replicas is not None:
+                autoscaler = Autoscaler(
+                    replicaset, router,
+                    min_replicas=cfg.serve_min_replicas,
+                    max_replicas=cfg.serve_max_replicas,
+                    slo_p99_ms=cfg.serve_slo_p99_ms,
+                    interval=cfg.serve_autoscale_interval,
+                    min_samples=cfg.serve_autoscale_min_samples,
+                    drain_timeout_s=cfg.serve_drain_timeout)
+                autoscaler.start()
+            front, endpoints = router, list(Router.ENDPOINTS)
+        else:
+            server, closers = build_replica(args.replica_name, args.port,
+                                            uds_path=args.uds_path)
+            front, endpoints = server, list(server.ENDPOINTS)
         if args.run_descriptor:
             _write_descriptor(args.run_descriptor, {
                 "schema": "trpo-torch-serve-descriptor",
                 "pid": os.getpid(),
-                "port": server.port,
-                "url": server.url,
-                "uds_path": server.uds_path,
-                "endpoints": list(server.ENDPOINTS),
+                "port": front.port,
+                "url": front.url,
+                "uds_path": front.uds_path,
+                "endpoints": endpoints,
+                "replicas": cfg.serve_replicas,
                 "recurrent": recurrent,
                 "device": str(agent.device),
-                "checkpoint_dir": os.path.abspath(args.checkpoint_dir),
+                "checkpoint_dir": ck_dir,
             })
         proto = "/session" if recurrent else "/act"
-        print(f"serving {cfg.env} policy at {server.url} (POST {proto}, "
-              f"GET /healthz, GET /metrics) on {agent.device}; step "
-              f"{engine.loaded_step}", flush=True)
+        step = ("" if replicated
+                else f"; step {server.engine.loaded_step}")
+        print(f"serving {cfg.env} policy at {front.url} (POST {proto}, "
+              "GET /healthz, GET /metrics"
+              + (", GET /status" if replicated else "")
+              + f") on {agent.device}, {cfg.serve_replicas} replica(s)"
+              + step, flush=True)
+        done = threading.Event()
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 signal.signal(sig, lambda *_: done.set())
         done.wait(args.serve_seconds)
     finally:
-        server.close()
-        if batcher is not None:
-            batcher.close()
-    served = (server.session_acts_total if recurrent
-              else batcher.requests_total)
-    print(f"served {served} requests", flush=True)
+        # teardown in the reverse order of the build
+        for part in (autoscaler, controller, router, replicaset, server):
+            if part is not None:
+                part.close()
+        for c in closers:
+            c.close()
+    if router is not None:
+        print(f"routed {router.routed_total} requests "
+              f"({router.retried_total} retried, {router.failed_total} "
+              f"failed, {router.backpressure_total} backpressured)",
+              flush=True)
+    else:
+        served = (server.session_acts_total if recurrent
+                  else server.batcher.requests_total)
+        print(f"served {served} requests", flush=True)
     return 0
 
 

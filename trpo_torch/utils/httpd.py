@@ -87,6 +87,22 @@ def request_headers():
 Response = Tuple[int, str, bytes]
 
 
+UDS_PATH_MAX = 107
+
+
+def check_uds_path(path: str) -> str:
+    """``path`` if it fits ``sockaddr_un`` (107 bytes and a NUL), else a
+    ``ValueError`` naming it: a path under a deep temporary directory with
+    a replica suffix can pass the limit, and the hop must then fail
+    loudly, never fall back to TCP."""
+    if len(os.fsencode(path)) > UDS_PATH_MAX:
+        raise ValueError(
+            f"Unix socket path {path!r} is {len(os.fsencode(path))} bytes; "
+            f"AF_UNIX takes at most {UDS_PATH_MAX} — choose a shorter "
+            "--uds-path")
+    return path
+
+
 def _cleanup_uds(path: str) -> None:
     """Unlink a stale socket file so a relaunched run can rebind — the
     AF_UNIX equivalent of ``allow_reuse_address`` (binding over an
@@ -129,6 +145,8 @@ class BackgroundHTTPServer:
         max_body_bytes: int = 1 << 20,
         uds_path: Optional[str] = None,
     ):
+        if uds_path:
+            check_uds_path(uds_path)
         get_routes = dict(get or {})
         post_routes = dict(post or {})
         # longest prefix first, so "/session/" can coexist with a more
@@ -389,6 +407,8 @@ class AsyncBackgroundServer:
         uds_path: Optional[str] = None,
         executor_workers: int = 8,
     ):
+        if uds_path:
+            check_uds_path(uds_path)
         self._get = dict(get or {})
         self._post = dict(post or {})
         self._post_prefix = sorted(
