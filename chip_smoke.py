@@ -108,8 +108,21 @@ Phases:
      scale-in; ``python -m trpo_torch.serve --replicas 2`` SIGTERMed (exit
      0). 0 launches, 0 captures on the request path, device memory back
      within 1% once every in-process replica is closed;
- 21. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19, 20) is driven with the launch counts set to 0
+ 21. ``[obs]`` the run-event bus, the tracer and live telemetry:
+     ``python -m trpo_torch.train --preset humanoid-sim`` (4 iterations)
+     with ``--metrics-jsonl``, ``--health-checks``, ``--status-port 0``,
+     ``--memory-accounting``, ``--run-descriptor`` and a profiler window
+     on iteration 3, scraped by a thread (every event valid, one
+     iteration event per iteration, the card in the manifest, the
+     ``/metrics`` iteration gauge advancing, 0 unexpected builds or
+     captures, K1's and K2's symbols in the trace); in process,
+     ``cg_iters_total`` + updates against K1's launches (exact) and
+     ``learn``'s iteration ms with telemetry off and on; the replicated
+     server over 2 children at trace rates 0, 0.01 and 1 (``/act``
+     requests/s and p50/p99 at 64 clients x 20, every span valid, every
+     trace rooted, a child killed at rate 0 still traced);
+ 22. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19-21) is driven with the launch counts set to 0
 just before it and read just after. The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
@@ -3900,6 +3913,324 @@ def phase_control(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [obs] the run-event bus, the tracer and live training telemetry
+# ---------------------------------------------------------------------------
+
+# the profiler trace must name K1's and K2's kernels (their CUDA symbols)
+_K1_SYMBOL, _K2_SYMBOL = "fvp_sweep_kernel", "reverse_affine_scan_kernel"
+OBS_TRACE_RATES = (0.0, 0.01, 1.0)
+
+
+def _obs_train_cli(torch, dev, work: Path, card: str) -> str:
+    """Leg 1: ``python -m trpo_torch.train`` on ``humanoid-sim`` as
+    published, 4 iterations with every telemetry flag, ``/status`` and
+    ``/metrics`` scraped by a thread while it runs. Returns its checkpoint
+    directory (step 4), which leg 3 serves."""
+    import threading
+    import urllib.request
+
+    from trpo_torch.obs.events import validate_event
+
+    ck, ev, desc = work / "ck", work / "train.jsonl", work / "run.json"
+    prof = work / "prof"
+    argv = [sys.executable, "-m", "trpo_torch.train", "--preset",
+            "humanoid-sim", "--iterations", "4", "--device", dev.type,
+            "--metrics-jsonl", str(ev), "--health-checks", "--status-port",
+            "0", "--memory-accounting", "--run-descriptor", str(desc),
+            "--profile-dir", str(prof), "--profile-iteration", "3",
+            "--checkpoint-dir", str(ck), "--checkpoint-every", "4"]
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        url = None
+        while not stop.is_set():
+            if url is None and desc.exists():
+                url = json.loads(desc.read_text())["status_url"]
+            if url is not None:
+                try:
+                    with urllib.request.urlopen(url + "/metrics",
+                                                timeout=5) as r:
+                        text = r.read().decode()
+                    with urllib.request.urlopen(url + "/status",
+                                                timeout=5) as r:
+                        status = json.loads(r.read())
+                    it = [ln for ln in text.splitlines()
+                          if ln.startswith("trpo_iteration ")]
+                    scrapes.append((int(it[0].split()[1]) if it else None,
+                                    status["iteration"]))
+                except Exception:
+                    pass  # the run ended under us, or has not bound yet
+            stop.wait(0.2)
+
+    poller = threading.Thread(target=scrape, daemon=True)
+    t0 = time.perf_counter()
+    child = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    poller.start()
+    try:
+        out, _ = child.communicate(timeout=600)
+    finally:
+        stop.set()
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        poller.join(timeout=10)
+    wall = time.perf_counter() - t0
+    _check(child.returncode == 0,
+           f"[obs] train CLI exit {child.returncode}:\n{out[-3000:]}")
+    recs = [json.loads(x) for x in ev.read_text().splitlines()]
+    bad = [(r.get("kind"), validate_event(r)) for r in recs
+           if validate_event(r)]
+    _check(not bad, f"[obs] invalid events: {bad[:3]}")
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    iters = [r["iteration"] for r in recs if r["kind"] == "iteration"]
+    _check(iters == [1, 2, 3, 4], f"[obs] iteration events {iters}")
+    man = recs[0]
+    _check(man["kind"] == "run_manifest"
+           and man["device_name"] == torch.cuda.get_device_name(0)
+           and man["backend"] == "cuda", f"[obs] manifest {man}")
+    unexpected = [r for r in recs if r["kind"] == "recompile"
+                  and r["unexpected"]]
+    _check(not unexpected, f"[obs] builds/captures after steady: "
+           f"{unexpected}")
+    gauges = [g for g, _ in scrapes if g is not None]
+    _check(len(set(gauges)) >= 2 and gauges == sorted(gauges),
+           f"[obs] /metrics trpo_iteration over the scrapes: {gauges}")
+    traces = sorted(prof.glob("*.json"))
+    _check(len(traces) == 1, f"[obs] profiler traces {traces}")
+    text = traces[0].read_text()
+    syms = {s: text.count(s) for s in (_K1_SYMBOL, _K2_SYMBOL)}
+    _check(all(syms.values()), f"[obs] kernel symbols in the trace: {syms}")
+    rows = [r["stats"] for r in recs if r["kind"] == "iteration"]
+    print(f"[obs] train CLI (humanoid-sim as published, 4 iterations, every "
+          f"telemetry flag): exit 0 in {wall:.1f} s; {len(recs)} events, "
+          f"every one valid ({kinds}); 1 iteration event per iteration; "
+          f"manifest names {man['device_name']!r} (torch "
+          f"{man['torch_version']}, CUDA {man['cuda_version']}); "
+          f"recompile events {kinds.get('recompile', 0)}, 0 unexpected "
+          f"after steady; /metrics trpo_iteration over {len(scrapes)} "
+          f"scrapes: {sorted(set(gauges))}; profiler window (iteration 3) "
+          f"{traces[0].name} {traces[0].stat().st_size / 2**20:.1f} MiB, "
+          f"{_K1_SYMBOL} x{syms[_K1_SYMBOL]}, {_K2_SYMBOL} "
+          f"x{syms[_K2_SYMBOL]}; iteration_ms "
+          f"{[round(r['iteration_ms'], 1) for r in rows]}; "
+          f"cg_iters_total {[r['cg_iters_total'] for r in rows]} ({card})",
+          flush=True)
+    return str(ck)
+
+
+def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
+    """Leg 2, in this process on the flagship state: ``learn`` with
+    telemetry off and on (bus + JSONL + health + status server), runs of 3
+    iterations in the order off, on, on, off, twice, after an audited
+    warm-up update, and the telemetry's own host time timed directly; the
+    solver counter against K1's launches on these unaudited updates,
+    exactly."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.obs import Telemetry
+    from trpo_torch.ops import _build
+    from trpo_torch.utils.metrics import StatsLogger
+
+    agent = TRPOAgent("humanoid-sim", get_preset("humanoid-sim"), device=dev)
+    quiet = lambda: StatsLogger(stream=io.StringIO())  # noqa: E731
+    state = agent.learn(1, logger=quiet())  # the audit fires on update 1
+    c0 = int(state.metrics.cg_iters_total)
+    rows = {"off": [], "on": []}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    # off, on, on, off, twice: the host clock drifts over a process. The
+    # telemetry's own host time is also read directly: every bus emit and
+    # every on_iteration of the "on" runs, timed
+    spent = []
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent.append(time.perf_counter() - t)
+        return call
+
+    for mode in ("off", "on", "on", "off") * 2:
+        tel = None
+        if mode == "on":
+            tel = Telemetry(events_jsonl=str(work / "overhead.jsonl"),
+                            health_checks=True, status_port=0)
+            tel.bus.emit = timed(tel.bus.emit)
+            tel.on_iteration = timed(tel.on_iteration)
+        logger = quiet()
+        keep = logger.log
+        logger.log = lambda i, s, keep=keep, m=mode: (
+            rows[m].append(dict(s)), keep(i, s))
+        try:
+            state = agent.learn(3, state=state, logger=logger, telemetry=tel)
+        finally:
+            if tel is not None:
+                tel.close()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    updates = len(rows["off"]) + len(rows["on"])
+    cg = int(state.metrics.cg_iters_total) - c0
+    _check(not any(r["solve_audited"] for r in rows["off"] + rows["on"]),
+           "[obs] an audited update in the timed runs")
+    _check(counts.get("fused_fvp", 0) == cg + updates,
+           f"[obs] K1 launched {counts.get('fused_fvp', 0)} times; "
+           f"cg_iters_total grew {cg} over {updates} updates")
+    _check(counts.get("reverse_scan", 0) == updates,
+           f"[obs] K2 launched {counts.get('reverse_scan', 0)} times")
+    med = {m: float(np.median([r["iteration_ms"] for r in rows[m]]))
+           for m in rows}
+    print(f"[obs] in process, humanoid-sim: cg_iters_total + updates = "
+          f"{cg} + {updates} = {cg + updates} == K1 launches "
+          f"{counts.get('fused_fvp', 0)} (exact; no cg_precond_probes), K2 "
+          f"{counts.get('reverse_scan', 0)}; iteration ms, median of 12 "
+          f"(runs of 3: off, on, on, off, twice), telemetry off "
+          f"{med['off']:.2f} "
+          f"{[round(r['iteration_ms'], 2) for r in rows['off']]}, on (bus, "
+          f"JSONL, health, status server) {med['on']:.2f} "
+          f"{[round(r['iteration_ms'], 2) for r in rows['on']]}: "
+          f"{(med['on'] / med['off'] - 1) * 100:+.2f}%; the telemetry's own "
+          f"host time (bus emits and on_iteration, timed) "
+          f"{sum(spent) * 1e3 / len(rows['on']):.3f} ms an iteration, "
+          f"{sum(spent) * 1e3 / len(rows['on']) / med['off'] * 100:.3f}% "
+          f"of the off median ({card})", flush=True)
+    return counts
+
+
+def _obs_serving(torch, dev, ck_dir: str, work: Path, card: str) -> None:
+    """Leg 3: ``python -m trpo_torch.serve --replicas 2`` over two
+    ``--replica-cmd`` children (each with its own event log), with
+    ``--metrics-jsonl`` and ``--trace-sample-rate`` at each rate. The three
+    sets start together (one startup wait), then take the load in turn:
+    /act at 64 clients x 20; every record valid, every sampled trace with
+    its root; at rate 0 a child killed under requests must still be traced
+    (the retry is forced)."""
+    from trpo_torch.obs.events import validate_event
+
+    runs = {}
+    t0 = time.perf_counter()
+    try:
+        for rate in OBS_TRACE_RATES:
+            run = work / f"serve_{rate}"
+            shutil.rmtree(run, ignore_errors=True)
+            # a copy of the checkpoint each: the children's descriptors
+            # live under it
+            shutil.copytree(ck_dir, run / "ck")
+            template = (f"{sys.executable} -m trpo_torch.serve --device "
+                        f"{dev.type} --port {{port}} --checkpoint-dir "
+                        "{checkpoint} --replica-name {replica} --preset "
+                        f"humanoid-sim --metrics-jsonl {run}/{{replica}}"
+                        f".jsonl --trace-sample-rate {rate}")
+            child = subprocess.Popen(
+                [sys.executable, "-m", "trpo_torch.serve", "--device",
+                 dev.type, "--preset", "humanoid-sim", "--checkpoint-dir",
+                 str(run / "ck"), "--port", "0", "--replicas", "2",
+                 "--replica-cmd", template, "--health-interval", "1.0",
+                 "--metrics-jsonl", str(run / "router.jsonl"),
+                 "--trace-sample-rate", str(rate), "--run-descriptor",
+                 str(run / "run.json")],
+                cwd=str(ROOT), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            runs[rate] = {"dir": run, "child": child}
+        deadline = time.monotonic() + 300
+        for rate, r in runs.items():
+            desc = r["dir"] / "run.json"
+            while not desc.exists():
+                _check(r["child"].poll() is None
+                       and time.monotonic() < deadline,
+                       f"[obs] serve CLI at rate {rate}: {r['child'].poll()}")
+                time.sleep(0.1)
+            r["url"] = json.loads(desc.read_text())["url"]
+            while json.loads(_get_url(r["url"] + "/status"))["healthy"] < 2:
+                _check(time.monotonic() < deadline, "[obs] children")
+                time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        for rate, r in runs.items():
+            r["load"] = _load_result(*_http_load(
+                int(r["url"].rsplit(":", 1)[1]), CONTROL_CLIENTS,
+                CONTROL_PER, lambda g: g.standard_normal(376).tolist()),
+                f"[obs] rate {rate}")
+        # rate 0: kill r0 between health polls; the next request it gets
+        # fails on the hop and is retried on r1
+        r = runs[0.0]
+        r["killed"] = json.loads((r["dir"] / "ck" / "replicas" / "r0"
+                                  / "run.json").read_text())["pid"]
+        os.kill(r["killed"], signal.SIGKILL)
+        for _ in range(8):
+            status, _ = _post_url(r["url"] + "/act", {"obs": [0.0] * 376})
+            _check(status == 200, f"[obs] act after the kill {status}")
+        for rate, r in runs.items():
+            r["child"].send_signal(signal.SIGTERM)
+        for rate, r in runs.items():
+            text, _ = r["child"].communicate(timeout=120)
+            _check(r["child"].returncode == 0,
+                   f"[obs] serve CLI at rate {rate} exit "
+                   f"{r['child'].returncode}: {text[-2000:]}")
+    finally:
+        for r in runs.values():
+            if r["child"].poll() is None:
+                r["child"].kill()
+                r["child"].wait(timeout=60)
+    for rate, r in runs.items():
+        logs = {p.stem: [json.loads(x) for x in p.read_text().splitlines()]
+                for p in sorted(r["dir"].glob("*.jsonl"))}
+        bad = [(name, validate_event(rec)) for name, recs in logs.items()
+               for rec in recs if validate_event(rec)]
+        _check(not bad, f"[obs] invalid serving records: {bad[:3]}")
+        router = logs["router"]
+        spans = [x for recs in logs.values() for x in recs
+                 if x["kind"] == "span"]
+        traces = {x["trace"] for x in spans}
+        roots = {x["trace"] for x in router if x["kind"] == "span"
+                 and x["name"] == "router.act" and "parent" not in x}
+        _check(traces <= roots, f"[obs] rate {rate}: "
+               f"{len(traces - roots)} sampled traces without a root")
+        requests = [x for x in router if x["kind"] == "router"
+                    and x.get("scope") == "request"]
+        retry = [x for x in spans if x["name"] == "router.retry"]
+        if rate == 0.0:
+            _check(retry and any(x["retried"] and "trace" in x
+                                 for x in requests),
+                   f"[obs] rate 0: the failover left no trace "
+                   f"({len(retry)} retry spans)")
+        load = r["load"]
+        print(f"[obs] serving humanoid-sim, router over 2 children, trace "
+              f"rate {rate}: /act {CONTROL_CLIENTS} clients x "
+              f"{CONTROL_PER}: {load['rps']:.1f} requests/s, p50 "
+              f"{load['p50']:.3f} ms, p99 {load['p99']:.3f} ms; "
+              f"{len(traces)} traces, {len(spans)} spans "
+              f"({len(spans) / max(1, len(traces)):.2f} a trace) over the "
+              f"router's and the children's logs, every record valid, "
+              f"every trace with its root"
+              + (f"; child r0 (pid {r['killed']}) killed: {len(retry)} "
+                 "router.retry span(s) traced at rate 0"
+                 if "killed" in r else "")
+              + f" ({card})", flush=True)
+    print(f"[obs] the three serving sets (6 children) up together in "
+          f"{up_s:.2f} s; each took its load while the other two idled "
+          f"({card})", flush=True)
+
+
+def phase_obs(torch, dev):
+    """The run-event bus, the tracer and live training telemetry: the
+    train CLI with every telemetry flag (a subprocess, as users run it),
+    the solver counter against K1 and the telemetry overhead in process,
+    and the replicated server's traces at three rates."""
+    card = _card_line()
+    work = WORK / "obs"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ck_dir = _obs_train_cli(torch, dev, work, card)
+    counts = _obs_overhead(torch, dev, work, card)
+    _obs_serving(torch, dev, ck_dir, work, card)
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -3956,6 +4287,7 @@ def main() -> int:
                 ("preempt", lambda: phase_preempt(torch, dev)),
                 ("serve", lambda: phase_serve(torch, dev)),
                 ("control", lambda: phase_control(torch, dev)),
+                ("obs", lambda: phase_obs(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

@@ -273,8 +273,11 @@ def test_bounds_validate_like_the_reference(kw):
     for cls in (TpuAutoscaler, Autoscaler):
         with pytest.raises(ValueError):
             cls(_FakeSet(1), _FakeRouter(), **kw)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        Autoscaler(_FakeSet(1), _FakeRouter(), 1, 2, bus=object())
+    # the run-event bus is ported: accepted, and the decisions ride it
+    from trpo_torch.obs.events import EventBus
+
+    bus = EventBus()
+    assert Autoscaler(_FakeSet(1), _FakeRouter(), 1, 2, bus=bus).bus is bus
 
 
 # ---------------------------------------------------------------------------

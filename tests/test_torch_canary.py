@@ -149,8 +149,12 @@ def test_controller_defaults_validate_and_refuse_the_bus():
         for cls in (TpuCanaryController, CanaryController):
             with pytest.raises(ValueError):
                 cls(None, None, lambda: None, **kw)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        CanaryController(None, None, lambda: None, bus=object())
+    # the run-event bus is ported: accepted (the gate's events are
+    # tested with the replicated server in test_torch_trace.py)
+    from trpo_torch.obs.events import EventBus
+
+    bus = EventBus()
+    assert CanaryController(None, None, lambda: None, bus=bus).bus is bus
 
 
 def test_canary_rejects_a_nan_checkpoint_and_promotes_a_clean_one(

@@ -100,8 +100,17 @@ def test_replicaset_validates_like_the_reference(kw):
 
 
 def test_replicaset_refuses_the_event_bus():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ReplicaSet(lambda rid: None, 1, bus=object())
+    # the bus is ported (it was refused before): each launch is a
+    # schema-valid `router` replica record, as in the reference
+    from trpo_torch.obs.events import EventBus, validate_event
+
+    recs = []
+    rs = ReplicaSet(lambda rid: None, 2, bus=EventBus(recs.append))
+    rs.close()
+    assert [(r["replica"], r["state"]) for r in recs] == [
+        ("r0", "started"), ("r1", "started")]
+    assert all(r["scope"] == "replica" and not validate_event(r)
+               for r in recs)
 
 
 def test_scale_out_ids_are_never_reused_and_drain_lifecycle():

@@ -467,8 +467,18 @@ def test_batcher_rejects_bad_config_shapes_and_a_bus(loaded_engine):
         MicroBatcher(engine, deadline_ms=0)
     with pytest.raises(ValueError, match="max_queue"):
         MicroBatcher(engine, max_queue=0)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        MicroBatcher(engine, bus=object())
+    # the bus is ported: one schema-valid `serve` record per dispatch
+    from trpo_torch.obs.events import EventBus, validate_event
+
+    recs = []
+    bus_batcher = MicroBatcher(engine, bus=EventBus(recs.append))
+    try:
+        bus_batcher.submit(np.zeros(engine.obs_shape, np.float32)).result(
+            timeout=30.0)
+    finally:
+        bus_batcher.close()
+    assert [(r["kind"], r["requests"]) for r in recs] == [("serve", 1)]
+    assert not validate_event(recs[0])
     batcher = MicroBatcher(engine, deadline_ms=5.0)
     try:
         with pytest.raises(ValueError, match="obs must have shape"):
@@ -610,8 +620,11 @@ def test_server_refuses_unported_hooks_and_unpaired_checkpointer(
     try:
         with pytest.raises(ValueError, match="come together"):
             PolicyServer(engine, batcher, port=0, checkpointer=object())
-        for hook in ("bus", "tracer", "injector", "capture"):
-            with pytest.raises(NotImplementedError, match="item 18"):
+        # the bus and the tracer are ported; the injector and capture
+        # still refuse, naming their sub-items
+        for hook, item in (("injector", "item 18.4"),
+                           ("capture", "item 18.5")):
+            with pytest.raises(NotImplementedError, match=item):
                 PolicyServer(engine, batcher, port=0, **{hook: object()})
     finally:
         batcher.close()
@@ -800,10 +813,14 @@ def test_cli_parser_overrides_and_refusals():
     assert build_parser().parse_args(
         ["--checkpoint-dir", "x", "--router-core", "thread"]
     ).router_core == "thread"
-    for flags in (["--metrics-jsonl", "x"], ["--trace-sample-rate", "1"],
-                  ["--capture"], ["--inject-faults", "x"]):
-        with pytest.raises(NotImplementedError, match="item 18"):
+    # --metrics-jsonl and --trace-sample-rate are ported (the rate needs
+    # the event log); --capture and --inject-faults refuse by sub-item
+    for flags, item in ((["--capture"], "item 18.5"),
+                        (["--inject-faults", "x"], "item 18.4")):
+        with pytest.raises(NotImplementedError, match=item):
             main(["--checkpoint-dir", "/nonexistent", *flags])
+    assert main(["--checkpoint-dir", "/nonexistent", "--device", "cpu",
+                 "--trace-sample-rate", "1"]) == 2
 
 
 def test_cli_serves_a_checkpoint_and_exits_on_sigterm(tmp_path):

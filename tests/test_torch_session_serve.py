@@ -423,10 +423,19 @@ def test_simulated_cost_engine_serializes_dispatches(rec):
 
 
 def test_store_ttl_lru_and_refuses_a_bus(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        SessionStore(bus=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        CarryJournal(str(tmp_path / "j.jsonl"), bus=object())
+    # the bus is ported: a store's lifecycle records are schema-valid
+    from trpo_torch.obs.events import EventBus, validate_event
+
+    recs = []
+    bus_store = SessionStore(max_sessions=1, sweep_interval=60.0,
+                             bus=EventBus(recs.append), replica="r0")
+    bus_store.create(np.zeros(2, np.float32), session_id="a")
+    bus_store.create(np.zeros(2, np.float32), session_id="b")
+    bus_store.close()
+    assert [(r["session"], r["event"]) for r in recs] == [
+        ("a", "created"), ("a", "evicted"), ("b", "created")]
+    assert not any(validate_event(r) for r in recs)
+    CarryJournal(str(tmp_path / "j.jsonl"), bus=EventBus()).close()
     store = SessionStore(ttl_s=60.0, max_sessions=2, sweep_interval=60.0)
     try:
         a = store.create(np.zeros(4, np.float32))

@@ -53,9 +53,17 @@ envs with ``cfg.rollout_chunk``) ``learn`` and ``run_iterations`` run the
 overlapped actor/learner loop (:meth:`TRPOAgent._overlap_run`): update k on
 a learner thread and its own CUDA stream while the calling thread collects
 window k+1 on another, with the params the learner started from; the stale
-window is importance-weighted (``trpo.TRPOBatch.is_weight``). The
-reference's telemetry and its fault injector are not ported (ROADMAP.md
-Queue 1 item 18).
+window is importance-weighted (``trpo.TRPOBatch.is_weight``).
+
+``learn(telemetry=...)`` drives an ``obs.Telemetry`` on every driver, as
+the reference does (the manifest, an iteration event per row, health and
+memory on each row, the profiler window, the phase summaries; the
+overlapped loop's ``train/*`` spans with ``cfg.trace_sample_rate``).
+``TrainState.metrics`` carries the reference's five run-cumulative solver
+counters (``obs/device_metrics.py``), added to inside every update and
+merged into every row. ``cfg.debug_nans`` checks each stage's outputs
+(``config.py`` lists it as a stated difference). The fault injector is not
+ported (ROADMAP.md Queue 1 item 18.4).
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -80,6 +88,12 @@ from trpo_torch.models.conv import exact_convolutions
 from trpo_torch.models.moe import make_moe_policy
 from trpo_torch.models.policy import make_policy, spec_from_env
 from trpo_torch.models.recurrent import SeqObs, make_recurrent_policy
+from trpo_torch.obs.device_metrics import (
+    accumulate_update,
+    init_device_metrics,
+    metrics_stats,
+)
+from trpo_torch.obs.trace import TraceContext, Tracer, mint_span_id
 from trpo_torch.ops.flat import tree_leaves, tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.ops.returns import gae_from_next_values
@@ -150,6 +164,8 @@ class TrainState(NamedTuple):
     #                                mirror of the adapter's statistics)
     host_rng: Any = None           # CPU generator of the rollout's samples
     #                                with host_inference="cpu"
+    metrics: Any = None            # obs.device_metrics.DeviceMetrics: the
+    #                                run-cumulative solver counters
 
 
 def _to(tree, device):
@@ -169,6 +185,9 @@ class TRPOAgent:
         check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        if cfg.debug_nans:
+            # process-wide, as the reference's jax_debug_nans is
+            torch.autograd.set_detect_anomaly(True)
         self.n_envs = cfg.resolved_n_envs()
         if isinstance(env, str):
             kwargs = {}
@@ -355,7 +374,21 @@ class TRPOAgent:
             obs_norm=obs_norm,
             host_rng=torch.Generator().manual_seed(seed + 3)
             if self._host_inference_cpu else None,
+            metrics=init_device_metrics(self.device),
         )
+
+    def _check_finite(self, stage: str, tree) -> None:
+        """``cfg.debug_nans``: raise ``FloatingPointError`` naming
+        ``stage`` when a floating tensor of ``tree`` holds a nonfinite
+        value (one host read per call; a debug mode)."""
+        if not self.cfg.debug_nans:
+            return
+        leaves = [t for t in tree_leaves(tree)
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()]
+        if leaves and not bool(torch.stack(
+                [torch.isfinite(t).all() for t in leaves]).all()):
+            raise FloatingPointError(
+                f"debug_nans: a nonfinite value in the {stage}'s outputs")
 
     def _fresh_policy_state(self):
         """A recurrent policy's fresh host-env carry ``(h, prev_done)``."""
@@ -445,6 +478,7 @@ class TRPOAgent:
         cfg = self.cfg
         T, N = traj.rewards.shape
         flat = lambda x: x.reshape((T * N,) + x.shape[2:])  # noqa: E731
+        self._check_finite("rollout", (traj.obs, traj.actions, traj.rewards))
 
         new_obs_norm = train_state.obs_norm
         if self._obs_norm_on_device:
@@ -458,6 +492,7 @@ class TRPOAgent:
 
         adv, vtarg, values = self._advantages(train_state.vf_state, traj,
                                               lam)
+        self._check_finite("advantages", (adv, vtarg))
         weight = torch.ones(T * N, device=adv.device)
         adv_flat = flat(adv)
         if cfg.standardize_advantages:
@@ -519,6 +554,7 @@ class TRPOAgent:
         the state (all of it but ``vf_state``), and the pack the critic
         phase consumes."""
         T_N = aux["weight"].shape[0]
+        self._check_finite("policy update", new_policy_params)
         new_state = train_state._replace(
             policy_params=new_policy_params,
             iteration=train_state.iteration + 1,
@@ -533,6 +569,8 @@ class TRPOAgent:
             if trpo_stats.ladder_next is not None
             else train_state.ladder,
             obs_norm=aux["new_obs_norm"],
+            metrics=accumulate_update(train_state.metrics, trpo_stats)
+            if train_state.metrics is not None else None,
         )
         fit_pack = {
             "vf_in": aux["vf_in"],
@@ -547,6 +585,7 @@ class TRPOAgent:
             "episodes_in_batch": aux["n_episodes"].to(torch.int32),
             # the post-update ladder: its counters surface in the stats
             "ladder": new_state.ladder,
+            "metrics": new_state.metrics,
         }
         return new_state, fit_pack
 
@@ -572,6 +611,7 @@ class TRPOAgent:
             vf_state, fit_pack["vf_in"], fit_pack["vtarg"],
             fit_pack["weight"],
         )
+        self._check_finite("critic fit", new_vf_state)
         stats = {
             "total_episodes": fit_pack["total_episodes"],
             "mean_episode_reward": fit_pack["mean_episode_reward"],
@@ -610,6 +650,8 @@ class TRPOAgent:
                 "audit_runs": lad.audit_runs,
                 "fallbacks": lad.fallbacks,
             })
+        if fit_pack.get("metrics") is not None:
+            stats.update(metrics_stats(fit_pack["metrics"]))
         return new_vf_state, stats
 
     def _process_trajectory(self, train_state: TrainState, traj: Trajectory,
@@ -949,7 +991,7 @@ class TRPOAgent:
     def learn(self, n_iterations: Optional[int] = None,
               state: Optional[TrainState] = None,
               logger: Optional[StatsLogger] = None, checkpointer=None,
-              callback=None) -> TrainState:
+              callback=None, telemetry=None) -> TrainState:
         """Train for ``n_iterations`` more iterations (``cfg.n_iterations``
         by default) from ``state`` (a fresh ``init_state()`` by default);
         returns the final state.
@@ -972,30 +1014,53 @@ class TRPOAgent:
         late) and ``callback`` runs on the drain thread. With
         ``cfg.train_overlap`` it runs the overlapped loop
         (:meth:`_learn_overlap`): one iteration a chunk, and a stop
-        discards the window already collected for the next update."""
+        discards the window already collected for the next update.
+
+        ``telemetry`` (an ``obs.Telemetry``) routes the run through the
+        event bus, as in the reference: the run manifest at the start, an
+        iteration event per row (the logger re-emits through the bus),
+        the health rules and memory gauges on each row, the recompile
+        monitor marked steady after two iterations, the profiler window,
+        and the phase summaries at the end (in a ``finally``, so a
+        raising run still closes its profiler window). ``learn`` drives
+        its lifecycle; the creator closes it."""
         cfg = self.cfg
         n_iterations = n_iterations or cfg.n_iterations
         state = self.init_state() if state is None else state
         own_logger = logger is None
         logger = logger or StatsLogger(jsonl_path=cfg.log_jsonl)
-        timer = PhaseTimer()
-        recovery = (RecoveryPolicy(cfg) if cfg.recover_on_nan == "restore"
-                    else None)
+        timer = PhaseTimer(use_profiler=telemetry is not None
+                           and telemetry.profile_dir is not None)
+        bus = telemetry.bus if telemetry is not None else None
+        if telemetry is not None:
+            telemetry.attach_timer(timer)
+            if logger.bus is None:
+                # one schema for the JSONL rows and the event stream
+                logger.bus = bus
+            telemetry.start_run(
+                cfg, device=self.device, n_iterations=n_iterations,
+                driver="overlap" if self._overlap else "async"
+                if cfg.host_async_pipeline and not self.is_device_env
+                else "serial")
+        recovery = (RecoveryPolicy(cfg, bus=bus)
+                    if cfg.recover_on_nan == "restore" else None)
         guard = PreemptionGuard(enabled=cfg.on_preempt == "checkpoint")
         driver = None
         if cfg.host_async_pipeline and not self.is_device_env:
             driver = lambda: self._learn_host_async(  # noqa: E731
                 n_iterations, state, logger, checkpointer, callback, timer,
-                recovery, guard)
+                recovery, guard, telemetry)
         elif self._overlap:
             driver = lambda: self._learn_overlap(  # noqa: E731
                 n_iterations, state, logger, checkpointer, callback, timer,
-                guard)
+                guard, telemetry)
         if driver is not None:
             try:
                 with guard:
                     return driver()
             finally:
+                if telemetry is not None:
+                    telemetry.finish_run(timer)
                 if own_logger:
                     logger.close()
         chunk = max(1, cfg.fuse_iterations) if self.is_device_env else 1
@@ -1011,14 +1076,23 @@ class TRPOAgent:
                     if guard.triggered:
                         # every finished chunk's rows are processed, so
                         # the state is clean to persist
-                        self._preempt_shutdown(state, checkpointer, guard)
+                        self._preempt_shutdown(state, checkpointer, guard,
+                                               bus)
                     if recovery is not None:
                         recovery.snapshot(it0 + done + 1, state)
                     k = min(chunk, n_iterations - done)
+                    if telemetry is not None:
+                        # span=k: the window opens for the chunk that
+                        # contains the requested iteration
+                        telemetry.profile_tick(it0 + done + 1, span=k)
                     with timer.phase("iteration"):
                         state, stack = self.run_iterations(state, k)
                         rows = _host_rows(stack)
                     done += k
+                    if telemetry is not None and done >= 2:
+                        # every kernel has been built by now: a later
+                        # build or capture is unexpected
+                        telemetry.mark_steady()
                     it_end = state.iteration
                     per_iter_ms = timer.last_ms("iteration") / k
                     ts_end = state.total_timesteps
@@ -1042,7 +1116,7 @@ class TRPOAgent:
                             iteration_ms=per_iter_ms,
                             timesteps_total=ts_end
                             - (k - 1 - j) * steps_per_iter,
-                            recovery=recovery,
+                            recovery=recovery, telemetry=telemetry,
                         ) or stop
                     if recovery is not None and recovery.pending is not None:
                         # before the callback and the checkpoint, so
@@ -1061,6 +1135,8 @@ class TRPOAgent:
                     if stop:
                         break
         finally:
+            if telemetry is not None:
+                telemetry.finish_run(timer)
             if own_logger:
                 logger.close()
         return state
@@ -1068,13 +1144,15 @@ class TRPOAgent:
     def _finish_iteration_stats(self, host_stats, reward_running, logger, *,
                                 iteration: int, iteration_ms: float,
                                 timesteps_total: int,
-                                recovery=None) -> bool:
+                                recovery=None, telemetry=None) -> bool:
         """Add the running episode mean, the wall-clock fields and the
         timestep total to one iteration's host stats, log the row, then
         apply the stop rules: raise on NaN entropy, return True on
         ``cfg.reward_target`` or ``cfg.stop_on_explained_variance``. With
         ``recovery``, a nonfinite row is logged and flagged for the loop
-        instead, and not folded into the running mean."""
+        instead, and not folded into the running mean. ``telemetry`` sees
+        every logged row before the NaN abort can raise, so its finding
+        reaches the sinks on the abort path too."""
         cfg = self.cfg
 
         def log():
@@ -1083,6 +1161,8 @@ class TRPOAgent:
             host_stats["iteration_ms"] = iteration_ms
             host_stats["timesteps_total"] = timesteps_total
             logger.log(iteration, host_stats)
+            if telemetry is not None:
+                telemetry.on_iteration(iteration, host_stats)
 
         ent = host_stats["entropy"]
         if recovery is not None:
@@ -1110,10 +1190,11 @@ class TRPOAgent:
                 and host_stats["vf_explained_variance"]
                 > cfg.stop_on_explained_variance)
 
-    def _preempt_shutdown(self, state: TrainState, checkpointer, guard):
+    def _preempt_shutdown(self, state: TrainState, checkpointer, guard,
+                          bus=None):
         """The orderly preemption exit: a final checkpoint (unless the
-        cadence has just written this step), then ``Preempted`` with the
-        requeue exit code."""
+        cadence has just written this step), the ``preempted`` health
+        event, then ``Preempted`` with the requeue exit code."""
         step = state.iteration
         saved = False
         if checkpointer is not None and step > 0:
@@ -1121,6 +1202,14 @@ class TRPOAgent:
                 checkpointer.save(step, state,
                                   host_env=self.snapshot_host_env())
             saved = True
+        if bus is not None:
+            bus.emit(
+                "health", check="preempted", level="warn",
+                message=(f"signal {guard.signum}: pipeline drained, "
+                         + (f"final checkpoint at step {step}, " if saved
+                            else "no checkpointer configured, ")
+                         + "exiting for requeue"),
+                data={"signum": guard.signum, "step": step, "saved": saved})
         raise Preempted(
             f"preempted by signal {guard.signum} after iteration {step}",
             state=state,
@@ -1133,7 +1222,8 @@ class TRPOAgent:
     # the overlapped actor/learner loop (cfg.train_overlap)
     # ------------------------------------------------------------------
 
-    def _overlap_collect(self, params, roll_stats, carry, rng, timer):
+    def _overlap_collect(self, params, roll_stats, carry, rng, timer,
+                         ctx=None, root_id=None):
         """One ``(T, N)`` window from ``params`` normalized by
         ``roll_stats``, streamed chunk by chunk
         (:meth:`rollout.ChunkedRollout.iter_chunks`) on the calling
@@ -1145,33 +1235,52 @@ class TRPOAgent:
         the two windows in flight are ≈ 0.3 GB at humanoid-sim-fleet's
         width, and a host copy would only add a transfer each way. The
         rollout builds new tensors every step, so the carry it returns
-        never aliases one that ``TrainState.env_carry`` holds."""
+        never aliases one that ``TrainState.env_carry`` holds. With a trace
+        context each chunk is also a ``train/rollout_chunk`` span under
+        ``root_id`` (the reference's ``train/transfer`` span has no
+        counterpart: the window never leaves the card)."""
         chunks = ChunkedRollout(self.env, self._normed_policy(roll_stats),
                                 self.cfg.rollout_chunk).iter_chunks(
             params, carry, rng, self.n_steps)
         parts = []
         for _ in range(self.n_steps // self.cfg.rollout_chunk):
+            t0, p0 = time.time(), time.perf_counter()
             with timer.phase("rollout_chunk"):
                 carry, part = next(chunks)
                 _sync_stream(self.device)
+            if ctx is not None:
+                ctx.record("train/rollout_chunk", t0,
+                           (time.perf_counter() - p0) * 1e3,
+                           parent_id=root_id)
             parts.append(part)
         return carry, concat_chunks(parts)
 
     def _overlap_learner_step(self, state: TrainState, window: Trajectory,
-                              roll_stats, stale: bool, timer):
+                              roll_stats, stale: bool, timer, ctx=None,
+                              root_id=None):
         """One update on a window, on the calling thread's stream: the
         batch, the CG solve, the line search, the merge and the critic fit,
         the policy phase of the serial loop split into stages. Each stage
         is timed (``update/advantage``, ``update/fvp_cg_solve``,
         ``update/linesearch``, ``update/vf_fit``) up to its end on this
         stream only: a device-wide synchronize would also wait for the
-        actor's work. Returns ``(state, stats, host_row)``."""
+        actor's work. With a trace context each stage is also a
+        ``train/<stage>`` span inside a ``train/update`` span under
+        ``root_id``. Returns ``(state, stats, host_row)``."""
+        up_id = mint_span_id() if ctx is not None else None
+
         def staged(name, fn, *args):
+            t0, p0 = time.time(), time.perf_counter()
             with timer.phase(name):
                 out = fn(*args)
                 _sync_stream(self.device)
+            if ctx is not None:
+                ctx.record(f"train/{name}", t0,
+                           (time.perf_counter() - p0) * 1e3,
+                           parent_id=up_id)
             return out
 
+        t_up, p_up = time.time(), time.perf_counter()
         with timer.phase("update"):
             batch, aux = staged("advantage", self._batch_phase, state,
                                 window, roll_stats, None, stale)
@@ -1186,11 +1295,15 @@ class TRPOAgent:
             new_vf, stats = staged("vf_fit", self._vf_stats_phase,
                                    new_state.vf_state, fit_pack)
             row = _host_row(stats)
+        if ctx is not None:
+            ctx.record("train/update", t_up,
+                       (time.perf_counter() - p_up) * 1e3,
+                       parent_id=root_id, span_id=up_id, stale=bool(stale))
         return new_state._replace(vf_state=new_vf), stats, row
 
     def _overlap_run(self, state: TrainState, n_iterations: int, *,
                      timer: Optional[PhaseTimer] = None, on_row=None,
-                     pre_iter=None):
+                     pre_iter=None, tracer=None):
         """The overlapped actor/learner loop (``cfg.train_overlap``).
 
         Schedule, staleness hard-bounded at one window: collect window 0
@@ -1215,8 +1328,20 @@ class TRPOAgent:
         with ``state.env_carry`` already the carry after the window in
         flight (and ``state.rng`` past it), so a checkpoint taken there
         resumes both chains; a stop discards that window. Returns
-        ``(state, [stats of each iteration])``."""
+        ``(state, [stats of each iteration])``.
+
+        ``tracer`` (an ``obs.trace.Tracer``): one trace for the run, a
+        ``train/run`` root span booked at the end, and under it each
+        window's ``train/rollout_chunk`` and each update's stage spans;
+        the context is flushed and renewed after every iteration, so the
+        tracer's pending buffer holds one window whatever the run's
+        length."""
         timer = PhaseTimer() if timer is None else timer
+        ctx = root_id = None
+        if tracer is not None:
+            ctx = tracer.begin()
+            root_id = mint_span_id()
+            run_t0, run_p0 = time.time(), time.perf_counter()
         cuda = self.device.type == "cuda"
         actor = learner = caller = None
         if cuda:
@@ -1231,12 +1356,12 @@ class TRPOAgent:
             return (torch.cuda.stream(stream) if stream is not None
                     else contextlib.nullcontext())
 
-        def learner_step(st, window, roll_stats, stale, ready):
+        def learner_step(st, window, roll_stats, stale, ready, ctx):
             with on_stream(learner):
                 if ready is not None:
                     learner.wait_event(ready)
                 out = self._overlap_learner_step(st, window, roll_stats,
-                                                 stale, timer)
+                                                 stale, timer, ctx, root_id)
                 done = None
                 if cuda:
                     done = torch.cuda.Event()
@@ -1260,13 +1385,13 @@ class TRPOAgent:
                 roll_stats = state.obs_norm
                 carry, window = self._overlap_collect(
                     state.policy_params, roll_stats, state.env_carry,
-                    state.rng, timer)
+                    state.rng, timer, ctx, root_id)
                 for k in range(n_iterations):
                     if pre_iter is not None:
                         pre_iter(k, state)
                     t0 = time.perf_counter()
                     fut = pool.submit(learner_step, state, window, roll_stats,
-                                      k > 0, hand_over(window))
+                                      k > 0, hand_over(window), ctx)
                     next_window = next_stats = None
                     if k + 1 < n_iterations:
                         # read before the join: the state the learner started
@@ -1274,7 +1399,7 @@ class TRPOAgent:
                         next_stats = state.obs_norm
                         carry, next_window = self._overlap_collect(
                             state.policy_params, next_stats, carry, state.rng,
-                            timer)
+                            timer, ctx, root_id)
                     (new_state, stats, row), done = fut.result()
                     if done is not None:
                         actor.wait_event(done)
@@ -1283,6 +1408,10 @@ class TRPOAgent:
                     iter_s = time.perf_counter() - t0
                     timer.record("iteration", iter_s)
                     rows.append(stats)
+                    if tracer is not None:
+                        # flush this window's spans (all ended), renew
+                        tracer.finish(ctx)
+                        ctx = TraceContext(ctx.trace_id, ctx.sampled)
                     if on_row is not None and on_row(k, state, row,
                                                      iter_s * 1e3):
                         break
@@ -1294,38 +1423,61 @@ class TRPOAgent:
                 caller.wait_stream(actor)
                 caller.wait_stream(learner)
                 _record_stream((state, rows), caller)
+            if tracer is not None:
+                ctx.record("train/run", run_t0,
+                           (time.perf_counter() - run_p0) * 1e3,
+                           span_id=root_id, overlap=1,
+                           staleness_bound=int(self.cfg.train_overlap),
+                           iterations=len(rows))
+                tracer.finish(ctx)
         return state, rows
 
     def _learn_overlap(self, n_iterations, state, logger, checkpointer,
-                       callback, timer, guard) -> TrainState:
+                       callback, timer, guard, telemetry=None) -> TrainState:
         """``learn``'s overlapped driver: every row goes through
         :meth:`_finish_iteration_stats` (stop rules, NaN abort, logging),
         then the callback and the checkpoint cadence, as in the serial
         loop with one iteration a chunk. NaN recovery is refused by the
-        config for this driver."""
+        config for this driver. With ``cfg.trace_sample_rate > 0`` and a
+        telemetry bus, a ``Tracer(process="train")`` spans the loop."""
         cfg = self.cfg
         reward_running = RunningEpisodeMean()
         it0 = state.iteration
+        bus = telemetry.bus if telemetry is not None else None
+        tracer = None
+        if bus is not None and cfg.trace_sample_rate > 0:
+            tracer = Tracer(bus, cfg.trace_sample_rate, process="train")
 
         def pre_iter(k, st):
             if guard.triggered:
                 # every finished iteration's row is processed, and st holds
                 # the refreshed carry and generator
-                self._preempt_shutdown(st, checkpointer, guard)
+                self._preempt_shutdown(st, checkpointer, guard, bus)
+            if telemetry is not None:
+                telemetry.profile_tick(it0 + k + 1, span=1)
 
         def on_row(k, st, row, iter_ms):
             it = it0 + k + 1
             stop = self._finish_iteration_stats(
                 row, reward_running, logger, iteration=it,
-                iteration_ms=iter_ms, timesteps_total=st.total_timesteps)
+                iteration_ms=iter_ms, timesteps_total=st.total_timesteps,
+                telemetry=telemetry)
+            if telemetry is not None and k + 1 >= 2:
+                telemetry.mark_steady()
             if callback is not None:
                 callback(st, row)
             if checkpointer is not None and it % cfg.checkpoint_every == 0:
                 checkpointer.save(it, st)
             return stop
 
-        state, _ = self._overlap_run(state, n_iterations, timer=timer,
-                                     on_row=on_row, pre_iter=pre_iter)
+        try:
+            state, _ = self._overlap_run(state, n_iterations, timer=timer,
+                                         on_row=on_row, pre_iter=pre_iter,
+                                         tracer=tracer)
+        finally:
+            if tracer is not None:
+                tracer.drain()
+                tracer.close()
         return state
 
     # ------------------------------------------------------------------
@@ -1333,7 +1485,8 @@ class TRPOAgent:
     # ------------------------------------------------------------------
 
     def _learn_host_async(self, n_iterations, state, logger, checkpointer,
-                          callback, timer, recovery, guard) -> TrainState:
+                          callback, timer, recovery, guard,
+                          telemetry=None) -> TrainState:
         """The asynchronous driver for host envs (counterpart: the
         reference's ``_learn_host_async``).
 
@@ -1359,6 +1512,7 @@ class TRPOAgent:
         steps_per_iter = self.n_steps * self.n_envs
         reward_running = RunningEpisodeMean()
         it0, ts0 = state.iteration, state.total_timesteps
+        bus = telemetry.bus if telemetry is not None else None
         side = (torch.cuda.Stream(self.device)
                 if self.device.type == "cuda" else None)
 
@@ -1368,7 +1522,7 @@ class TRPOAgent:
                 host_stats, reward_running, logger, iteration=i + 1,
                 iteration_ms=iter_ms,
                 timesteps_total=ts0 + (i - it0 + 1) * steps_per_iter,
-                recovery=recovery)
+                recovery=recovery, telemetry=telemetry)
             if callback is not None and (recovery is None
                                          or recovery.pending is None):
                 callback(cb_state, host_stats)
@@ -1433,10 +1587,14 @@ class TRPOAgent:
                     drain.drain()
                     if recovery is not None and recovery.pending is not None:
                         _, cur = recovery.recover()
-                    self._preempt_shutdown(cur, checkpointer, guard)
+                    self._preempt_shutdown(cur, checkpointer, guard, bus)
                 if recovery is not None:
                     land_b()
                     recovery.snapshot(i + 1, cur)
+                if telemetry is not None:
+                    telemetry.profile_tick(i + 1)
+                    if j >= 2:
+                        telemetry.mark_steady()
                 with timer.phase("rollout"):
                     cur, traj = self._host_collect(cur, timer=timer)
                 if callback is not None:
@@ -1463,6 +1621,10 @@ class TRPOAgent:
                     restored_at, cur = recovery.recover()
                     j = restored_at - 1 - it0
                     continue
+                if telemetry is not None:
+                    # host-side gauges only, never a device read
+                    telemetry.observe_drain(drain.depth, drain.high_water,
+                                            drain.maxsize)
                 if drain.stop_requested:
                     continue  # the epilogue above lands phase B first
                 j += 1

@@ -2,13 +2,15 @@
 
 The port keeps its own copy of the training fields of ``TRPOConfig`` and of
 the preset ladder, so a preset name means the same run in both packages,
-and every ``serve_*`` field with the reference's validation, so a serving
-configuration round-trips. Fleet, chaos and observability fields
-(``inject_faults``, ``metrics_jsonl``, ``status_port``,
-``memory_accounting``, ``trace_sample_rate``) are left out until those
-layers are ported (ROADMAP.md Queue 1 item 18).
+every ``serve_*`` field with the reference's validation, so a serving
+configuration round-trips, and the telemetry fields (``status_port``,
+``memory_accounting``, ``trace_sample_rate``, ``debug_nans``). The
+supervised worker pool's fields (``env_step_timeout``,
+``max_worker_restarts``, ``min_env_workers``, ``worker_backoff``: ROADMAP.md
+Queue 1 item 18.3), ``inject_faults`` (18.4) and ``mesh_axes`` (item 16)
+are left out until those layers are ported.
 
-Two differences from the reference:
+Differences from the reference:
 
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
@@ -20,6 +22,18 @@ Two differences from the reference:
   never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
   copied from the reference stays constructible.
+* ``debug_nans`` cannot set ``jax_debug_nans``. Its counterpart turns on
+  ``torch.autograd.set_detect_anomaly`` (process-wide, as the reference's
+  flag is) and checks every stage's outputs for nonfinite values — the
+  rollout, the advantages, the policy update and the critic fit — raising
+  ``FloatingPointError`` naming the stage. It costs a host read per stage,
+  so it is a debug mode only.
+* Telemetry (``obs/``): the run manifest's ``jax_version`` is ``"n/a"``,
+  with ``torch_version``, ``cuda_version`` and ``device_name`` beside it;
+  ``memory_accounting`` emits no ``scope="program"`` record (no compiled
+  program to analyse, ``obs/memory.py``); the ``recompile`` events count
+  kernel builds and CUDA graph captures, not XLA retraces
+  (``obs/recompile.py``).
 """
 
 from __future__ import annotations
@@ -161,6 +175,20 @@ class TRPOConfig:
     host_inference: str = "device"  # host envs: where the rollout's policy
     #                                runs: "device" (the agent's), or "cpu"
     mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
+    debug_nans: bool = False       # anomaly detection and a finite check of
+    #                                every stage's outputs (module
+    #                                docstring); a debug mode
+    # --- telemetry (obs/) ------------------------------------------------
+    status_port: Optional[int] = None  # live /status and /metrics on
+    #                                127.0.0.1 (obs/server.py); 0 = the OS
+    #                                picks; None = no server thread
+    memory_accounting: bool = False  # per-iteration allocator gauges and
+    #                                the health:memory_leak rule
+    #                                (obs/memory.py)
+    trace_sample_rate: float = 0.0  # head-based trace sampling
+    #                                (obs/trace.py): the serving plane's
+    #                                requests, and the overlapped loop's
+    #                                train/* spans when > 0
 
     # --- serving: the data plane (serve/) --------------------------------
     serve_batch_shapes: Tuple[int, ...] = (1, 8, 64)  # the engine's rung
@@ -244,7 +272,7 @@ class TRPOConfig:
         if self.train_overlap:
             # each of these owns the iteration's sequencing in a way the
             # overlapped driver cannot compose with (the reference's
-            # inject_faults check lands with its field, item 18)
+            # inject_faults check lands with its field, item 18.4)
             if self.rollout_chunk is None:
                 raise ValueError(
                     "train_overlap=1 streams the rollout through the "
@@ -278,6 +306,15 @@ class TRPOConfig:
                     "in-flight stale window as well as the update — run "
                     "the synchronous loop when restore-recovery matters"
                 )
+        if self.status_port is not None and not (
+                0 <= self.status_port < 65536):
+            raise ValueError(
+                "status_port must be in [0, 65535] (0 = OS-assigned) or "
+                f"None, got {self.status_port}")
+        if not 0.0 <= self.trace_sample_rate <= 1.0:
+            raise ValueError(
+                "trace_sample_rate must be in [0, 1], got "
+                f"{self.trace_sample_rate}")
         if self.host_inference not in ("device", "cpu"):
             raise ValueError(
                 'host_inference must be "device" or "cpu", got '
@@ -511,7 +548,7 @@ def check_ported(cfg: TRPOConfig) -> None:
         _not_ported("mesh_shape", "item 16")
     if cfg.env.startswith("gymproc:"):
         _not_ported(f"env {cfg.env!r} (the gymproc: worker pool)",
-                    "item 18")
+                    "item 18.3")
 
 
 def refuse_unported(name: str, value, item: str) -> None:

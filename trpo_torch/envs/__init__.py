@@ -13,7 +13,7 @@
   needs gymnasium and the id's simulator).
 
 ``"gymproc:<EnvId>"`` (the worker-process pool) is not ported yet
-(ROADMAP.md Queue 1 item 18).
+(ROADMAP.md Queue 1 item 18.3).
 """
 
 import inspect
@@ -88,7 +88,7 @@ def make(name: str, max_episode_steps=None, device=None, **kwargs):
     if name.startswith("gymproc:"):
         raise NotImplementedError(
             f"env {name!r}: the gymproc: worker pool is not ported to "
-            "trpo_torch yet (ROADMAP.md Queue 1 item 18); use gym: or "
+            "trpo_torch yet (ROADMAP.md Queue 1 item 18.3); use gym: or "
             "native:")
     if name in DEVICE_ENVS:
         cls = DEVICE_ENVS[name]

@@ -25,7 +25,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
+
+from trpo_torch.obs import recompile
 
 __all__ = ["BUILD_ROOT", "FLAGS", "SOURCE", "build", "compiler_info"]
 
@@ -106,6 +109,7 @@ def build(root: Path = None) -> Path:
             if lib.exists():  # another process built it while we waited
                 return lib
             tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+            t0 = time.perf_counter()
             proc = subprocess.run(
                 [cxx, *FLAGS, "-o", str(tmp), str(SOURCE)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -118,6 +122,7 @@ def build(root: Path = None) -> Path:
                     f"{proc.returncode} on {SOURCE}:\n{proc.stdout}"
                 )
             os.replace(tmp, lib)
+            recompile.notify(f"build:{LIB_NAME}", time.perf_counter() - t0)
     return lib
 
 

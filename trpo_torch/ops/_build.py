@@ -23,10 +23,13 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import List, Sequence
 
 import torch
+
+from trpo_torch.obs import recompile
 
 __all__ = ["LAUNCHES", "build", "check", "kernel", "reset_launches", "stream_of"]
 
@@ -84,6 +87,7 @@ def build() -> Path:
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     tag = f"{os.getpid()}"
     procs = []
     for src in sources:
@@ -115,6 +119,7 @@ def build() -> Path:
     os.replace(out_dir / f"build.{tag}.log", out_dir / "build.log")
     for _, obj, _ in procs:
         obj.unlink(missing_ok=True)
+    recompile.notify(f"build:{LIB_NAME}", time.perf_counter() - t0)
     return lib_path
 
 

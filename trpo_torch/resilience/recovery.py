@@ -10,6 +10,7 @@ re-runs from it (device envs re-run the same computation, so a one-off
 fault continues bit-exactly), and ``cg_damping`` is escalated through the
 adaptive-damping state when that is on. After ``cfg.max_recoveries``
 consecutive recoveries the policy raises :class:`TrainingDiverged`.
+With a ``bus`` every recovery emits a ``recovery`` event.
 
 The snapshot is a deep copy: every tensor leaf is cloned and the rollout
 generator, which the rollout advances in place, is copied with its state.
@@ -51,8 +52,9 @@ def copy_state(state: Any) -> Any:
 
 
 class RecoveryPolicy:
-    def __init__(self, cfg, keep: int = 2):
+    def __init__(self, cfg, keep: int = 2, bus=None):
         self.cfg = cfg
+        self.bus = bus
         self._keep = keep
         self._snaps: dict = {}
         self._pending: Optional[Tuple[int, str]] = None
@@ -116,12 +118,21 @@ class RecoveryPolicy:
         # hand out a copy: the stored snapshot must survive a retry that
         # fails again
         state = copy_state(self._snaps[at])
+        escalated = None
         if state.cg_damping is not None:
             # a recovery is the strongest "this step was bad" signal the
             # adaptive damping can get
             state = state._replace(cg_damping=torch.clamp(
                 state.cg_damping * self.cfg.damping_grow,
                 max=self.cfg.damping_max))
+            if self.bus is not None:
+                escalated = float(state.cg_damping)
+        if self.bus is not None:
+            self.bus.emit("recovery", action="restore", reason=reason,
+                          iteration=iteration, restored_to=at,
+                          consecutive=self.consecutive,
+                          total=self.total_recoveries,
+                          cg_damping=escalated)
         print(f"recovery: nonfinite update at iteration {iteration} "
               f"({reason}); restored the state before iteration {at} "
               f"(consecutive {self.consecutive})", file=sys.stderr)

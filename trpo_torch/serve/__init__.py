@@ -31,8 +31,10 @@ The control plane composes replicas of the data plane:
   :class:`TemplateTransport` (named hosts, placement, bounded discovery).
 
 ``python -m trpo_torch.serve`` is the CLI (``--replicas N`` puts a router
-in front of N replicas). The event bus, tracing, fault injection and
-capture are ROADMAP.md Queue 1 item 18.
+in front of N replicas). Every component takes the run-event bus
+(``bus=``) and the front ends a tracer (``tracer=``, ``obs/trace.py``);
+fault injection and request capture are ROADMAP.md Queue 1 items 18.4
+and 18.5.
 """
 
 from trpo_torch.serve.autoscaler import Autoscaler

@@ -35,10 +35,19 @@ children (``--hosts`` places them on named hosts, with leases).
 :class:`~trpo_torch.serve.CanaryController`, and ``--max-replicas`` arms
 the :class:`~trpo_torch.serve.Autoscaler`. At exit the router prints
 ``routed N requests (…)``. An inconsistent combination of these flags
-exits 2 with the reference's message. The telemetry and fault flags
-(``--metrics-jsonl``, ``--trace-sample-rate``, ``--capture``,
-``--inject-faults``) raise ``NotImplementedError`` naming ROADMAP.md
-Queue 1 item 18.
+exits 2 with the reference's message.
+
+``--metrics-jsonl PATH`` appends the run-event stream (a manifest, then
+every component's events: ``serve`` per micro-batch, replica lifecycle,
+requests, sessions, canary and autoscaler decisions) in the reference's
+schema; ``--trace-sample-rate R`` (which needs it) traces that share of
+requests as ``span`` records, one ``Tracer`` per process role (the
+router, each in-process replica); a ``--replica-cmd`` child arms its own
+through its template. At rate 0 no request is head-sampled, but every
+anomaly (a retried or failed request, a session failover) is still
+traced; without the flag there is no tracer. ``--capture`` (ROADMAP.md Queue 1 item 18.5) and
+``--inject-faults`` (18.4) raise ``NotImplementedError`` naming their
+item.
 """
 
 from __future__ import annotations
@@ -162,26 +171,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="incumbent episodes the reward gate needs")
     p.add_argument("--reward-budget", type=float,
                    help="mean-return drop the reward gate tolerates")
-    # telemetry and faults (item 18): parsed so that they refuse by name
+    p.add_argument("--metrics-jsonl",
+                   help="append the run-event stream here (the reference's "
+                        "schema)")
+    p.add_argument("--trace-sample-rate", type=float,
+                   help="head-sampling rate of request traces (span "
+                        "records on --metrics-jsonl; anomalies are always "
+                        "traced)")
+    # capture and faults: parsed so that they refuse by item number
     # instead of as unknown flags
-    for flag, kind in (("--metrics-jsonl", str),
-                       ("--trace-sample-rate", float),
-                       ("--inject-faults", str)):
-        p.add_argument(flag, type=kind, help=argparse.SUPPRESS)
+    p.add_argument("--inject-faults", help=argparse.SUPPRESS)
     p.add_argument("--capture", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
 def _refuse_unported(args) -> None:
-    telemetry = [f for f, v in (
-        ("--metrics-jsonl", args.metrics_jsonl is not None),
-        ("--trace-sample-rate", args.trace_sample_rate is not None),
-        ("--capture", args.capture),
-        ("--inject-faults", args.inject_faults is not None)) if v]
-    if telemetry:
+    if args.capture:
         raise NotImplementedError(
-            f"{', '.join(telemetry)}: telemetry and fault injection are "
-            "not ported to trpo_torch yet (ROADMAP.md Queue 1 item 18)")
+            "--capture: request capture is not ported to trpo_torch yet "
+            "(ROADMAP.md Queue 1 item 18.5)")
+    if args.inject_faults is not None:
+        raise NotImplementedError(
+            "--inject-faults: fault injection is not ported to trpo_torch "
+            "yet (ROADMAP.md Queue 1 item 18.4)")
 
 
 def config_from_args(args):
@@ -227,6 +239,7 @@ def config_from_args(args):
         "serve_reward_window": args.reward_window,
         "serve_reward_min_episodes": args.reward_min_episodes,
         "serve_reward_budget": args.reward_budget,
+        "trace_sample_rate": args.trace_sample_rate,
     }.items() if v is not None}
     return cfg.replace(**updates) if updates else cfg
 
@@ -261,6 +274,9 @@ def _arming_error(args, cfg, recurrent: bool) -> Optional[str]:
                 "journal the parent router resumes/drains from — include: "
                 "--carry-journal-dir {checkpoint}/carry_journal "
                 "--replica-name {replica}.")
+    if cfg.trace_sample_rate > 0 and not args.metrics_jsonl:
+        return ("--trace-sample-rate emits spans on the event bus — pass "
+                "--metrics-jsonl so they land somewhere.")
     if cfg.serve_max_replicas is not None and cfg.serve_replicas < 2:
         return ("--max-replicas (the elastic autoscaler) needs the "
                 "replicated control plane — run with --replicas >= 2.")
@@ -314,6 +330,33 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # the canary controller promotes into this cell; a replica launched
     # mid-gate reads it, so it never comes up on the step under test
     incumbent = {"step": None}
+    bus = None
+    if args.metrics_jsonl:
+        from trpo_torch.obs.events import EventBus, JsonlSink, manifest_fields
+
+        bus = EventBus(JsonlSink(args.metrics_jsonl))
+        bus.emit("run_manifest", **manifest_fields(cfg, extra={
+            "driver": "serve", "checkpoint_dir": ck_dir,
+            "replicas": cfg.serve_replicas, "recurrent": recurrent,
+            "canary_fraction": cfg.serve_canary_fraction,
+            "carry_journal": journal_dir}, device=agent.device))
+    # one Tracer per process role, cached by name so a relaunched replica
+    # reuses its own instead of leaking a writer thread per restart
+    tracers: dict = {}
+
+    def make_tracer(name: str):
+        # armed whenever a rate is given: at 0 no request is head-sampled,
+        # but an anomaly (a retry, a failure, a failover) is still traced
+        if bus is None or args.trace_sample_rate is None:
+            return None
+        if name not in tracers:
+            from trpo_torch.obs.trace import Tracer
+
+            # a host-namespaced replica name ("hostA--r0") names its host
+            host = name.split("--", 1)[0] if "--" in name else None
+            tracers[name] = Tracer(bus, cfg.trace_sample_rate, process=name,
+                                   host=host)
+        return tracers[name]
 
     def build_replica(replica_name, port, uds_path=None):
         """One serving stack: its engine, batcher, checkpoint watcher and
@@ -326,7 +369,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             engine = agent.serve_engine()
             batcher = MicroBatcher(
                 engine, deadline_ms=cfg.serve_deadline_ms,
-                adaptive_deadline=cfg.serve_adaptive_deadline)
+                adaptive_deadline=cfg.serve_adaptive_deadline, bus=bus)
         server = PolicyServer(
             engine, batcher, port, host=args.host,
             checkpointer=Checkpointer(args.checkpoint_dir),
@@ -342,6 +385,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             session_deadline_ms=cfg.serve_session_deadline_ms,
             session_adaptive_deadline=cfg.serve_adaptive_deadline,
             uds_path=uds_path,
+            bus=bus,
+            tracer=make_tracer(replica_name or "solo"),
         )
         return server, [batcher] if batcher is not None else []
 
@@ -379,7 +424,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 launcher, cfg.serve_replicas,
                 health_interval=cfg.serve_health_interval,
                 max_restarts=cfg.serve_replica_restarts,
-                transport=transport, lease_ttl=lease_ttl)
+                transport=transport, lease_ttl=lease_ttl, bus=bus)
             replicaset.start()
             router = Router(
                 replicaset, args.port, host=args.host,
@@ -389,7 +434,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 journal_dir=journal_dir,
                 canary_fraction=cfg.serve_canary_fraction,
                 min_latency_samples=cfg.serve_autoscale_min_samples,
-                uds_path=args.uds_path, core=args.router_core)
+                uds_path=args.uds_path, core=args.router_core, bus=bus,
+                tracer=make_tracer("router"))
             if canary:
                 controller = CanaryController(
                     replicaset, router,
@@ -401,7 +447,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     reward_window_episodes=cfg.serve_reward_window,
                     reward_min_episodes=(
                         cfg.serve_reward_min_episodes or None),
-                    reward_budget=cfg.serve_reward_budget)
+                    reward_budget=cfg.serve_reward_budget, bus=bus)
                 controller.start()
             if cfg.serve_max_replicas is not None:
                 autoscaler = Autoscaler(
@@ -411,7 +457,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     slo_p99_ms=cfg.serve_slo_p99_ms,
                     interval=cfg.serve_autoscale_interval,
                     min_samples=cfg.serve_autoscale_min_samples,
-                    drain_timeout_s=cfg.serve_drain_timeout)
+                    drain_timeout_s=cfg.serve_drain_timeout, bus=bus)
                 autoscaler.start()
             front, endpoints = router, list(Router.ENDPOINTS)
         else:
@@ -430,6 +476,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 "recurrent": recurrent,
                 "device": str(agent.device),
                 "checkpoint_dir": ck_dir,
+                "events_jsonl": os.path.abspath(args.metrics_jsonl)
+                if args.metrics_jsonl else None,
             })
         proto = "/session" if recurrent else "/act"
         step = ("" if replicated
@@ -451,6 +499,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 part.close()
         for c in closers:
             c.close()
+        for t in tracers.values():
+            t.close()  # flush pending spans before the bus closes
+        if bus is not None:
+            bus.close()
     if router is not None:
         print(f"routed {router.routed_total} requests "
               f"({router.retried_total} retried, {router.failed_total} "

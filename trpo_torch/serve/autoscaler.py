@@ -23,10 +23,12 @@
   session it cannot move losslessly ABORTS back to rotation. Bounded by
   ``min_replicas``.
 
-The reference reports each decision on its run-event bus (ROADMAP.md
-Queue 1 item 18; ``bus=`` is refused). Here ``scale_outs_total``,
-``drains_completed_total``, ``drains_aborted_total``, ``last_action``
-and ``last_reason`` record them.
+Every decision is an ``autoscale`` event on the bus when one is attached
+(``scale_out`` / ``drain_started`` / ``drain_completed`` /
+``drain_aborted``, each with its reason), as in the reference; beside
+them ``scale_outs_total``, ``drains_completed_total``,
+``drains_aborted_total``, ``last_action`` and ``last_reason`` record
+them.
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
-from trpo_torch.config import refuse_unported
 from trpo_torch.utils.metrics import quantile_nearest_rank
 
 __all__ = ["Autoscaler"]
@@ -99,7 +100,7 @@ class Autoscaler:
                 "need 0 < inflight_low_frac < inflight_high_frac <= 1, "
                 f"got ({inflight_low_frac}, {inflight_high_frac})"
             )
-        refuse_unported("the run-event bus (bus=)", bus, "item 18")
+        self.bus = bus
         self.replicaset = replicaset
         self.router = router
         self.min_replicas = int(min_replicas)
@@ -143,10 +144,20 @@ class Autoscaler:
 
     # -- plumbing ----------------------------------------------------------
 
-    def _record(self, action: str, replica: str, reason: str) -> None:
-        self.last_action, self.last_replica = action, replica
-        self.last_reason = reason
-        self.last_action_t = time.monotonic()
+    def _record(self, action: str, replica: str, reason: str,
+                **extra) -> None:
+        """Record one decision, and emit it as an ``autoscale`` event when
+        a bus is attached (a closed bus never breaks the loop)."""
+        if action != "drain_started":
+            self.last_action, self.last_replica = action, replica
+            self.last_reason = reason
+            self.last_action_t = time.monotonic()
+        if self.bus is not None:
+            try:
+                self.bus.emit("autoscale", event=action, reason=reason,
+                              replica=replica, **extra)
+            except Exception:
+                pass
 
     def start(self) -> None:
         if self._thread is not None:
@@ -350,6 +361,7 @@ class Autoscaler:
             if rid is None or not self.replicaset.begin_drain(rid):
                 return False
             self._cooldown_until = time.monotonic() + self.cooldown_s
+            self._record("drain_started", rid, reason)
             t0 = time.monotonic()
             try:
                 ok, detail, moved = self._drain(rid)
@@ -363,7 +375,8 @@ class Autoscaler:
                 self.replicaset.abort_drain(rid)
                 self.drains_aborted_total += 1
                 self._record("drain_aborted", rid,
-                             f"{detail} ({moved} sessions moved)")
+                             f"{detail} ({moved} sessions moved)",
+                             sessions_moved=moved)
                 return False
             if not self.replicaset.finish_drain(rid):
                 # the victim left `draining` between the last check and
@@ -373,12 +386,15 @@ class Autoscaler:
                 self.drains_aborted_total += 1
                 self._record("drain_aborted", rid,
                              "victim died before termination "
-                             f"({moved} sessions moved)")
+                             f"({moved} sessions moved)",
+                             sessions_moved=moved)
                 return False
             self.drains_completed_total += 1
             self.last_drain_s = time.monotonic() - t0
             self.last_drain_moved = moved
-            self._record("drain_completed", rid, reason)
+            self._record("drain_completed", rid, reason,
+                         duration_s=round(self.last_drain_s, 3),
+                         sessions_moved=moved)
             return True
 
     def _drain(self, rid: str):

@@ -32,8 +32,13 @@ window is a fixed-size deque. An engine failure fails exactly the
 requests of that batch; the dispatcher survives. ``close`` stops
 admission, drains what was accepted, and joins the dispatcher.
 
-The reference's per-dispatch ``serve`` events and trace spans are not
-ported (ROADMAP.md Queue 1 item 18): ``bus`` must be None.
+With a ``bus`` (``obs.events.EventBus``) each dispatch emits one
+``serve`` event (requests coalesced, padded rung, queue depth left
+behind, oldest latency), as the reference's does. A traced request
+(``submit(..., trace=(ctx, parent_span_id))``) gets a ``batch.queue_wait``
+span (submit → gather) and a per-trace copy of the dispatch span
+(``engine.infer`` / ``engine.step_batch``), every copy of one epoch
+wearing the SAME span id; an engine failure forces its traces.
 """
 
 from __future__ import annotations
@@ -48,30 +53,34 @@ from typing import Optional
 import numpy as np
 import torch
 
-from trpo_torch.config import refuse_unported
+from trpo_torch.obs.trace import mint_span_id
 from trpo_torch.utils.metrics import quantile_nearest_rank
 
 __all__ = ["MicroBatcher", "SessionBatcher"]
 
 
 class _Pending:
-    __slots__ = ("obs", "t", "future")
+    __slots__ = ("obs", "t", "future", "trace")
 
-    def __init__(self, obs, t: float):
+    def __init__(self, obs, t: float, trace=None):
         self.obs = obs
         self.t = t
         self.future: Future = Future()
+        # (TraceContext, parent span id, wall-clock submit time) of a
+        # traced request, or None
+        self.trace = trace
 
 
 class _SessionPending:
-    __slots__ = ("sid", "carry", "obs", "t", "future")
+    __slots__ = ("sid", "carry", "obs", "t", "future", "trace")
 
-    def __init__(self, sid: str, carry, obs, t: float):
+    def __init__(self, sid: str, carry, obs, t: float, trace=None):
         self.sid = sid
         self.carry = carry
         self.obs = obs
         self.t = t
         self.future: Future = Future()
+        self.trace = trace  # see _Pending.trace
 
 
 class _DeadlineBatcher:
@@ -91,7 +100,6 @@ class _DeadlineBatcher:
         cost_ema_alpha: float = 0.2,
         thread_name: str = "serve-batcher",
     ):
-        refuse_unported("the run-event bus (bus=)", bus, "item 18")
         if deadline_ms <= 0:
             raise ValueError(f"deadline_ms must be > 0, got {deadline_ms}")
         if max_queue < 1:
@@ -103,6 +111,7 @@ class _DeadlineBatcher:
             raise ValueError(
                 f"cost_ema_alpha must be in (0, 1], got {cost_ema_alpha}")
         self.engine = engine
+        self.bus = bus
         self.deadline_ms = float(deadline_ms)
         self.max_queue = int(max_queue)
         self.adaptive_deadline = bool(adaptive_deadline)
@@ -218,10 +227,11 @@ class _DeadlineBatcher:
                     self._cond.wait(budget_ms / 1e3)
                     continue  # more requests may have landed
                 batch = self._take_batch_locked(full)
+                depth_after = len(self._queue)
                 self._cond.notify_all()  # wake submitters blocked on space
-            self._dispatch(batch)
+            self._dispatch(batch, depth_after)
 
-    def _dispatch(self, batch) -> None:  # pragma: no cover
+    def _dispatch(self, batch, depth_after: int) -> None:  # pragma: no cover
         raise NotImplementedError
 
     def _fail_batch(self, batch, exc: Exception) -> None:
@@ -229,24 +239,59 @@ class _DeadlineBatcher:
         with self._cond:
             self.errors_total += len(batch)
         for p in batch:
+            if p.trace is not None:
+                # an engine failure is an anomaly: the trace survives
+                # sampling, so the 500 has attribution
+                p.trace[0].force()
             p.future.set_exception(exc)
 
-    def _timed(self, batch, call):
+    def _timed(self, batch, call, span_name: str):
         """Run ``call()`` as one dispatch of ``batch``: record its cost and
-        the batch's latencies, or fail the batch. Returns the result, or
-        None after a failure."""
-        t0 = time.perf_counter()
+        the batch's latencies and book the traced requests' spans, or fail
+        the batch. Returns ``(result, latencies)``, or None after a
+        failure."""
+        t0, wall = time.perf_counter(), time.time()
         try:
             out = call()
         except Exception as e:  # scoped to this batch's futures
             self._fail_batch(batch, e)
             return None
         done = time.perf_counter()
-        self._observe_dispatch((done - t0) * 1e3,
-                               [(done - p.t) * 1e3 for p in batch])
+        lats = [(done - p.t) * 1e3 for p in batch]
+        self._observe_dispatch((done - t0) * 1e3, lats)
+        self._trace_epoch(batch, span_name,
+                          self.engine.padded_shape(len(batch)), t0, wall,
+                          done)
         with self._cond:
             self.batches_total += 1
-        return out
+        return out, lats
+
+    def _trace_epoch(self, batch, span_name: str, rung: int,
+                     t_gather: float, wall_infer: float,
+                     done: float) -> None:
+        """Book the epoch's spans into every traced participant's context:
+        a ``batch.queue_wait`` span (submit → gather) and its copy of the
+        dispatch span, every copy wearing the SAME span id, so N coalesced
+        requests point at ONE dispatch."""
+        traced = [p for p in batch if p.trace is not None]
+        if not traced:
+            return
+        epoch_id = mint_span_id()
+        cost_ms = (done - t_gather) * 1e3
+        for p in traced:
+            ctx, parent_id, t_wall = p.trace
+            qid = ctx.record("batch.queue_wait", start=t_wall,
+                             dur_ms=max(0.0, (t_gather - p.t) * 1e3),
+                             parent_id=parent_id)
+            ctx.record(span_name, start=wall_infer, dur_ms=cost_ms,
+                       parent_id=qid, span_id=epoch_id, width=len(batch),
+                       rung=rung)
+
+    def _emit_dispatch(self, batch, depth_after: int, lats) -> None:
+        if self.bus is not None:
+            self.bus.emit("serve", requests=len(batch),
+                          padded=self.engine.padded_shape(len(batch)),
+                          queue_depth=depth_after, latency_ms=max(lats))
 
     def close(self) -> None:
         """Stop accepting requests, drain what is queued, and join the
@@ -263,27 +308,31 @@ class MicroBatcher(_DeadlineBatcher):
     """Deadline-bounded request coalescing in front of an
     :class:`~trpo_torch.serve.engine.InferenceEngine` (stateless /act)."""
 
-    def submit(self, obs) -> Future:
+    def submit(self, obs, trace=None) -> Future:
         """Enqueue ONE observation; the future resolves to ``(action,
         step)``, ``step`` being the checkpoint step of the snapshot that
         computed it. Blocks while the queue is at its bound; raises
-        ``RuntimeError`` after :meth:`close`."""
+        ``RuntimeError`` after :meth:`close`. ``trace`` is the caller's
+        ``(TraceContext, parent span id)``, or None."""
         obs = np.asarray(obs, self.engine.obs_dtype)
         if obs.shape != self.engine.obs_shape:
             raise ValueError(
                 f"obs must have shape {self.engine.obs_shape}, "
                 f"got {obs.shape}")
-        return self._enqueue(_Pending(obs, time.perf_counter()))
+        if trace is not None:
+            trace = (trace[0], trace[1], time.time())
+        return self._enqueue(_Pending(obs, time.perf_counter(), trace))
 
-    def _dispatch(self, batch) -> None:
+    def _dispatch(self, batch, depth_after: int) -> None:
         obs = np.stack([p.obs for p in batch], axis=0)
         out = self._timed(batch, lambda: self.engine.infer(
-            obs, return_step=True))
+            obs, return_step=True), "engine.infer")
         if out is None:
             return
-        actions, step = out
+        (actions, step), lats = out
         for p, action in zip(batch, actions):
             p.future.set_result((np.asarray(action), step))
+        self._emit_dispatch(batch, depth_after, lats)
 
 
 class SessionBatcher(_DeadlineBatcher):
@@ -323,12 +372,13 @@ class SessionBatcher(_DeadlineBatcher):
             return self.epoch_width_sum / self.batches_total
 
     def submit(self, sid: str, carry, obs,
-               timeout: Optional[float] = None) -> Future:
+               timeout: Optional[float] = None, trace=None) -> Future:
         """Enqueue ONE session step; the future resolves to ``(action,
         new_carry, step)``. The caller owns the carry's read-modify-write
         order (the HTTP front end holds the session lock from submit to
         result). ``timeout`` bounds the QUEUE wait
-        (``concurrent.futures.TimeoutError``; the step never ran)."""
+        (``concurrent.futures.TimeoutError``; the step never ran).
+        ``trace``: the caller's ``(TraceContext, parent span id)``."""
         if not isinstance(sid, str) or not sid:
             raise ValueError(f"sid must be a non-empty string, got {sid!r}")
         if not isinstance(carry, torch.Tensor):
@@ -342,8 +392,10 @@ class SessionBatcher(_DeadlineBatcher):
             raise ValueError(
                 f"obs must have shape {self.engine.obs_shape}, "
                 f"got {obs.shape}")
+        if trace is not None:
+            trace = (trace[0], trace[1], time.time())
         return self._enqueue(
-            _SessionPending(sid, carry, obs, time.perf_counter()),
+            _SessionPending(sid, carry, obs, time.perf_counter(), trace),
             timeout=timeout)
 
     def _take_batch_locked(self, full: int) -> list:
@@ -362,7 +414,7 @@ class SessionBatcher(_DeadlineBatcher):
             self._queue.extendleft(reversed(held))
         return batch
 
-    def _dispatch(self, batch) -> None:
+    def _dispatch(self, batch, depth_after: int) -> None:
         dev = self._carry_device
         if dev is not None:
             carries = torch.stack([
@@ -373,13 +425,14 @@ class SessionBatcher(_DeadlineBatcher):
                                 for p in batch])
         obs = np.stack([p.obs for p in batch], axis=0)
         out = self._timed(batch, lambda: self.engine.step_batch(
-            carries, obs, return_step=True))
+            carries, obs, return_step=True), "engine.step_batch")
         if out is None:
             return
-        actions, new_carries, step = out
+        (actions, new_carries, step), lats = out
         with self._cond:
             self.epoch_width_last = len(batch)
             self.epoch_width_sum += len(batch)
         for i, p in enumerate(batch):
             p.future.set_result((np.asarray(actions[i]), new_carries[i],
                                  step))
+        self._emit_dispatch(batch, depth_after, lats)

@@ -52,6 +52,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence, \
 import numpy as np
 import torch
 
+from trpo_torch.obs import recompile
 from trpo_torch.ops.flat import tree_map
 from trpo_torch.utils.normalize import normalize
 
@@ -234,7 +235,10 @@ class LadderEngine:
             with torch.cuda.stream(stream):
                 inputs = [torch.zeros(shape, dtype=dtype, device=self.device)
                           for shape, dtype in self._input_specs(rung)]
+            t0 = time.perf_counter()
             graphs[rung] = _GraphRung(fn, inputs, stream)
+            recompile.notify(f"capture:{type(self).__name__}:rung_{rung}",
+                             time.perf_counter() - t0)
             with self._lock:
                 self.captures_total += 1
         stream.synchronize()

@@ -34,10 +34,12 @@ out of new placement while the lease decides.
 :class:`CanaryController` turns a new checkpoint into a gated
 deployment over the set (see its docstring).
 
-The reference reports every transition on its run-event bus; the bus is
-ROADMAP.md Queue 1 item 18 and ``bus=`` is refused until then. The
-state of record is :meth:`ReplicaSet.snapshot` (with each record's
-``last_death_reason``) and the controller's counters and
+With a ``bus`` (``obs.events.EventBus``) every transition is an event, as
+in the reference: replica lifecycle and host health as ``router``
+records, leases as ``lease`` records, each canary transition as a
+``canary`` record (a rejection also as ``health:canary_rejected``). The
+state of record beside them is :meth:`ReplicaSet.snapshot` (with each
+record's ``last_death_reason``) and the controller's counters and
 ``last_reason``.
 """
 
@@ -53,7 +55,6 @@ import urllib.error
 import urllib.request
 from typing import Callable, Dict, List, Optional
 
-from trpo_torch.config import refuse_unported
 
 __all__ = [
     "RECORD_STATES",
@@ -284,6 +285,7 @@ class ReplicaRecord:
         self.lease_expires: Optional[float] = None  # monotonic; None =
         #                            no live lease (never granted, or
         #                            consumed by expiry/relaunch)
+        self.lease_renewed_emit = 0.0  # throttle for `renewed` events
 
     def row(self) -> dict:
         return {
@@ -308,8 +310,8 @@ class ReplicaSet:
     called again — with the same id — for every restart. Thread-safe:
     the router reads rotation state and bumps inflight under
     ``self.lock``; the supervisor mutates lifecycle state under the
-    same lock. ``bus=`` (the reference's event bus) is refused: ROADMAP.md
-    Queue 1 item 18.
+    same lock. ``bus`` (an ``obs.events.EventBus``) receives the
+    lifecycle, host and lease records.
     """
 
     def __init__(
@@ -358,7 +360,7 @@ class ReplicaSet:
             raise ValueError(
                 f"suspect_decay_s must be > 0, got {suspect_decay_s}"
             )
-        refuse_unported("the run-event bus (bus=)", bus, "item 18")
+        self.bus = bus
         if transport is None:
             from trpo_torch.serve.transport import LocalExecTransport
 
@@ -420,6 +422,42 @@ class ReplicaSet:
         rec.handle = self.transport.launch(rec.host, rec.id)
         rec.url = getattr(rec.handle, "url", None)
         rec.uds_path = getattr(rec.handle, "uds_path", None)
+        self._emit(rec.id, "started", attempt=rec.restarts + 1)
+
+    def _emit(self, replica_id: str, state: str, **extra) -> None:
+        """One ``router`` ``scope="replica"`` lifecycle record (a
+        multi-host record names its host); a closed bus never breaks
+        supervision."""
+        if self.bus is None:
+            return
+        rec = self.replicas.get(replica_id)
+        if rec is not None and rec.host != "local" and "host" not in extra:
+            extra["host"] = rec.host
+        try:
+            self.bus.emit("router", scope="replica", replica=replica_id,
+                          state=state, **extra)
+        except Exception:
+            pass
+
+    def _emit_host(self, host: str, state: str) -> None:
+        if self.bus is None:
+            return
+        try:
+            self.bus.emit("router", scope="host", host=host, state=state)
+        except Exception:
+            pass
+
+    def _emit_lease(self, rec: ReplicaRecord, event: str, **extra) -> None:
+        if self.bus is None:
+            return
+        fields = {"replica": rec.id, "event": event,
+                  "epoch": rec.lease_epoch}
+        if rec.host != "local":
+            fields["host"] = rec.host
+        try:
+            self.bus.emit("lease", **{**fields, **extra})
+        except Exception:
+            pass
 
     def start(self) -> None:
         """Run the supervisor thread (the constructor already launched
@@ -485,17 +523,23 @@ class ReplicaSet:
         with self.lock:
             fails = self._host_fails.get(host, 0) + 1
             self._host_fails[host] = fails
+            newly = (fails >= self.suspect_after
+                     and host not in self._suspect)
             if fails >= self.suspect_after:
                 # (re)stamp: continued strikes keep the decay window
                 # open — only a strike-free decay period clears it
                 self._suspect[host] = time.monotonic()
+        if newly:
+            self._emit_host(host, "suspect")
 
     def _note_transport_ok(self, host: str) -> None:
         if not self._hosts_tracked():
             return
         with self.lock:
             self._host_fails.pop(host, None)
-            self._suspect.pop(host, None)
+            healed = self._suspect.pop(host, None) is not None
+        if healed:
+            self._emit_host(host, "healthy")
 
     def _renew_lease(self, rec: ReplicaRecord) -> None:
         """An answered healthz exchange IS the renewal: the lease
@@ -503,10 +547,18 @@ class ReplicaSet:
         The first answer of an incarnation GRANTS a new epoch."""
         if self.lease_ttl is None:
             return
+        now = time.monotonic()
         with self.lock:
-            if rec.lease_expires is None:
+            granted = rec.lease_expires is None
+            if granted:
                 rec.lease_epoch += 1
-            rec.lease_expires = time.monotonic() + self.lease_ttl
+                rec.lease_renewed_emit = now
+            rec.lease_expires = now + self.lease_ttl
+        if granted:
+            self._emit_lease(rec, "granted", ttl=self.lease_ttl)
+        elif now - rec.lease_renewed_emit >= self.lease_ttl / 2.0:
+            rec.lease_renewed_emit = now
+            self._emit_lease(rec, "renewed")
 
     def _lease_expired(self, rec: ReplicaRecord) -> bool:
         with self.lock:
@@ -529,6 +581,7 @@ class ReplicaSet:
                 return
             rec.lease_expires = None  # consumed: one expiry per grant
             self.lease_expiries_total += 1
+        self._emit_lease(rec, "expired", ttl=self.lease_ttl)
         self._mark_died(
             rec,
             reason=(
@@ -672,6 +725,8 @@ class ReplicaSet:
                 )
                 if changed:
                     rec.state = new_state
+            if changed:
+                self._emit(rec.id, new_state)
 
     def _mark_died(self, rec: ReplicaRecord, reason: str) -> None:
         """died → evicted (out of rotation NOW) → backoff relaunch, or
@@ -681,6 +736,7 @@ class ReplicaSet:
                 return  # already resolved (e.g. router reported first)
             rec.state = "evicted"
             rec.last_death_reason = reason
+        self._emit(rec.id, "died", reason=reason)
         try:
             rec.handle.kill()  # reap a half-dead process/socket
         except Exception:
@@ -691,10 +747,13 @@ class ReplicaSet:
                 rec.last_death_reason = (
                     f"{reason}; crash budget exhausted "
                     f"({self.max_restarts})")
+            self._emit(rec.id, "evicted", reason=reason)
+            self._emit(rec.id, "failed", reason=(
+                f"crash budget exhausted ({self.max_restarts})"))
             return
-        rec.not_before = time.monotonic() + min(
-            self.backoff * (2 ** rec.restarts), self.backoff_cap
-        )
+        delay = min(self.backoff * (2 ** rec.restarts), self.backoff_cap)
+        rec.not_before = time.monotonic() + delay
+        self._emit(rec.id, "evicted", reason=reason, backoff_s=delay)
 
     def _relaunch(self, rec: ReplicaRecord) -> None:
         """Backoff elapsed: burn one crash-budget unit and relaunch.
@@ -708,6 +767,7 @@ class ReplicaSet:
             rec.url = None
             rec.uds_path = None
             rec.lease_expires = None
+        self._emit(rec.id, "restarted", attempt=rec.restarts + 1)
         try:
             # placement re-decides per relaunch: a replica lease-evicted
             # off a partitioned host comes back on a host the transport
@@ -725,6 +785,8 @@ class ReplicaSet:
                     rec.last_death_reason = (
                         "crash budget exhausted "
                         f"({self.max_restarts}) — relaunch raised")
+                self._emit(rec.id, "failed",
+                           reason=rec.last_death_reason)
                 return
             with self.lock:
                 rec.state = "evicted"
@@ -800,6 +862,7 @@ class ReplicaSet:
             if rec.state != "healthy" or rec.canary:
                 return False
             rec.state = "draining"
+        self._emit(replica_id, "draining")
         return True
 
     def abort_drain(self, replica_id: str) -> None:
@@ -814,6 +877,7 @@ class ReplicaSet:
             if rec.state != "draining":
                 return
             rec.state = "healthy"
+        self._emit(replica_id, "healthy")
 
     def finish_drain(self, replica_id: str) -> bool:
         """Scale-in terminal: remove a session-empty draining replica
@@ -828,6 +892,7 @@ class ReplicaSet:
             # record: `failed` is skipped by tick() and _mark_died, so
             # a removed replica can never be "relaunched" into a leak
             rec.state = "failed"
+        self._emit(replica_id, "drained")
         if rec.handle is not None:
             try:
                 rec.handle.close()
@@ -975,8 +1040,9 @@ class CanaryController:
     ``last_decision_s`` is how long its gate took from the reload
     command to the terminal, and ``last_p99_ms`` holds the canary's and
     the pooled incumbents' p99 that its p99 gate compared (None when
-    the gate did not reach that comparison). ``bus=`` is refused (ROADMAP.md Queue 1
-    item 18).
+    the gate did not reach that comparison). With ``bus`` each
+    transition is also a ``canary`` event, and a rejection a
+    ``health:canary_rejected`` finding.
     """
 
     def __init__(
@@ -1019,7 +1085,7 @@ class CanaryController:
             raise ValueError(
                 f"reward_budget must be >= 0, got {reward_budget}"
             )
-        refuse_unported("the run-event bus (bus=)", bus, "item 18")
+        self.bus = bus
         self.replicaset = replicaset
         self.router = router
         self.latest_step_fn = latest_step_fn
@@ -1190,6 +1256,7 @@ class CanaryController:
             return  # retry next tick
         with self.replicaset.lock:
             rec.canary = True
+        self._emit("started", step, rec.id)
         t0 = time.monotonic()
         self.last_p99_ms = None
         try:
@@ -1425,11 +1492,18 @@ class CanaryController:
                 # it keeps serving its step; the reconcile pass on a
                 # later tick converges it
                 self.promotion_reload_failures_total += 1
+                self._emit_health(
+                    "canary_promotion_partial",
+                    f"promotion reload to step {step} failed on "
+                    f"{other.id} (status={status}) — it keeps serving "
+                    f"step {other.loaded_step}; the reconcile pass on "
+                    "a later tick will converge it")
         with self.replicaset.lock:
             rec.canary = False
         self.promoted_total += 1
         self.last_step, self.last_decision = step, "promoted"
         self.last_reason = None
+        self._emit("promoted", step, rec.id)
 
     def _rollback(self, rec: ReplicaRecord, step: int, reason: str) -> None:
         if self._replica_alive(rec) and rec.url:
@@ -1467,6 +1541,29 @@ class CanaryController:
         self.rolled_back_total += 1
         self.last_step, self.last_decision = step, "rolled_back"
         self.last_reason = reason
+        self._emit("rolled_back", step, rec.id, reason=reason)
+        self._emit_health(
+            "canary_rejected",
+            f"canary gate rejected checkpoint step {step} on {rec.id}: "
+            f"{reason}", data={"step": step, "replica": rec.id})
+
+    def _emit(self, event: str, step: int, replica: str, **extra) -> None:
+        if self.bus is None:
+            return
+        try:
+            self.bus.emit("canary", step=step, event=event,
+                          replica=replica, **extra)
+        except Exception:  # a closed bus never breaks the gate
+            pass
+
+    def _emit_health(self, check: str, message: str, **extra) -> None:
+        if self.bus is None:
+            return
+        try:
+            self.bus.emit("health", check=check, level="warn",
+                          message=message, **extra)
+        except Exception:
+            pass
 
     def close(self) -> None:
         self._stop.set()

@@ -56,10 +56,22 @@ runs on the server's executor. ``core="thread"`` is the
 thread-per-request front end (:class:`BackgroundHTTPServer`). Both run
 the same control-plane code.
 
-The reference's run-event bus, request tracing, request capture and
-fault injector (``bus=``, ``tracer=``, ``capture=``, ``injector=``) are
-ROADMAP.md Queue 1 item 18 and are refused; the counters on the router
-stand in for the events.
+Telemetry, as in the reference: with a ``bus`` every routed request is
+a ``router`` ``scope="request"`` event (ms, ok, retried, replica, and the
+trace id when the trace is emitted), each session failover or drain a
+``session`` event (``resumed``/``reestablished``/``drained``), each
+client-booked episode a ``session`` ``episode`` event, and sheds
+aggregated ``autoscale`` ``shed`` events (one per reason per second).
+With a ``tracer`` (``obs.trace.Tracer``) each request's trace opens at
+this public edge (the client's ``X-Trace-Id`` or a minted id,
+head-sampled): a ``router.act`` / ``router.session_create`` /
+``router.session_act`` root, a ``router.dispatch`` (``router.retry``)
+span per replica hop whose id rides the hop's ``X-Trace-Parent`` header
+(TCP or Unix socket), and on a session failover ``router.takeover`` and
+``router.fence``. A retried, failed or taken-over request is always
+traced, whatever the rate. The fault injector (``injector=``, ROADMAP.md
+Queue 1 item 18.4) and request capture (``capture=``, 18.5) are
+refused.
 """
 
 from __future__ import annotations
@@ -76,6 +88,7 @@ from collections import deque
 from typing import Dict, Optional, Tuple
 
 from trpo_torch.config import refuse_unported
+from trpo_torch.obs.trace import TRACE_HEADER, Tracer
 from trpo_torch.serve import wire as _wire
 from trpo_torch.utils.exposition import _esc, _fmt, _json_safe
 from trpo_torch.utils.httpd import check_uds_path
@@ -159,11 +172,9 @@ class Router:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        for name, hook in (("the run-event bus (bus=)", bus),
-                           ("the fault injector (injector=)", injector),
-                           ("request tracing (tracer=)", tracer),
-                           ("request capture (capture=)", capture)):
-            refuse_unported(name, hook, "item 18")
+        refuse_unported("the fault injector (injector=)", injector,
+                        "item 18.4")
+        refuse_unported("request capture (capture=)", capture, "item 18.5")
         if core not in ("async", "thread"):
             raise ValueError(
                 f"core must be 'async' or 'thread', got {core!r}"
@@ -224,6 +235,12 @@ class Router:
             else 0
         )
         self._last_pressure = 0.0   # monotonic stamp of the last 503/shed
+        self.bus = bus
+        self.tracer = tracer
+        # shed events: counted per reason, emitted at most once a second
+        self._shed_lock = threading.Lock()
+        self._shed_counts: Dict[str, int] = {}
+        self._shed_emitted: Dict[str, float] = {}
         self._lock = threading.Lock()
         self._affinity: Dict[str, _Affinity] = {}
         self._lat_lock = threading.Lock()
@@ -232,9 +249,11 @@ class Router:
         self._fresh_lats: deque = deque(maxlen=4096)
         # the admission check's TIME-expiring window of (monotonic t, ms)
         self._adm_lats: deque = deque(maxlen=4096)
-        # per-replica rolling windows: the canary gate compares the
-        # canary's p99 against the incumbents' over the same period
+        # per-replica rolling windows of (dispatch start, ms): the canary
+        # gate compares the canary's p99 against the incumbents' over the
+        # same period, counting only requests dispatched after its reset
         self._replica_lats: Dict[str, deque] = {}
+        self._replica_cut = 0.0  # perf_counter of the last reset
         # per-replica completed-episode returns (the reward gate's feed)
         self._replica_eps: Dict[str, deque] = {}
         self.episodes_total = 0
@@ -562,12 +581,13 @@ class Router:
         return status, payload, ctype, keep
 
     async def _aforward(self, replica_id: str, path: str, body: bytes,
-                        fwd_headers: Optional[dict] = None):
+                        fwd_headers: Optional[dict] = None, span=None):
         """The async mirror of :meth:`_forward`, with the UDS-vs-TCP
         dial plan. A pooled connection that fails is redialed ONCE (the
         replica closed its keep-alive side between requests — the replay
         is safe); a fresh socket's failure is a transport failure and
-        raises."""
+        raises. ``span`` (the hop's trace span) is stamped with the
+        transport the dial plan chose."""
         rec = self.replicaset.get(replica_id)
         url = rec.url if rec is not None else None
         if url is None:
@@ -579,6 +599,8 @@ class Router:
             if gate_ms:
                 await asyncio.sleep(gate_ms / 1e3)
         kind, addr = self._dial_plan(rec)
+        if span is not None:
+            span.attrs["transport"] = kind
         headers = {"Content-Type": _JSON}
         if fwd_headers:
             headers.update(fwd_headers)
@@ -637,7 +659,8 @@ class Router:
                 win = self._replica_lats.get(rid)
                 if win is None:
                     win = self._replica_lats[rid] = deque(maxlen=512)
-                win.append(ms)
+                win.append((t0, ms))
+        return ms
 
     def _reserve_pinned(self, pinned: str) -> bool:
         """Reserve a slot on the pinned replica. Draining replicas still
@@ -671,7 +694,8 @@ class Router:
                          pinned: Optional[str] = None,
                          stateless: bool = True,
                          fwd_headers: Optional[dict] = None,
-                         want_canary: Optional[bool] = None):
+                         want_canary: Optional[bool] = None,
+                         endpoint: str = "act", ctx=None, parent=None):
         """:meth:`_dispatch` on the loop: the same decisions, with the
         forward awaited and ``report_failure`` (which may tear down and
         relaunch a replica) on the executor."""
@@ -694,11 +718,16 @@ class Router:
                     break
                 retried = retried or attempt == 1
             tried.append(rid)
+            hop, headers = self._hop(ctx, parent, rid, retried, endpoint,
+                                     fwd_headers)
             try:
                 status, payload, resp_ctype = await self._aforward(
-                    rid, path, body, fwd_headers=fwd_headers,
+                    rid, path, body, fwd_headers=headers, span=hop,
                 )
             except Exception:
+                if hop is not None:
+                    ctx.force()
+                    hop.end(error="transport")
                 self._release(rid)
                 await loop.run_in_executor(
                     self._httpd._executor,
@@ -708,38 +737,146 @@ class Router:
                 if attempt == 0 and pinned is None:
                     continue
                 break
+            if hop is not None:
+                hop.end(status=status)
             self._release(rid)
             if (
                 status >= 500
                 and attempt == 0
                 and pinned is None
             ):
+                if ctx is not None:
+                    ctx.force()
                 first_5xx = ((status, resp_ctype, payload), rid)
                 continue
-            self._book_latency(t0, rid)
+            self._emit_request(self._book_latency(t0, rid), True, retried,
+                               rid, endpoint, ctx)
             return (status, resp_ctype, payload), rid, retried
         if first_5xx is not None:
             (status, ctype, payload), rid = first_5xx
-            self._book_latency(t0, None)
+            self._emit_request(self._book_latency(t0, None), True,
+                               retried, rid, endpoint, ctx)
             return (status, ctype, payload), rid, retried
         return None, lost_rid, retried
 
+    def _hop(self, ctx, parent, rid: str, retried: bool, endpoint: str,
+             fwd_headers: Optional[dict]):
+        """The span of one replica hop (``router.retry`` on the second
+        attempt, which forces the trace) and the headers that carry it
+        downstream; ``(None, fwd_headers)`` when the request is not
+        traced."""
+        if ctx is None:
+            return None, fwd_headers
+        if retried:
+            ctx.force()  # a retried request always has a trace
+        hop = ctx.span(
+            "router.retry" if retried else "router.dispatch",
+            parent=parent, replica=rid, host=self._host_of(rid),
+            endpoint=endpoint,
+            codec="binary" if _wire.is_binary_body(fwd_headers)
+            else "json",
+            transport="tcp",  # the async core's dial plan restamps it
+        )
+        return hop, {**(fwd_headers or {}), **Tracer.headers_for(ctx, hop)}
+
+    def _emit_request(self, ms: float, ok: bool, retried: bool,
+                      replica: Optional[str], endpoint: str,
+                      ctx=None) -> None:
+        if self.bus is None:
+            return
+        fields = {}
+        if ctx is not None and ctx.emitting:
+            # the request event names its trace exactly when the trace
+            # is emitted
+            fields["trace"] = ctx.trace_id
+        try:
+            self.bus.emit("router", scope="request", ms=ms, ok=ok,
+                          retried=retried, replica=replica,
+                          endpoint=endpoint, **fields)
+        except Exception:
+            pass
+
+    # -- request tracing -----------------------------------------------------
+
+    def _trace_edge(self, name: str, headers=None):
+        """Open one request's trace at the public edge: the client's
+        (valid) ``X-Trace-Id`` or a minted id, head-sampled, and its root
+        span. ``(None, None)`` when tracing is off. ``headers``: the
+        request's headers where the caller holds them (the async core);
+        sync handlers read the thread-local."""
+        if self.tracer is None:
+            return None, None
+        if headers is None:
+            from trpo_torch.utils.httpd import request_headers
+
+            headers = request_headers()
+        tid = headers.get(TRACE_HEADER) if headers is not None else None
+        ctx = self.tracer.begin(trace_id=tid)
+        return ctx, ctx.span(name)
+
+    def _trace_done(self, ctx, root, status=None) -> None:
+        """Close the root span and hand the spans to the writer. A 5xx
+        (a replica's, passed through, included) forces the trace, except
+        the typed 503s: a shed is a deliberate admission decision, and
+        tracing every shed would flood the writer exactly under
+        overload."""
+        if ctx is None:
+            return
+        if status is not None and status >= 500 and status != 503:
+            ctx.force()
+        root.end(**({} if status is None else {"status": status}))
+        self.tracer.finish(ctx)
+
+    def _traced(self, name: str, fn, *args, headers=None):
+        """The handler trace wrapper: open the edge context, run the
+        handler with ``(ctx, root)`` appended, close the root with the
+        answered status."""
+        ctx, root = self._trace_edge(name, headers)
+        out = None
+        try:
+            out = fn(*args, ctx, root)
+            return out
+        finally:
+            self._trace_done(ctx, root,
+                             status=out[0] if out is not None else 500)
+
+    async def _atraced(self, name: str, coro_fn, *args, headers=None):
+        """:meth:`_traced` for a coroutine handler."""
+        ctx, root = self._trace_edge(name, headers)
+        out = None
+        try:
+            out = await coro_fn(*args, ctx, root)
+            return out
+        finally:
+            self._trace_done(ctx, root,
+                             status=out[0] if out is not None else 500)
+
     async def _act_async(self, path: str, body: bytes, headers):
+        return await self._atraced("router.act", self._act_async_inner,
+                                   body, headers, headers=headers)
+
+    async def _act_async_inner(self, body: bytes, headers, ctx, root):
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
-        shed = self._admission_check(body, headers=headers)
+        shed = self._admission_check(body, headers=headers, ctx=ctx)
         if shed is not None:
             return shed
         if not _wire.is_binary_body(headers):
             self._recent_obs.append(body)
         result, rid, retried = await self._adispatch(
-            "/act", body, fwd_headers=fwd,
+            "/act", body, fwd_headers=fwd, ctx=ctx, parent=root,
         )
         if result is not None:
             return result
-        return self._unrouted(rid, retried, stateless=True)
+        return self._unrouted(rid, retried, stateless=True, ctx=ctx)
 
     async def _session_act_async(self, path: str, body: bytes, headers):
+        return await self._atraced(
+            "router.session_act", self._session_act_async_inner, path,
+            body, headers, headers=headers)
+
+    async def _session_act_async_inner(self, path: str, body: bytes,
+                                       headers, ctx, root):
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
         sid = self._session_id(path)
@@ -760,17 +897,18 @@ class Router:
                     if self._affinity.get(sid) is not aff:
                         continue  # replaced/removed while we waited
                 return await self._session_act_pinned_async(
-                    sid, aff, body, fwd
+                    sid, aff, body, fwd, ctx, root
                 )
             finally:
                 aff.lock.release()
 
     async def _session_act_pinned_async(self, sid: str, aff,
-                                        body: bytes, fwd):
+                                        body: bytes, fwd, ctx=None,
+                                        root=None):
         body = self._stamp_seq(aff, body, fwd)
         result, rid, retried = await self._adispatch(
             f"/session/{sid}/act", body, pinned=aff.replica,
-            fwd_headers=fwd,
+            fwd_headers=fwd, endpoint="session_act", ctx=ctx, parent=root,
         )
         # fast path: a clean non-404 answer with no pending drain
         # notification needs none of the failover tail
@@ -786,7 +924,7 @@ class Router:
             if result[0] == 200:
                 with self._lock:
                     aff.acts += 1
-                self._book_feedback(aff, rid, body, fwd)
+                self._book_feedback(sid, aff, rid, body, fwd)
             return result
         # the anomaly tail (journal lookup, fence, sync re-dispatch)
         # blocks: run the shared sync code on the executor, aff.lock
@@ -795,6 +933,7 @@ class Router:
             self._httpd._executor,
             lambda: self._session_act_finish(
                 sid, aff, body, result, rid, retried, fwd_headers=fwd,
+                ctx=ctx, root=root,
             ),
         )
 
@@ -816,7 +955,8 @@ class Router:
     def _dispatch(self, path: str, body: bytes,
                   pinned: Optional[str] = None, stateless: bool = True,
                   fwd_headers: Optional[dict] = None,
-                  want_canary: Optional[bool] = None):
+                  want_canary: Optional[bool] = None,
+                  endpoint: str = "act", ctx=None, parent=None):
         """The routed request core: pick (or follow the pin), forward,
         retry ONCE on a transport failure or an un-pinned 5xx, account.
         Returns the upstream ``(status, ctype, body)`` (None = never
@@ -842,19 +982,26 @@ class Router:
                     break
                 retried = retried or attempt == 1
             tried.append(rid)
+            hop, headers = self._hop(ctx, parent, rid, retried, endpoint,
+                                     fwd_headers)
             try:
                 status, payload, resp_ctype = self._forward(
-                    rid, path, body, fwd_headers=fwd_headers,
+                    rid, path, body, fwd_headers=headers,
                 )
             except Exception:
                 # transport failure: the replica died under us — tell
                 # the supervisor (immediate eviction) and retry once
+                if hop is not None:
+                    ctx.force()  # reached-and-lost: an anomaly
+                    hop.end(error="transport")
                 self._release(rid)
                 self.replicaset.report_failure(rid)
                 lost_rid = rid
                 if attempt == 0 and pinned is None:
                     continue
                 break  # a held 5xx still passes through below
+            if hop is not None:
+                hop.end(status=status)
             self._release(rid)
             if (
                 status >= 500
@@ -864,13 +1011,17 @@ class Router:
                 # a server-side error from an un-pinned replica is safe
                 # to re-run once elsewhere; the answer is kept and passes
                 # through verbatim if no second replica exists
+                if ctx is not None:
+                    ctx.force()
                 first_5xx = ((status, resp_ctype, payload), rid)
                 continue
-            self._book_latency(t0, rid)
+            self._emit_request(self._book_latency(t0, rid), True, retried,
+                               rid, endpoint, ctx)
             return (status, resp_ctype, payload), rid, retried
         if first_5xx is not None:
             (status, ctype, payload), rid = first_5xx
-            self._book_latency(t0, None)
+            self._emit_request(self._book_latency(t0, None), True,
+                               retried, rid, endpoint, ctx)
             return (status, ctype, payload), rid, retried
         # no replica left to try: a reached-and-lost replica makes this a
         # FAILURE (lost_rid propagates); otherwise it is backpressure
@@ -903,15 +1054,46 @@ class Router:
                 self._retry_tokens -= 1.0
                 return True
             self.retries_skipped_total += 1
-        self._note_pressure()
+        self._note_shed("retry_budget_exhausted")
         return False
 
-    def _note_pressure(self) -> None:
-        """Stamp the pressure clock: the shed order's "sustained
-        saturation" signal."""
-        self._last_pressure = time.monotonic()
+    def _note_shed(self, reason: str) -> None:
+        """Account one shed: stamp the pressure clock (the shed order's
+        "sustained saturation" signal) and, with a bus, an aggregated
+        ``autoscale`` ``shed`` event, at most one per reason per second,
+        so a storm's thousands of sheds become a handful of counted
+        records."""
+        now = time.monotonic()
+        self._last_pressure = now
+        if self.bus is None:
+            return
+        with self._shed_lock:
+            self._shed_counts[reason] = self._shed_counts.get(reason, 0) + 1
+            if now - self._shed_emitted.get(reason, 0.0) < 1.0:
+                return
+            count = self._shed_counts.pop(reason)
+            self._shed_emitted[reason] = now
+        try:
+            self.bus.emit("autoscale", event="shed", reason=reason,
+                          count=count)
+        except Exception:
+            pass
 
-    def _admission_check(self, body: bytes, headers=None):
+    def _flush_shed_counts(self) -> None:
+        """Emit what the per-reason throttle still holds (at close), so
+        the log's shed counts match the counters."""
+        if self.bus is None:
+            return
+        with self._shed_lock:
+            pending, self._shed_counts = self._shed_counts, {}
+        for reason, count in pending.items():
+            try:
+                self.bus.emit("autoscale", event="shed", reason=reason,
+                              count=count)
+            except Exception:
+                pass
+
+    def _admission_check(self, body: bytes, headers=None, ctx=None):
         """Deadline-aware admission: a request declaring a
         ``deadline_ms`` below the p99 of the last ``_ADMISSION_STALE_S``
         seconds (≥ ``min_latency_samples`` deep) gets an immediate typed
@@ -945,7 +1127,8 @@ class Router:
             return None
         with self._lock:
             self.shed_deadline_total += 1
-        self._note_pressure()
+        self._note_shed("deadline_unmeetable")
+        self._emit_request(0.0, False, False, None, "act", ctx)
         return 503, _JSON, _body(
             {
                 "error": (
@@ -961,12 +1144,15 @@ class Router:
     # -- handlers ----------------------------------------------------------
 
     def _act(self, body: bytes):
+        return self._traced("router.act", self._act_inner, body)
+
+    def _act_inner(self, body: bytes, ctx, root):
         from trpo_torch.utils.httpd import request_headers
 
         headers = request_headers()
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
-        shed = self._admission_check(body, headers=headers)
+        shed = self._admission_check(body, headers=headers, ctx=ctx)
         if shed is not None:
             return shed
         # a small ring of real request bodies for the canary gate's
@@ -974,10 +1160,11 @@ class Router:
         if not _wire.is_binary_body(headers):
             self._recent_obs.append(body)
         result, rid, retried = self._dispatch("/act", body,
-                                              fwd_headers=fwd)
+                                              fwd_headers=fwd, ctx=ctx,
+                                              parent=root)
         if result is not None:
             return result
-        return self._unrouted(rid, retried, stateless=True)
+        return self._unrouted(rid, retried, stateless=True, ctx=ctx)
 
     def _count_codec(self, fwd_headers: Optional[dict]) -> None:
         with self._lock:
@@ -997,12 +1184,17 @@ class Router:
     def replica_latencies_ms(self, replica_id: str) -> list:
         with self._lat_lock:
             win = self._replica_lats.get(replica_id)
-            return list(win) if win is not None else []
+            cut = self._replica_cut
+            return ([ms for t0, ms in win if t0 >= cut]
+                    if win is not None else [])
 
     def reset_replica_latencies(self) -> None:
-        """Start a fresh observation window (gate start)."""
+        """Start a fresh observation window (gate start): a request
+        dispatched before it (in flight across the canary's reload, and
+        possibly answered by the old snapshot) is never judged in it."""
         with self._lat_lock:
             self._replica_lats.clear()
+            self._replica_cut = time.perf_counter()
 
     def replica_episode_returns(self, replica_id: str) -> list:
         """Completed-episode returns booked against one replica since
@@ -1016,14 +1208,18 @@ class Router:
         with self._lat_lock:
             self._replica_eps.clear()
 
-    def _unrouted(self, rid, retried: bool, stateless: bool = False):
+    def _unrouted(self, rid, retried: bool, stateless: bool = False,
+                  endpoint: str = "act", ctx=None):
         """No replica answered: 502 when we reached-and-lost replicas,
         503 backpressure otherwise — typed ``shed_stateless`` when only
         the shed-order headroom refused it (a session request would
         still have been admitted)."""
         if rid is not None:
+            if ctx is not None:
+                ctx.force()  # a failed request always has a trace
             with self._lock:
                 self.failed_total += 1
+            self._emit_request(0.0, False, retried, rid, endpoint, ctx)
             return 502, _JSON, _body(
                 {"error": "replica died mid-request and the retry "
                           "failed or had no replica to go to"}
@@ -1040,7 +1236,9 @@ class Router:
                 self.shed_stateless_total += 1
             else:
                 self.backpressure_total += 1
-        self._note_pressure()
+        self._note_shed("stateless_headroom" if headroom_shed
+                        else "backpressure")
+        self._emit_request(0.0, False, retried, rid, endpoint, ctx)
         if headroom_shed:
             return 503, _JSON, _body(
                 {
@@ -1069,6 +1267,10 @@ class Router:
     # -- sessions ----------------------------------------------------------
 
     def _session_create(self, body: bytes):
+        return self._traced("router.session_create",
+                            self._session_create_inner, body)
+
+    def _session_create_inner(self, body: bytes, ctx, root):
         if body:
             try:
                 payload = json.loads(body)
@@ -1100,9 +1302,10 @@ class Router:
         result, rid, _retried = self._dispatch(
             "/session", _body({"session_id": sid}), stateless=False,
             want_canary=self._canary_session_take() or None,
+            endpoint="session", ctx=ctx, parent=root,
         )
         if result is None:
-            return self._unrouted(rid, False)
+            return self._unrouted(rid, False, endpoint="session", ctx=ctx)
         status, ctype, payload = result
         if status != 200:
             return status, ctype, payload  # 409 wrong_protocol, 503, …
@@ -1186,7 +1389,7 @@ class Router:
                 pass
 
     def _reestablish(self, sid: str, aff, entry, strict: bool = False,
-                     drain: bool = False):
+                     drain: bool = False, ctx=None, parent=None):
         """Re-create the session on a healthy replica — from the
         journaled ``entry`` when one exists (RESUME: carry, steps and
         dedupe state travel), from a fresh carry otherwise. Returns
@@ -1206,6 +1409,7 @@ class Router:
             )
         result, rid, _ = self._dispatch(
             "/session", _body(create), stateless=False,
+            endpoint="session", ctx=ctx, parent=parent,
         )
         if result is None or result[0] != 200:
             if (
@@ -1214,7 +1418,8 @@ class Router:
             ):
                 # a journaled entry the new replica refuses degrades to
                 # the fresh-carry path, never fails the client
-                return self._reestablish(sid, aff, None)
+                return self._reestablish(sid, aff, None, ctx=ctx,
+                                         parent=parent)
             return (result, rid, resumed) if result is not None else (
                 None, rid, resumed
             )
@@ -1228,6 +1433,19 @@ class Router:
                 self.sessions_resumed_total += 1
             else:
                 self.sessions_reestablished_total += 1
+        if self.bus is not None:
+            try:
+                if resumed:
+                    self.bus.emit(
+                        "session", session=sid,
+                        event="drained" if drain else "resumed",
+                        replica=rid, steps=int(entry["steps"]),
+                        lag=max(0, aff.acts - int(entry["steps"])))
+                else:
+                    self.bus.emit("session", session=sid,
+                                  event="reestablished", replica=rid)
+            except Exception:
+                pass
         return True, rid, resumed
 
     def restore_session(self, session_id: str, entry: dict) -> str:
@@ -1392,6 +1610,10 @@ class Router:
         )
 
     def _session_act(self, path: str, body: bytes):
+        return self._traced("router.session_act", self._session_act_inner,
+                            path, body)
+
+    def _session_act_inner(self, path: str, body: bytes, ctx, root):
         from trpo_torch.utils.httpd import request_headers
 
         fwd = self._codec_headers(request_headers())
@@ -1414,10 +1636,12 @@ class Router:
                 body = self._stamp_seq(aff, body, fwd)
                 result, rid, retried = self._dispatch(
                     f"/session/{sid}/act", body, pinned=aff.replica,
-                    fwd_headers=fwd,
+                    fwd_headers=fwd, endpoint="session_act", ctx=ctx,
+                    parent=root,
                 )
                 return self._session_act_finish(
                     sid, aff, body, result, rid, retried, fwd_headers=fwd,
+                    ctx=ctx, root=root,
                 )
 
     def _stamp_seq(self, aff, body: bytes, fwd_headers=None) -> bytes:
@@ -1446,7 +1670,7 @@ class Router:
         except ValueError:
             return body
 
-    def _book_feedback(self, aff, rid, body: bytes,
+    def _book_feedback(self, sid: str, aff, rid, body: bytes,
                        fwd_headers=None) -> None:
         """Realized-return feedback: clients may send a per-act
         ``reward`` and ``done`` in their JSON session-act bodies (the
@@ -1485,9 +1709,17 @@ class Router:
             win.append(ep_return)
         with self._lock:
             self.episodes_total += 1
+        if self.bus is not None:
+            try:
+                self.bus.emit("session", session=sid, event="episode",
+                              replica=rid, ep_return=ep_return,
+                              ep_steps=ep_steps)
+            except Exception:
+                pass
 
     def _session_act_finish(self, sid: str, aff, body: bytes,
-                            result, rid, retried, fwd_headers=None):
+                            result, rid, retried, fwd_headers=None,
+                            ctx=None, root=None):
         """Everything after the pinned dispatch returns: journal-backed
         failover, fence, re-dispatch and response decoration. Shared by
         the thread core (inline) and the async core (on the executor —
@@ -1520,30 +1752,53 @@ class Router:
                 entry = self._journal_lookup(
                     pinned, sid, pinned_host=pinned_host
                 )
-            ok, rid, resumed = self._reestablish(sid, aff, entry)
+            takeover = None
+            if ctx is not None:
+                # a failover is always traced, and its span names what
+                # killed the pin (the replica's booked death reason)
+                ctx.force()
+                takeover = ctx.span(
+                    "router.takeover", parent=root, from_replica=pinned,
+                    from_host=pinned_host, journal_backed=entry is not None,
+                    cause=self.replicaset.death_reason(pinned)
+                    if hasattr(self.replicaset, "death_reason") else None)
+            ok, rid, resumed = self._reestablish(sid, aff, entry, ctx=ctx,
+                                                 parent=takeover)
+            if takeover is not None:
+                takeover.end(to_replica=rid if ok is True else None,
+                             resumed=bool(resumed) and ok is True,
+                             landed=ok is True)
             if ok is not True:
                 # the takeover did NOT land: the session stays pinned
                 # where it was, so its journal must NOT be fenced
                 if ok is not None:
                     return ok  # the create's upstream error, verbatim
-                return self._unrouted(rid, retried)
+                return self._unrouted(rid, retried, endpoint="session_act",
+                                      ctx=ctx)
             # the takeover landed elsewhere: fence the old incarnation
             # (keyed by the PIN-TIME host) so a zombie still holding the
             # session can never journal it again
+            fence = (ctx.span("router.fence", parent=root, replica=pinned,
+                              host=pinned_host, session=sid)
+                     if ctx is not None else None)
             self._fence_takeover(pinned, sid, pinned_host=pinned_host)
+            if fence is not None:
+                fence.end()
             reestablished = not resumed
             result, rid, _ = self._dispatch(
                 f"/session/{sid}/act", body, pinned=rid,
-                fwd_headers=fwd_headers,
+                fwd_headers=fwd_headers, endpoint="session_act", ctx=ctx,
+                parent=root,
             )
             if result is None:
-                return self._unrouted(rid, True)
+                return self._unrouted(rid, True, endpoint="session_act",
+                                      ctx=ctx)
         status, ctype, payload = result
         aff.last_used = time.monotonic()
         if status == 200:
             with self._lock:
                 aff.acts += 1
-            self._book_feedback(aff, rid, body, fwd_headers)
+            self._book_feedback(sid, aff, rid, body, fwd_headers)
         resumed_steps = int(entry["steps"]) if resumed else None
         if status == 200 and aff.pending_resumed_steps is not None:
             pending = aff.pending_resumed_steps
@@ -1840,10 +2095,22 @@ class Router:
             "replica hops by transport (same-host UDS vs TCP)",
             [({"transport": t}, v) for t, v in transport_rows],
         )
+        if self.tracer is not None:
+            # writer-backpressure drops are counted, never silent
+            fam("trpo_trace_spans_total", "counter",
+                "trace spans accepted for emission",
+                [({}, self.tracer.spans_total)])
+            fam("trpo_trace_sampled_total", "counter",
+                "request traces emitted (head-sampled or forced)",
+                [({}, self.tracer.sampled_total)])
+            fam("trpo_trace_dropped_total", "counter",
+                "trace spans dropped by writer backpressure",
+                [({}, self.tracer.dropped_total)])
         body = ("\n".join(lines) + "\n").encode()
         return 200, "text/plain; version=0.0.4; charset=utf-8", body
 
     def close(self) -> None:
+        self._flush_shed_counts()
         httpd, self._httpd = self._httpd, None
         if httpd is not None:
             loop = getattr(httpd, "loop", None)

@@ -43,8 +43,15 @@ swaps it in, so in-flight requests finish on the old params and nothing
 is dropped. A failed restore is printed and retried at the next poll;
 the endpoint keeps serving the last good snapshot.
 
-The reference's event bus, tracer, fault injector and request capture
-belong to ROADMAP.md Queue 1 item 18: they must be None here.
+Telemetry: with a ``bus`` a reload (or a failed one) is a ``health``
+event, and the session store, journal and batchers emit theirs on it.
+With a ``tracer`` (``obs.trace.Tracer``) every act, session create and
+session act is a ``replica.*`` span, joined to the trace its hop carried
+(``X-Trace-Id``/``X-Trace-Parent``/``X-Trace-Sampled``) or opened here
+for a direct client, with the batcher's ``batch.queue_wait`` and engine
+spans under it; ``/metrics`` adds ``trpo_trace_*``. The fault injector
+(``injector=``, ROADMAP.md Queue 1 item 18.4) and request capture
+(``capture=``, 18.5) are refused.
 """
 
 from __future__ import annotations
@@ -135,11 +142,9 @@ class PolicyServer:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        for name, hook in (("the run-event bus (bus=)", bus),
-                           ("the fault injector (injector=)", injector),
-                           ("request tracing (tracer=)", tracer),
-                           ("request capture (capture=)", capture)):
-            refuse_unported(name, hook, "item 18")
+        refuse_unported("the fault injector (injector=)", injector,
+                        "item 18.4")
+        refuse_unported("request capture (capture=)", capture, "item 18.5")
         if (checkpointer is None) != (template is None):
             raise ValueError(
                 "checkpointer and template come together: the watcher "
@@ -160,6 +165,8 @@ class PolicyServer:
                 "a feedforward engine needs a MicroBatcher on /act")
         self.engine = engine
         self.batcher = batcher
+        self.bus = bus
+        self.tracer = tracer
         self.checkpointer = checkpointer
         self.template = template
         self.snapshot_fn = snapshot_fn or (
@@ -202,11 +209,12 @@ class PolicyServer:
             if carry_journal_dir is not None:
                 journal = CarryJournal(
                     journal_path(carry_journal_dir, replica_name or "solo"),
-                    replica=replica_name or "solo",
+                    replica=replica_name or "solo", bus=bus,
                 )
             self.sessions = SessionStore(
                 ttl_s=session_ttl_s,
                 max_sessions=max_sessions,
+                bus=bus,
                 replica=replica_name,
                 journal=journal,
                 sync_every=carry_sync_every,
@@ -215,6 +223,7 @@ class PolicyServer:
                 engine,
                 deadline_ms=session_deadline_ms,
                 adaptive_deadline=session_adaptive_deadline,
+                bus=bus,
             )
 
         if checkpointer is not None:
@@ -277,15 +286,14 @@ class PolicyServer:
             self.engine.load(params, obs_norm, step=step)
         except Exception as e:  # keep serving the last good snapshot
             self.reload_failures_total += 1
-            print(
-                f"serve: checkpoint step {step} failed to load "
-                f"({type(e).__name__}: {e}) — "
-                + (f"still serving step {self.engine.loaded_step}"
-                   if self.engine.ready
-                   else "nothing loaded yet (serving 503; do the model "
-                   "flags match the training run?)"),
-                file=sys.stderr, flush=True,
-            )
+            msg = (f"serve: checkpoint step {step} failed to load "
+                   f"({type(e).__name__}: {e}) — "
+                   + (f"still serving step {self.engine.loaded_step}"
+                      if self.engine.ready
+                      else "nothing loaded yet (serving 503; do the model "
+                      "flags match the training run?)"))
+            print(msg, file=sys.stderr, flush=True)
+            self._emit_health("serve_reload_failed", "warn", msg, step)
             return
         finally:
             self._reloading = False
@@ -295,6 +303,42 @@ class PolicyServer:
             # checkpoint; every later step comes through POST /reload
             self._target_step = step
         self.reloads_total += 1
+        self._emit_health("serve_reload", "info",
+                          f"hot-reloaded policy snapshot from step {step}",
+                          step)
+
+    def _emit_health(self, check: str, level: str, message: str,
+                     step: int) -> None:
+        if self.bus is not None:
+            self.bus.emit("health", check=check, level=level,
+                          message=message, data={"step": step})
+
+    # -- request tracing -----------------------------------------------------
+
+    def _traced(self, name: str, fn, *args):
+        """The handler trace wrapper (the router has its twin): join the
+        request's trace — the propagated one, whose parent span lives in
+        the router's log (``remote``), or as the public edge for a direct
+        client — open the handler span, run the handler with ``(ctx,
+        span)`` appended, force the trace on a replica-side failure (a
+        crash, or a 5xx other than the typed 503), close with the
+        status."""
+        if self.tracer is None:
+            return fn(*args, None, None)
+        headers = request_headers()
+        ctx = self.tracer.join(headers)
+        parent = self.tracer.parent_from(headers)
+        span = ctx.span(name, parent_id=parent, remote=parent is not None)
+        out = None
+        try:
+            out = fn(*args, ctx, span)
+            return out
+        finally:
+            status = out[0] if out is not None else 500
+            if out is None or (status >= 500 and status != 503):
+                ctx.force()
+            span.end(status=status)
+            self.tracer.finish(ctx)
 
     def _watch(self) -> None:
         while not self._stop.wait(self.poll_interval):
@@ -460,6 +504,9 @@ class PolicyServer:
         return _reply(200, dict(meta, action=action.tolist()))
 
     def _act(self, body: bytes):
+        return self._traced("replica.act", self._act_inner, body)
+
+    def _act_inner(self, body: bytes, ctx, span):
         self._maybe_stall()
         if self.is_recurrent:
             return _reply(409, {
@@ -480,7 +527,8 @@ class PolicyServer:
         try:
             # submit inside the try: a batcher racing its own teardown
             # answers a scoped JSON 500
-            future = self.batcher.submit(obs)
+            future = self.batcher.submit(
+                obs, trace=(ctx, span.span_id) if ctx is not None else None)
             action, step = future.result(timeout=self.act_timeout_s)
         except _FutureTimeout:
             return _reply(504, {
@@ -547,6 +595,10 @@ class PolicyServer:
                             "last_step": payload.get("last_step")}
 
     def _session_create(self, body: bytes):
+        return self._traced("replica.session_create",
+                            self._session_create_inner, body)
+
+    def _session_create_inner(self, body: bytes, ctx, span):
         """Mint a session (a fresh zero carry), or resume a journaled
         one."""
         if not self.is_recurrent:
@@ -567,6 +619,10 @@ class PolicyServer:
         return _reply(200, out)
 
     def _session_act(self, path: str, body: bytes):
+        return self._traced("replica.session_act", self._session_act_inner,
+                            path, body)
+
+    def _session_act_inner(self, path: str, body: bytes, ctx, span):
         """``POST /session/<id>/act``: advance one session's carry by one
         observation, under the session's lock (different sessions share
         the batcher's epochs). A replay of the last applied ``seq``
@@ -605,7 +661,8 @@ class PolicyServer:
                 # the timeout bounds both the queue admission (a wedged
                 # engine backs the queue up) and the epoch's result
                 future = self.session_batcher.submit(
-                    sid, sess.carry, obs, timeout=self.act_timeout_s)
+                    sid, sess.carry, obs, timeout=self.act_timeout_s,
+                    trace=(ctx, span.span_id) if ctx is not None else None)
                 action, carry_new, step = future.result(
                     timeout=self.act_timeout_s)
                 sess.carry = carry_new
@@ -614,7 +671,9 @@ class PolicyServer:
                 sess.last_action = np.asarray(action)
                 sess.last_step = step
                 self.sessions.touch_steps(sess)
-                self.sessions.journal_step(sid, sess)
+                self.sessions.journal_step(
+                    sid, sess,
+                    trace=(ctx, span.span_id) if ctx is not None else None)
         except _FutureTimeout:
             # the epoch never came back: the carry was NOT advanced, so a
             # retry is safe
@@ -754,6 +813,17 @@ class PolicyServer:
             "requests served by listener family (tcp vs same-host uds)",
             [(f'{{transport="{t}"}}', n) for t, n in sorted(dict(
                 self._httpd.transport_requests_total).items())])
+        if self.tracer is not None:
+            # writer-backpressure drops are counted, never silent
+            one("trpo_trace_spans_total", "counter",
+                "trace spans accepted for emission",
+                self.tracer.spans_total)
+            one("trpo_trace_sampled_total", "counter",
+                "request traces emitted (head-sampled or forced)",
+                self.tracer.sampled_total)
+            one("trpo_trace_dropped_total", "counter",
+                "trace spans dropped by writer backpressure",
+                self.tracer.dropped_total)
         return 200, _PROMETHEUS, ("\n".join(lines) + "\n").encode()
 
     # -- teardown ----------------------------------------------------------

@@ -40,8 +40,10 @@ module makes that a protocol of its own:
   replica reclaims it. Journal files are keyed by (host, replica)
   (:func:`journal_path`).
 
-The reference's run-event bus (session and fencing events) is not ported
-(ROADMAP.md Queue 1 item 18): ``bus`` must be None.
+With a ``bus`` (``obs.events.EventBus``) the store emits ``session``
+events (``created``, ``expired``, ``evicted``) and the journal one
+``lease`` ``fenced_write_refused`` event per fenced session, as the
+reference's do; a closed bus never breaks the data plane.
 """
 
 from __future__ import annotations
@@ -58,7 +60,6 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from trpo_torch.config import refuse_unported
 from trpo_torch.serve.engine import LadderEngine, torch_dtype
 from trpo_torch.utils.metrics import repair_jsonl_tail
 from trpo_torch.utils.normalize import normalize
@@ -82,8 +83,15 @@ def mint_session_id() -> str:
     return uuid.uuid4().hex
 
 
-def _refuse_bus(bus) -> None:
-    refuse_unported("the run-event bus (bus=)", bus, "item 18")
+def _emit_quietly(bus, kind: str, **fields) -> None:
+    """Emit on ``bus`` (if any); a closed bus never breaks the data
+    plane."""
+    if bus is None:
+        return
+    try:
+        bus.emit(kind, **fields)
+    except Exception:
+        pass
 
 
 class RecurrentServeEngine(LadderEngine):
@@ -413,9 +421,10 @@ class CarryJournal:
         bus=None,
         replica: Optional[str] = None,
     ):
-        _refuse_bus(bus)
+        self.bus = bus
         self.path = path
         self.replica = replica
+        self._fence_emitted: set = set()
         # sid -> last fence-line index; sid -> the fence-line watermark at
         # reclaim time (a reclaim lifts the fences that existed then; a
         # later fence re-fences)
@@ -563,6 +572,11 @@ class CarryJournal:
         for sid in [s for s in pending if self.fenced(s)]:
             pending.pop(sid)
             self.fenced_writes_total += 1
+            if sid not in self._fence_emitted:
+                self._fence_emitted.add(sid)
+                _emit_quietly(self.bus, "lease",
+                              event="fenced_write_refused", session=sid,
+                              replica=self.replica or "unknown")
         if not pending:
             return
         for sid, entry in pending.items():
@@ -637,7 +651,7 @@ class SessionStore:
         journal: Optional[CarryJournal] = None,
         sync_every: int = 1,
     ):
-        _refuse_bus(bus)
+        self.bus = bus
         if ttl_s <= 0:
             raise ValueError(f"ttl_s must be > 0, got {ttl_s}")
         if max_sessions < 1:
@@ -703,6 +717,8 @@ class SessionStore:
                 self.resumed_total += 1
         if evicted is not None:
             self._forget_journal(evicted)
+            self._emit("evicted", evicted)
+        self._emit("created", sid)
         if self.journal is not None:
             # an explicit create makes THIS replica the session's journal
             # owner again: lift any fence a previous takeover left
@@ -735,10 +751,20 @@ class SessionStore:
             entry["last_step"] = int(sess.last_step)
         self.journal.record(entry)
 
-    def journal_step(self, sid: str, sess: _Session) -> None:
-        """After an act: snapshot every ``sync_every`` applied steps."""
-        if self.journal is not None and sess.steps % self.sync_every == 0:
-            self.journal_session(sid, sess)
+    def journal_step(self, sid: str, sess: _Session, trace=None) -> None:
+        """After an act: snapshot every ``sync_every`` applied steps.
+        ``trace`` (the act's ``(TraceContext, parent span id)``) books a
+        ``journal.sync`` span, only when the cadence snapshots; it times
+        the enqueue (the write happens on the journal's writer)."""
+        if self.journal is None or sess.steps % self.sync_every != 0:
+            return
+        t_wall, t0 = time.time(), time.perf_counter()
+        self.journal_session(sid, sess)
+        if trace is not None:
+            ctx, parent_id = trace
+            ctx.record("journal.sync", start=t_wall,
+                       dur_ms=(time.perf_counter() - t0) * 1e3,
+                       parent_id=parent_id, steps=int(sess.steps))
 
     def _forget_journal(self, sid: str) -> None:
         if self.journal is not None:
@@ -796,6 +822,7 @@ class SessionStore:
                 self._sessions.move_to_end(session_id)
         if expired:
             self._forget_journal(session_id)
+            self._emit("expired", session_id)
             return None
         return sess
 
@@ -815,6 +842,13 @@ class SessionStore:
                         expired.append(sid)
             for sid in expired:
                 self._forget_journal(sid)
+                self._emit("expired", sid)
+
+    def _emit(self, event: str, session_id: str) -> None:
+        fields = {"session": session_id, "event": event}
+        if self.replica:
+            fields["replica"] = self.replica
+        _emit_quietly(self.bus, "session", **fields)
 
     def close(self, flush: bool = True) -> None:
         """``flush=False`` drops pending journal entries, as a crash

@@ -26,7 +26,7 @@ transport makes those failure modes explicit:
   (``serve/replicaset.py``). The gates (``partition``, ``heal``,
   ``slow``, ``lose_descriptors``) are the transport's own methods; the
   fault injector that arms them from a fault grammar is ROADMAP.md
-  Queue 1 item 18.
+  Queue 1 item 18.4.
 * **Bounded descriptor discovery** — a transport-launched replica is
   discovered through its ``run.json`` with bounded retries under
   exponential backoff and a per-attempt time budget; a descriptor that

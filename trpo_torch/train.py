@@ -12,6 +12,9 @@
         [--host-inference cpu]
     python -m trpo_torch.train --preset halfcheetah --device cpu  # gymnasium
     python -m trpo_torch.train --preset humanoid-sim-fleet --overlap
+    python -m trpo_torch.train --preset humanoid-sim --metrics-jsonl ev.jsonl \
+        --health-checks --status-port 0 --memory-accounting \
+        --run-descriptor run.json --profile-dir prof --profile-iteration 3
 
 Runs ``TRPOAgent.learn`` on CUDA unless ``--device cpu`` is given. Each
 iteration prints the stats block and a one-line summary (one per chunk
@@ -24,11 +27,29 @@ rollout of STEPS per env after training. A host env's (``native:``,
 with ``--resume``. ``--overlap`` runs the overlapped actor/learner loop
 (device envs with a rollout chunk: rollout k+1 runs while update k does,
 one window stale, importance-weighted).
+
+Telemetry (``obs/``): ``--metrics-jsonl`` appends the typed run events
+(manifest, iteration, phase, health, recompile, memory; the reference's
+schema), ``--health-checks`` prints health findings, ``--status-port``
+serves ``/status`` and ``/metrics`` while the run is in flight (0: the OS
+picks; the URL is printed), ``--memory-accounting`` adds allocator gauges
+and the leak rule, ``--run-descriptor`` writes the run's pid, status URL
+and paths to a ``run.json``, and ``--profile-dir`` writes a
+``torch.profiler`` Chrome trace of the whole run, or with
+``--profile-iteration N`` of iteration N's chunk only.
+
+The reference's other flags parse and refuse naming the ROADMAP.md item
+that ports them (:data:`REFUSED`); ``--platform`` is a stated difference
+(:data:`STATED_DIFFERENCES`).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
+import os
+import time
 from typing import Optional, Sequence
 
 from trpo_torch.agent import TRPOAgent
@@ -37,7 +58,7 @@ from trpo_torch.resilience import Preempted
 from trpo_torch.utils.checkpoint import Checkpointer
 from trpo_torch.utils.metrics import StatsLogger
 
-__all__ = ["main", "parse_args"]
+__all__ = ["main", "parse_args", "REFUSED", "STATED_DIFFERENCES"]
 
 _PRINTED = (
     "total_episodes", "mean_episode_reward", "entropy", "kl_old_new",
@@ -46,6 +67,22 @@ _PRINTED = (
 )
 _LADDER_PRINTED = ("solve_cosine", "solve_fallback", "solve_pinned",
                    "cg_budget")
+
+# the reference's flags for layers the port does not have yet: parsed, so
+# that they refuse naming their ROADMAP.md item instead of as unknown flags
+REFUSED = {
+    "--mesh-shape": ("item 16", str),
+    "--mesh-axes": ("item 16", str),
+    "--env-step-timeout": ("item 18.3", float),
+    "--max-worker-restarts": ("item 18.3", int),
+    "--inject-faults": ("item 18.4", str),
+}
+
+# the reference's flags the port replaces, with what replaces them
+STATED_DIFFERENCES = {
+    "--platform": "the JAX platform switch; the port takes --device "
+                  "cuda|cpu (cuda by default, no fallback to the CPU)",
+}
 
 
 def _hidden(text: str):
@@ -98,6 +135,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    choices=["off", "jacobi", "head_block"])
     p.add_argument("--cg-precond-probes", type=_positive_int,
                    help="jacobi: Hutchinson probes per update")
+    p.add_argument("--cg-residual-rtol", type=float,
+                   help="relative CG exit ‖r‖ <= rtol·‖g‖: makes --cg-iters "
+                   "a cap instead of a fixed count (0 = off)")
+    p.add_argument("--linesearch-kl-cap", action="store_true",
+                   help="KL-aware line search: candidates must also satisfy "
+                   "the rollback KL cap")
     p.add_argument("--fvp-mode", choices=["auto", "fused", "ggn",
                                           "jvp_grad"],
                    help="the CG operator: the fused kernel (auto/fused), "
@@ -167,7 +210,54 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="after training, a greedy rollout of N_STEPS per "
                    "env; prints its mean episode reward")
     p.add_argument("--device", help="cuda (default) or cpu")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd anomaly detection and a finite check of "
+                   "every stage's outputs (a debug mode: a host read per "
+                   "stage)")
+    p.add_argument("--metrics-jsonl",
+                   help="append typed run events here (the reference's "
+                   "event schema): manifest, iterations with the solver "
+                   "counters, phases, health, recompile and memory records")
+    p.add_argument("--health-checks", action="store_true",
+                   help="watch for NaN/nonfinite trips, KL-rollback streaks, "
+                   "explained-variance collapse, solver fallbacks and "
+                   "stats-drain backpressure; findings print to stderr")
+    p.add_argument("--status-port", type=int, metavar="PORT",
+                   help="serve GET /status (JSON) and GET /metrics "
+                   "(Prometheus) on 127.0.0.1:PORT while training; 0 = "
+                   "the OS picks (printed, and in the status event)")
+    p.add_argument("--memory-accounting", action="store_true",
+                   help="per-iteration device-memory gauges as memory "
+                   "events, and the health:memory_leak rule")
+    p.add_argument("--run-descriptor", metavar="PATH",
+                   help="write a run.json here at start (atomically): pid, "
+                   "the bound status URL, event log, checkpoint dir")
+    p.add_argument("--profile-dir",
+                   help="write a torch.profiler Chrome trace here: the "
+                   "whole run, or with --profile-iteration N that "
+                   "iteration's chunk only")
+    p.add_argument("--profile-iteration", type=_positive_int, metavar="N",
+                   help="with --profile-dir: trace absolute iteration N's "
+                   "chunk only")
+    p.add_argument("--trace-sample-rate", type=float,
+                   help="--overlap: head-sampling rate of the train/* spans "
+                   "on the event bus (needs --metrics-jsonl)")
+    for flag, (_, kind) in REFUSED.items():
+        p.add_argument(flag, type=kind, help=argparse.SUPPRESS)
+    p.add_argument("--platform", help=argparse.SUPPRESS)
     return p.parse_args(argv)
+
+
+def refuse_unported(args) -> None:
+    """Raise for a reference flag the port does not run: an unported
+    layer's (naming its ROADMAP.md item) or a stated difference."""
+    for flag, (item, _) in REFUSED.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            raise NotImplementedError(
+                f"{flag} is not ported to trpo_torch yet (ROADMAP.md Queue 1 "
+                f"{item})")
+    if args.platform is not None:
+        raise SystemExit(f"--platform: {STATED_DIFFERENCES['--platform']}")
 
 
 def build_config(args):
@@ -175,6 +265,9 @@ def build_config(args):
     overrides = {
         "env": args.env,
         "cg_precond_probes": args.cg_precond_probes,
+        "cg_residual_rtol": args.cg_residual_rtol,
+        "status_port": args.status_port,
+        "trace_sample_rate": args.trace_sample_rate,
         "fvp_mode": args.fvp_mode,
         "host_pipeline_groups": args.host_pipeline_groups,
         "host_inference": args.host_inference,
@@ -218,6 +311,12 @@ def build_config(args):
         overrides["adaptive_damping"] = True
     if args.cg_budget_adaptive:
         overrides["cg_budget_adaptive"] = True
+    if args.linesearch_kl_cap:
+        overrides["linesearch_kl_cap"] = True
+    if args.debug_nans:
+        overrides["debug_nans"] = True
+    if args.memory_accounting:
+        overrides["memory_accounting"] = True
     if args.host_async_pipeline:
         overrides["host_async_pipeline"] = True
     if args.overlap:
@@ -245,8 +344,62 @@ def _summary(state, stats) -> None:
           f"ms={stats['iteration_ms']:.1f}", flush=True)
 
 
+def _write_run_descriptor(args, cfg, telemetry, checkpointer) -> None:
+    """The ``--run-descriptor`` run.json: what external tooling needs to
+    find this run (pid, the BOUND status URL, event log, checkpoint dir),
+    written atomically after the status server bound."""
+    server = telemetry.status_server if telemetry is not None else None
+    absolute = lambda p: os.path.abspath(p) if p else None  # noqa: E731
+    desc = {
+        "schema": "trpo-tpu-run-descriptor",
+        "pid": os.getpid(),
+        "started_t": time.time(),
+        "env": cfg.env,
+        "preset": args.preset,
+        "status_port": server.port if server is not None else None,
+        "status_url": server.url if server is not None else None,
+        "events_jsonl": absolute(args.metrics_jsonl),
+        "log_jsonl": absolute(cfg.log_jsonl),
+        "checkpoint_dir": absolute(cfg.checkpoint_dir),
+        "resumed_from": checkpointer.latest_step()
+        if checkpointer is not None and args.resume else None,
+    }
+    tmp = args.run_descriptor + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(desc, f)
+    os.replace(tmp, args.run_descriptor)
+
+
+def make_telemetry(args, cfg):
+    """The run's ``obs.Telemetry``, or None when no telemetry flag is
+    set."""
+    if args.profile_iteration and not args.profile_dir:
+        raise SystemExit("--profile-iteration requires --profile-dir")
+    if cfg.trace_sample_rate > 0 and not args.metrics_jsonl:
+        raise SystemExit("--trace-sample-rate needs --metrics-jsonl (spans "
+                         "ride the event bus)")
+    if not (args.metrics_jsonl or args.health_checks or args.profile_dir
+            or cfg.status_port is not None or cfg.memory_accounting):
+        return None
+    from trpo_torch.obs import Telemetry
+
+    telemetry = Telemetry(
+        events_jsonl=args.metrics_jsonl,
+        health_checks=args.health_checks,
+        profile_dir=args.profile_dir,
+        profile_iteration=args.profile_iteration,
+        status_port=cfg.status_port,
+        memory_accounting=cfg.memory_accounting,
+    )
+    if telemetry.status_server is not None:
+        print(f"status endpoint: {telemetry.status_server.url}/status "
+              "(and /metrics)", flush=True)
+    return telemetry
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
+    refuse_unported(args)
     cfg = build_config(args)
     if args.resume and not cfg.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
@@ -257,30 +410,42 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"trpo_torch: preset={args.preset} env={cfg.env} "
           f"device={agent.device} batch={agent.n_steps}x{agent.n_envs} "
           f"policy={tuple(cfg.policy_hidden)}{family}", flush=True)
-    checkpointer, state = None, None
-    if cfg.checkpoint_dir:
-        checkpointer = Checkpointer(cfg.checkpoint_dir)
-        if args.resume and checkpointer.latest_step() is not None:
-            state = checkpointer.restore(agent.init_state())
-            agent.restore_host_env(checkpointer.restore_host_env())
-            print(f"resumed from step {checkpointer.latest_step()}",
-                  flush=True)
-    logger = StatsLogger(jsonl_path=cfg.log_jsonl)
-    try:
-        final = agent.learn(state=state, logger=logger,
-                            checkpointer=checkpointer, callback=_summary)
-    except Preempted as p:
-        # the final checkpoint is written: exit with the distinct requeue
-        # code so a wrapper resubmits exactly this run
-        where = (f"final checkpoint at step {p.step}" if p.step
-                 else "no checkpoint configured")
-        print(f"preempted (signal {p.signum}): {where}; exiting "
-              f"{p.exit_code} for requeue", flush=True)
-        return p.exit_code
-    finally:
-        logger.close()
+    # before the checkpointer: a corrupt sidecar found by --resume is a
+    # health event on the same bus
+    telemetry = make_telemetry(args, cfg)
+    bus = telemetry.bus if telemetry is not None else None
+    with contextlib.ExitStack() as closing:
+        if telemetry is not None:
+            closing.callback(telemetry.close)
+        checkpointer, state = None, None
+        if cfg.checkpoint_dir:
+            checkpointer = Checkpointer(cfg.checkpoint_dir, bus=bus)
+            if args.resume and checkpointer.latest_step() is not None:
+                state = checkpointer.restore(agent.init_state())
+                agent.restore_host_env(checkpointer.restore_host_env())
+                print(f"resumed from step {checkpointer.latest_step()}",
+                      flush=True)
+        logger = StatsLogger(jsonl_path=cfg.log_jsonl, bus=bus)
+        closing.callback(logger.close)
+        if args.run_descriptor:
+            _write_run_descriptor(args, cfg, telemetry, checkpointer)
+        try:
+            final = agent.learn(state=state, logger=logger,
+                                checkpointer=checkpointer, callback=_summary,
+                                telemetry=telemetry)
+        except Preempted as p:
+            # the final checkpoint is written: exit with the distinct
+            # requeue code so a wrapper resubmits exactly this run
+            where = (f"final checkpoint at step {p.step}" if p.step
+                     else "no checkpoint configured")
+            print(f"preempted (signal {p.signum}): {where}; exiting "
+                  f"{p.exit_code} for requeue", flush=True)
+            return p.exit_code
     print(f"done: {final.iteration} iterations, {final.total_timesteps} "
           f"timesteps, {int(final.total_episodes)} episodes", flush=True)
+    if telemetry is not None and telemetry.profile_traces:
+        print("profiler trace: " + ", ".join(telemetry.profile_traces),
+              flush=True)
     if args.evaluate is not None:
         mean_ret, n_done = agent.evaluate(final, n_steps=args.evaluate)
         if n_done:

@@ -64,6 +64,11 @@ class StatsDrain:
             self._high_water = max(self._high_water, self._q.qsize())
 
     @property
+    def depth(self) -> int:
+        """Items pending now (racy by nature: a gauge, not a count)."""
+        return self._q.qsize()
+
+    @property
     def high_water(self) -> int:
         """The most items ever pending at a submit."""
         with self._gauge_lock:

@@ -48,8 +48,10 @@ __all__ = ["Checkpointer"]
 # the amortized head-block preconditioner, the solver ladder): a restore
 # across a flip keeps the template's fresh value, or drops the saved one.
 # host_rng follows host_inference. A field the saved state predates
-# restores as absent (None).
-FLIPPABLE = ("cg_damping", "precond", "ladder", "host_rng")
+# restores as absent (None), or, where the template has it, with the
+# template's fresh value: a step written before the solver counters
+# (metrics) existed restores them at zero.
+FLIPPABLE = ("cg_damping", "precond", "ladder", "host_rng", "metrics")
 SIDECAR = "host_env.npz"
 
 
@@ -159,9 +161,10 @@ def _write_synced(path: str, write) -> None:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3):
+    def __init__(self, directory: str, max_to_keep: int = 3, bus=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
+        self.bus = bus   # obs.events.EventBus: health findings
         os.makedirs(self.directory, exist_ok=True)
         if not self.all_steps():
             _write_synced(self._sentinel_path(), lambda f: None)
@@ -238,7 +241,9 @@ class Checkpointer:
     def restore_host_env(self, step: Optional[int] = None) -> Any:
         """The host-env snapshot saved with ``step`` (default: the newest
         complete one); None when the step has no sidecar. An unreadable
-        sidecar raises ``ValueError`` naming its path."""
+        sidecar raises ``ValueError`` naming its path, after a
+        ``host_env_sidecar_corrupt`` health event when a bus is
+        attached."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -249,9 +254,14 @@ class Checkpointer:
             with np.load(path, allow_pickle=False) as z:
                 return _unflatten_snapshot(str(z["__structure__"]), z)
         except Exception as e:
-            raise ValueError(
-                f"host-env sidecar {path} exists but is unreadable "
-                f"({type(e).__name__}: {e})") from e
+            message = (f"host-env sidecar {path} exists but is unreadable "
+                       f"({type(e).__name__}: {e})")
+            if self.bus is not None:
+                self.bus.emit("health", check="host_env_sidecar_corrupt",
+                              level="error", message=message,
+                              data={"step": step,
+                                    "error": type(e).__name__})
+            raise ValueError(message) from e
 
     def latest_step(self) -> Optional[int]:
         """The newest complete step, or None."""
@@ -277,7 +287,8 @@ class Checkpointer:
         ``precond`` and ``ladder`` may differ in presence between the save
         and the template: a field the template gains keeps the template's
         fresh value, one it lost is dropped (``host_rng`` likewise, with
-        ``host_inference``)."""
+        ``host_inference``). A step saved without the solver counters
+        (``metrics``) restores them at zero."""
         if prune:
             self.prune_incomplete()
         step = self.latest_step() if step is None else step

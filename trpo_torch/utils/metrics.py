@@ -4,9 +4,11 @@
 ``StatsLogger`` prints the padded two-column stats block per iteration and
 appends one JSON object per iteration to an optional JSONL file, each row
 written by one ``write`` and flushed; a crash-cut final line is repaired
-when the file is opened (:func:`repair_jsonl_tail`). The reference's
-event-bus re-emission waits for the telemetry layer (ROADMAP.md Queue 1
-item 18).
+when the file is opened (:func:`repair_jsonl_tail`). With ``bus`` (an
+``obs.events.EventBus``, also assignable after construction: that is how
+``agent.learn`` attaches a ``Telemetry``'s bus to a caller's logger) each
+row is re-emitted as an ``iteration`` event, so the training log and the
+telemetry stream share one schema.
 """
 
 from __future__ import annotations
@@ -83,10 +85,11 @@ class StatsLogger:
     """Aligned console stats and an optional JSONL stream."""
 
     def __init__(self, jsonl_path: Optional[str] = None,
-                 stream: Optional[IO] = None):
+                 stream: Optional[IO] = None, bus=None):
         # None: resolve sys.stdout at each log() call, so a stdout swapped
         # later (pytest capture, redirection) is the one written to
         self.stream = stream
+        self.bus = bus
         self._jsonl: Optional[IO] = None
         if jsonl_path:
             repair_jsonl_tail(jsonl_path)
@@ -104,6 +107,9 @@ class StatsLogger:
             self._jsonl.write(
                 json.dumps({"iteration": iteration, **stats}) + "\n")
             self._jsonl.flush()
+        if self.bus is not None:
+            self.bus.emit("iteration", iteration=int(iteration),
+                          stats=dict(stats))
 
     def elapsed_minutes(self) -> float:
         """Wall-clock minutes since the logger was made."""
