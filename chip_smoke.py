@@ -121,9 +121,30 @@ Phases:
      server over 2 children at trace rates 0, 0.01 and 1 (``/act``
      requests/s and p50/p99 at 64 clients x 20, every span valid, every
      trace rooted, a child killed at rate 0 still traced);
- 22. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19-21) is driven with the launch counts set to 0
-just before it and read just after. The fused kernel's launches on each path
+ 22. ``[chaos]`` the fault injector as users arm it: ``python -m
+     trpo_torch.train --preset humanoid-sim`` in a child with
+     ``nan_update@iter=2;sigterm@iter=4`` and ``--recover-on-nan
+     restore`` (exit 75; each fault met by its recovery / preempted
+     record; iteration 2 replayed finite; the newest checkpoint = the last
+     row; the child's K1 launches exactly Σ(cheap solve + 1) over its
+     updates, the rewound one included, K2 once an iteration run, both
+     read from the child's own counts); ``python -m trpo_torch.serve
+     --replicas 2`` (the reference's router: 30 s act timeout, 8 retry
+     tokens) under 64 clients with a replica killed at request 200 and a
+     step 5 wedged through the canary (each spec fired and met by r0's
+     died/evicted record or the canary's rollback, no wedged answer
+     after the rollback, every client error a 502 for a retry the bucket
+     shed, counted); ``Router(act_timeout_s=0.5, retry_budget=128)`` over
+     two in-process replicas under 64 clients with a replica killed at
+     request 200 and the other stalled 2 s at request 800 (each met by
+     its own replica's died/evicted record, 0 client errors); requests/s
+     and p50/p99 in the faulted and a clean window of each;
+     ``gymproc:`` refused naming gymnasium before any worker starts; the
+     records in ``build/chip_smoke/chaos/chaos.jsonl``;
+ 23. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19-22) is driven with the launch counts set to 0
+just before it and read just after ([chaos]'s train leg in its child, a
+fresh process). The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -4231,6 +4252,612 @@ def phase_obs(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [chaos] the fault injector through the trainer and the router
+# ---------------------------------------------------------------------------
+
+CHAOS_TRAIN_FAULTS = "nan_update@iter=2;sigterm@iter=4"
+CHAOS_CLI_FAULTS = "kill_replica@request=200:replica=0"
+CHAOS_ROUTER_FAULTS = ("kill_replica@request=200:replica=0;"
+                       "stall_replica@request=800:replica=1:seconds=2")
+CHAOS_WEDGE_STEP = 5
+CHAOS_ACT_TIMEOUT = 0.5   # the router leg's per-hop timeout. A pooled
+#                           connection that times out gets one fresh dial,
+#                           so a stall is detected at 2 x 0.5 s: the 2 s
+#                           stall outlasts that by 1 s
+CHAOS_RETRY_BUDGET = 128  # the router leg's retry tokens: a kill and a
+#                           stall a second apart under 64 clients owe up
+#                           to 2 x 64 retries; the CLI keeps the
+#                           reference's 8, and its leg measures the loss
+CHAOS_CLEAN_S = 3.0       # the clean window's length
+
+
+def _chaos_train_child(counts_path: str) -> int:
+    """Run in a child process: ``python -m trpo_torch.train`` (by runpy,
+    with this process's argv) under the update recorder, then write the
+    process's launch counts and each update's record to ``counts_path``.
+    A fresh process starts every count at 0."""
+    import runpy
+
+    from trpo_torch.ops import _build
+
+    code = 1
+    with _updates() as log:
+        try:
+            runpy.run_module("trpo_torch.train", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            code = e.code if isinstance(e.code, int) else 1
+        updates = [{"launched": launched, "cheap": int(cheap),
+                    "used": int(used), "fallback": bool(fallback)}
+                   for launched, cheap, used, fallback in log]
+    Path(counts_path).write_text(json.dumps({
+        "launches": dict(_build.LAUNCHES), "updates": updates}))
+    return code
+
+
+def _events(path: Path) -> list:
+    return ([json.loads(x) for x in path.read_text().splitlines()]
+            if path.exists() else [])
+
+
+def _after(recs, t0, pred):
+    """The first record at or after time ``t0`` that satisfies ``pred``."""
+    return next((r for r in recs if r["t"] >= t0 and pred(r)), None)
+
+
+def _chaos_train(torch, dev, work: Path, card: str):
+    """The train leg: ``python -m trpo_torch.train --preset humanoid-sim``
+    in a child, NaN-poisoned before iteration 2 (restored and replayed)
+    and SIGTERMed before iteration 4 (exit 75). Returns (the child's launch
+    counts, the checkpoint directory, the chaos records)."""
+    from trpo_torch.obs.events import validate_event
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    ck, ev, rows_path = work / "ck", work / "train.jsonl", work / "rows.jsonl"
+    counts_path = work / "train_counts.json"
+    argv = [sys.executable, "-c",
+            "import sys, chip_smoke as cs; "
+            "sys.exit(cs._chaos_train_child(sys.argv.pop(1)))",
+            str(counts_path), "--preset", "humanoid-sim", "--device",
+            dev.type, "--iterations", "6", "--inject-faults",
+            CHAOS_TRAIN_FAULTS, "--recover-on-nan", "restore",
+            "--on-preempt", "checkpoint", "--checkpoint-dir", str(ck),
+            "--checkpoint-every", "1", "--log-jsonl", str(rows_path),
+            "--metrics-jsonl", str(ev), "--health-checks"]
+    t0 = time.perf_counter()
+    child = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+    wall = time.perf_counter() - t0
+    out = child.stdout + child.stderr
+    _check(child.returncode == 75,
+           f"[chaos] train CLI exit {child.returncode} (expected 75):\n"
+           f"{out[-3000:]}")
+    recs = _events(ev)
+    bad = [(r.get("kind"), validate_event(r)) for r in recs
+           if validate_event(r)]
+    _check(not bad, f"[chaos] invalid train events: {bad[:3]}")
+    faults = [r for r in recs if r["kind"] == "fault_injected"]
+    _check([f["spec"] for f in faults] == CHAOS_TRAIN_FAULTS.split(";"),
+           f"[chaos] train faults fired: {[f['spec'] for f in faults]}")
+    nan_f, term_f = faults
+    recovery = _after(recs, nan_f["t"], lambda r: r["kind"] == "recovery")
+    preempted = _after(recs, term_f["t"], lambda r: r["kind"] == "health"
+                       and r["check"] == "preempted")
+    _check(recovery is not None and recovery["iteration"] == 2,
+           f"[chaos] nan_update without its recovery: {recovery}")
+    _check(preempted is not None, "[chaos] sigterm without a preempted "
+           "health record")
+    rows = [json.loads(x) for x in rows_path.read_text().splitlines()]
+    its = [r["iteration"] for r in rows]
+    _check(its == [1, 2, 2, 3, 4], f"[chaos] logged iterations {its}")
+    poisoned, replayed = rows[1], rows[2]
+    _check(poisoned["entropy"] != poisoned["entropy"],
+           f"[chaos] the poisoned row is finite: {poisoned['entropy']}")
+    for k in ("entropy", "kl_old_new", "surrogate_loss", "vf_loss"):
+        _check(_finite(torch, replayed[k]),
+               f"[chaos] replayed iteration 2: {k} = {replayed[k]}")
+    step = Checkpointer(str(ck)).latest_step()
+    _check(step == rows[-1]["iteration"] == 4,
+           f"[chaos] newest checkpoint {step}, last row {rows[-1]}")
+    # K1 and K2 in the child, exactly: every update launches K1 its cheap
+    # solve's iterations + 1 (the poisoned one: 0 + 1, its CG exits at
+    # once on a NaN residual), K2 once an iteration run
+    counts = json.loads(counts_path.read_text())
+    launches, updates = counts["launches"], counts["updates"]
+    _check(len(updates) == len(rows),
+           f"[chaos] {len(updates)} updates for {len(rows)} rows")
+    for i, (u, r) in enumerate(zip(updates, rows)):
+        _check(u["launched"]["fused_fvp"] == u["cheap"] + 1,
+               f"[chaos] update {i + 1}: K1 {u['launched']} for a cheap "
+               f"solve of {u['cheap']}")
+        _check(u["used"] == r["cg_iterations"],
+               f"[chaos] update {i + 1}: {u['used']} against the row's "
+               f"{r['cg_iterations']}")
+    expected = sum(u["cheap"] + 1 for u in updates)
+    _check(launches.get("fused_fvp", 0) == expected,
+           f"[chaos] K1 launched {launches.get('fused_fvp', 0)}, expected "
+           f"{expected}")
+    _check(launches.get("reverse_scan", 0) == len(rows),
+           f"[chaos] K2 launched {launches.get('reverse_scan', 0)} for "
+           f"{len(rows)} iterations")
+    plain = {k: n for k, n in launches.items() if k.endswith("_plain") and n}
+    _check(not plain, f"[chaos] a plain version ran: {plain}")
+    it_events = [r for r in recs if r["kind"] == "iteration"]
+    clean_after = _after(it_events, nan_f["t"], lambda r: r["iteration"] == 2
+                         and r["stats"]["entropy"] == r["stats"]["entropy"])
+    _check(clean_after is not None, "[chaos] no clean iteration-2 event "
+           "after the fault")
+    fault_to_clean = clean_after["t"] - nan_f["t"]
+    print(f"[chaos] train CLI (humanoid-sim as published, 6 iterations, "
+          f"{CHAOS_TRAIN_FAULTS}, --recover-on-nan restore): exit 75 in "
+          f"{wall:.1f} s; rows {its}; iteration 2 poisoned (entropy nan, "
+          f"cg_iterations {poisoned['cg_iterations']}) then replayed "
+          f"finite (entropy {replayed['entropy']:.6g}); recovery restored "
+          f"to {recovery['restored_to']}; preempted at step "
+          f"{preempted['data']['step']}; newest checkpoint {step} = last "
+          f"row; fault to the first clean row {fault_to_clean:.3f} s; "
+          f"iteration_ms poisoned {poisoned['iteration_ms']:.1f}, replayed "
+          f"{replayed['iteration_ms']:.1f}, clean (iteration 3) "
+          f"{rows[3]['iteration_ms']:.1f}, audited (1) "
+          f"{rows[0]['iteration_ms']:.1f}; K1 {launches['fused_fvp']} = "
+          f"Σ(cheap + 1) over {len(updates)} updates (cheap "
+          f"{[u['cheap'] for u in updates]}; the rewound update "
+          f"{updates[1]['launched']['fused_fvp']}; the restored state's "
+          f"cg_iters_total {rows[-1]['cg_iters_total']} leaves it out, and "
+          f"counts update 1's full solve, not its cheap one); K2 "
+          f"{launches['reverse_scan']} ({card})", flush=True)
+    records = [
+        {"leg": "train", "fault": "nan_update", "spec": nan_f["spec"],
+         "response": "recovery", "delay_s": recovery["t"] - nan_f["t"],
+         "first_clean_row_s": fault_to_clean},
+        {"leg": "train", "fault": "sigterm", "spec": term_f["spec"],
+         "response": "preempted", "delay_s": preempted["t"] - term_f["t"],
+         "exit_code": child.returncode},
+    ]
+    return {k: v for k, v in launches.items() if v}, str(ck), records
+
+
+def _chaos_load(port: int, samples: list, lock, stop):
+    """``CONTROL_CLIENTS`` keep-alive clients on ``port`` until ``stop``:
+    each answer is ``(sent, answered, status, step, finite, error)`` in
+    ``samples``; a transport error is status -1."""
+    import http.client
+    import threading
+
+    def client(k):
+        r = np.random.default_rng(7000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while not stop.is_set():
+                t0 = time.time()
+                try:
+                    st, ans = _post(conn, "/act", {
+                        "obs": r.standard_normal(376).tolist()})
+                except Exception as e:  # counted as a client error
+                    st, ans = -1, repr(e)
+                    conn.close()
+                    conn = http.client.HTTPConnection(
+                        "127.0.0.1", port, timeout=60)
+                t1 = time.time()
+                ok = st == 200
+                with lock:
+                    samples.append((
+                        t0, t1, st, ans.get("step") if ok else None,
+                        ok and bool(np.all(np.isfinite(
+                            np.asarray(ans["action"], float)))),
+                        None if ok else str(ans.get("code") or ans.get(
+                            "error") if isinstance(ans, dict) else ans)))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(CONTROL_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _chaos_window(samples, a, b):
+    """requests/s, p50, p99 and count of the answers sent in [a, b)."""
+    lat = [(s[1] - s[0]) * 1e3 for s in samples if a <= s[0] < b]
+    p50, p99 = _quantiles(lat)
+    return len(lat) / (b - a), p50, p99, len(lat)
+
+
+def _replica_event(recs, f, states):
+    """The first router record after fault ``f`` that puts ``f``'s own
+    replica in one of ``states``."""
+    return _after(recs, f["t"], lambda r: r["kind"] == "router"
+                  and r.get("scope") == "replica"
+                  and r.get("replica") == f["replica"]
+                  and r.get("state") in states)
+
+
+def _chaos_serve_cli(torch, dev, ck_dir: str, work: Path,
+                     card: str) -> list:
+    """The serve CLI as users arm it: ``python -m trpo_torch.serve
+    --replicas 2`` on the train leg's checkpoint (step 4) under 64
+    clients, its router at the reference's fixed act timeout and retry
+    bucket, a replica killed at request 200, then a step 5 wedged (NaN
+    params) through the canary. Every fault must fire and meet its
+    response; the answers the kill costs are measured, and each must be
+    a retry the bucket shed."""
+    import threading
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.obs.events import validate_event
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    ev, desc = work / "serve_cli.jsonl", work / "serve_run.json"
+    specs = CHAOS_CLI_FAULTS + f";wedge_reload@step={CHAOS_WEDGE_STEP}"
+    t_start = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "trpo_torch.serve", "--device", dev.type,
+         "--preset", "humanoid-sim", "--checkpoint-dir", ck_dir,
+         "--port", "0", "--replicas", "2", "--health-interval", "0.1",
+         "--canary-fraction", "0.25", "--canary-window", "24",
+         "--poll-interval", "0.2", "--inject-faults", specs,
+         "--metrics-jsonl", str(ev), "--run-descriptor", str(desc)],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    stop = threading.Event()
+    samples, lock = [], threading.Lock()
+    try:
+        deadline = time.monotonic() + 300
+        while not desc.exists():
+            _check(child.poll() is None and time.monotonic() < deadline,
+                   f"[chaos] the serve CLI: {child.poll()}")
+            time.sleep(0.1)
+        url = json.loads(desc.read_text())["url"]
+
+        def status():
+            return json.loads(_get_url(url + "/status"))
+
+        while status()["healthy"] < 2:
+            _check(time.monotonic() < deadline, "[chaos] serve replicas")
+            time.sleep(0.1)
+        up_s = time.perf_counter() - t_start
+        threads = _chaos_load(int(url.rsplit(":", 1)[1]), samples, lock,
+                              stop)
+        # the kill fires on the request clock; wait for r0 to be back
+        fired = []
+        while True:
+            _check(time.monotonic() < deadline and child.poll() is None,
+                   f"[chaos] faults fired: {[f['spec'] for f in fired]}")
+            fired = [r for r in _events(ev) if r["kind"] == "fault_injected"]
+            snap = status()
+            if (fired and snap["healthy"] == 2
+                    and snap["replicas"]["r0"]["restarts"] >= 1):
+                break
+            time.sleep(0.1)
+        t_recovered = time.time()
+        time.sleep(CHAOS_CLEAN_S)
+        t_clean_end = time.time()
+        # a step 5 published: the canary loads it wedged (NaN) and the
+        # gate must roll it back
+        agent = TRPOAgent("humanoid-sim", get_preset("humanoid-sim"),
+                          device=dev)
+        state = Checkpointer(ck_dir).restore(agent.init_state())
+        t_publish = time.time()
+        Checkpointer(ck_dir).save(CHAOS_WEDGE_STEP, state)
+        del agent, state
+        while True:
+            _check(time.monotonic() < deadline and child.poll() is None,
+                   "[chaos] no canary terminal for the wedged step")
+            terminal = [r for r in _events(ev) if r["kind"] == "canary"
+                        and r["step"] == CHAOS_WEDGE_STEP
+                        and r["event"] in ("promoted", "rolled_back")]
+            if terminal:
+                break
+            time.sleep(0.1)
+        t_rolled = terminal[0]["t"]
+        time.sleep(1.0)  # answers after the rollback
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        counters = status()["counters"]
+        child.send_signal(signal.SIGTERM)
+        text, _ = child.communicate(timeout=120)
+        _check(child.returncode == 0,
+               f"[chaos] serve CLI exit {child.returncode}: {text[-3000:]}")
+    finally:
+        stop.set()
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
+    recs = _events(ev)
+    bad = [(r.get("kind"), validate_event(r)) for r in recs
+           if validate_event(r)]
+    _check(not bad, f"[chaos] invalid serve CLI events: {bad[:3]}")
+    faults = [r for r in recs if r["kind"] == "fault_injected"]
+    _check(sorted(f["spec"] for f in faults) == sorted(specs.split(";")),
+           f"[chaos] serve CLI faults fired: {[f['spec'] for f in faults]}")
+    by = {f["fault"]: f for f in faults}
+    kill, wedge = by["kill_replica"], by["wedge_reload"]
+    kill_resp = _replica_event(recs, kill, ("died", "evicted"))
+    kill_back = _replica_event(recs, kill, ("healthy",))
+    _check(kill_resp is not None and kill_back is not None,
+           f"[chaos] serve CLI kill_replica r0: down {kill_resp}, back "
+           f"{kill_back}")
+    rolled = next(r for r in recs if r["kind"] == "canary"
+                  and r["step"] == CHAOS_WEDGE_STEP
+                  and r["event"] in ("promoted", "rolled_back"))
+    _check(rolled["event"] == "rolled_back",
+           f"[chaos] wedged step {CHAOS_WEDGE_STEP}: {rolled}")
+    # at the reference's bucket a kill may cost answers: each must be the
+    # router's 502 for a retry its bucket shed, or the 503 of the
+    # stateless shed that the pressure of those sheds turns on
+    errors = [s for s in samples if s[2] != 200]
+    shed_retry = [s for s in errors if s[2] == 502]
+    shed_stateless = [s for s in errors
+                      if s[2] == 503 and s[5] == "shed_stateless"]
+    _check(len(shed_retry) + len(shed_stateless) == len(errors)
+           and len(shed_retry) == counters["failed_total"]
+           <= counters["retries_skipped_total"]
+           and len(shed_stateless) == counters["shed_stateless_total"],
+           f"[chaos] serve CLI: {len(errors)} client errors "
+           f"{sorted({(s[2], s[5]) for s in errors})}, at "
+           f"{sorted(round(s[0] - kill['t'], 3) for s in errors)[:8]}... s "
+           f"after the kill (r0 back at "
+           f"{kill_back['t'] - kill['t']:.3f} s, the wedge loaded at "
+           f"{wedge['t'] - kill['t']:.3f} s); router counters {counters}")
+    wedged = [s for s in samples if s[3] == CHAOS_WEDGE_STEP]
+    late = [s for s in wedged if s[0] > t_rolled]
+    _check(not late, f"[chaos] {len(late)} answers from the wedged step "
+           "to requests sent after its rollback")
+    _check(all(not s[4] for s in wedged) and all(
+        s[4] for s in samples if s[3] not in (None, CHAOS_WEDGE_STEP)),
+        "[chaos] the wedged step's answers must be the only nonfinite ones")
+    f_rps, f50, f99, fn = _chaos_window(samples, kill["t"], kill_back["t"])
+    c_rps, c50, c99, cn = _chaos_window(samples, t_recovered, t_clean_end)
+    answered = len(samples) - len(errors)
+    print(f"[chaos] serve CLI (humanoid-sim, --replicas 2, canary 0.25, "
+          f"the reference's router: 30 s act timeout, 8 retry tokens; "
+          f"{CONTROL_CLIENTS} clients): up in {up_s:.1f} s; every spec "
+          f"fired ({specs}); kill_replica r0 -> {kill_resp['state']} in "
+          f"{kill_resp['t'] - kill['t']:.3f} s, healthy again "
+          f"{kill_back['t'] - kill['t']:.3f} s after the kill; "
+          f"{counters['retried_total']} retried, "
+          f"{counters['retries_skipped_total']} retries shed; "
+          f"{len(errors)} client errors: {len(shed_retry)} 502 for a shed "
+          f"retry, {len(shed_stateless)} 503 shed_stateless; step "
+          f"{CHAOS_WEDGE_STEP} wedged, rolled back "
+          f"{rolled['t'] - wedge['t']:.3f} s after its load "
+          f"({rolled.get('reason')}; published "
+          f"{wedge['t'] - t_publish:.3f} s before the load); its "
+          f"{len(wedged)} answers all nonfinite, all inside its gate "
+          f"window, none after; {answered} answers; faulted window "
+          f"({kill_back['t'] - kill['t']:.2f} s) {f_rps:.1f} requests/s "
+          f"p50 {f50:.2f} p99 {f99:.2f} ms ({fn}); clean window "
+          f"({CHAOS_CLEAN_S:g} s) {c_rps:.1f} requests/s p50 {c50:.2f} "
+          f"p99 {c99:.2f} ms ({cn}) ({card})", flush=True)
+    return [
+        {"leg": "serve_cli", "fault": "kill_replica", "spec": kill["spec"],
+         "response": kill_resp["state"],
+         "delay_s": kill_resp["t"] - kill["t"],
+         "healthy_again_s": kill_back["t"] - kill["t"],
+         "client_errors": len(errors),
+         "retries": counters["retried_total"],
+         "retries_shed": counters["retries_skipped_total"],
+         "errors_502_shed_retry": len(shed_retry),
+         "errors_503_shed_stateless": len(shed_stateless)},
+        {"leg": "serve_cli", "fault": "wedge_reload", "spec": wedge["spec"],
+         "response": "canary rolled_back",
+         "delay_s": rolled["t"] - wedge["t"],
+         "wedged_answers": len(wedged)},
+        {"leg": "serve_cli", "window": "faulted", "requests_per_s": f_rps,
+         "p50_ms": f50, "p99_ms": f99, "requests": fn},
+        {"leg": "serve_cli", "window": "clean", "requests_per_s": c_rps,
+         "p50_ms": c50, "p99_ms": c99, "requests": cn},
+    ]
+
+
+def _chaos_serve_router(torch, dev, ck_dir: str, work: Path,
+                        card: str) -> list:
+    """The router with its timeout and bucket set: two in-process
+    ``humanoid-sim`` replicas (as the CLI builds them) on the train leg's
+    checkpoint behind ``Router(act_timeout_s=0.5, retry_budget=128,
+    injector=...)`` under 64 clients, a replica killed at request 200 and
+    the other stalled past the act timeout at request 800. Each fault must
+    fire and be met by its own replica's died/evicted record; 0 client
+    errors."""
+    import threading
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.obs.events import (
+        EventBus,
+        JsonlSink,
+        manifest_fields,
+        validate_event,
+    )
+    from trpo_torch.resilience import FaultInjector
+    from trpo_torch.serve import Router
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    ev = work / "serve_router.jsonl"
+    agent = TRPOAgent("humanoid-sim", get_preset("humanoid-sim"),
+                      device=dev)
+    state = Checkpointer(ck_dir).restore(agent.init_state())
+    bus = EventBus(JsonlSink(str(ev)))
+    bus.emit("run_manifest", **manifest_fields(agent.cfg, extra={
+        "driver": "serve", "checkpoint_dir": ck_dir, "replicas": 2,
+        "recurrent": False, "act_timeout_s": CHAOS_ACT_TIMEOUT,
+        "retry_budget": CHAOS_RETRY_BUDGET}, device=agent.device))
+    injector = FaultInjector.from_spec(CHAOS_ROUTER_FAULTS)
+    injector.bus = bus
+    loads = _Loads()
+    stop = threading.Event()
+    samples, lock = [], threading.Lock()
+    # the CLI's supervision: health every 0.1 s, relaunch backoff 0.5 s
+    rs = _in_process_set(lambda rid: _ff_replica(
+        loads, agent, state.policy_params, replica_name=rid), 2,
+        backoff=0.5, bus=bus)
+    router = Router(rs, port=0, act_timeout_s=CHAOS_ACT_TIMEOUT,
+                    retry_budget=CHAOS_RETRY_BUDGET, injector=injector,
+                    bus=bus)
+    try:
+        threads = _chaos_load(router.port, samples, lock, stop)
+        deadline = time.monotonic() + 120
+        # the kill and the stall fire on the request clock; wait for both
+        # replicas to be back from them
+        while True:
+            _check(time.monotonic() < deadline,
+                   f"[chaos] router leg: unfired {injector.unfired}, "
+                   f"{rs.snapshot()}")
+            snap = rs.snapshot()
+            if (not injector.unfired and snap["healthy"] == 2
+                    and all(snap["replicas"][rid]["restarts"] >= 1
+                            for rid in ("r0", "r1"))):
+                break
+            time.sleep(0.1)
+        t_recovered = time.time()
+        time.sleep(CHAOS_CLEAN_S)
+        t_clean_end = time.time()
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+        retried = router.retried_total
+    finally:
+        stop.set()
+        router.close()
+        rs.close()
+        bus.close()
+    recs = _events(ev)
+    bad = [(r.get("kind"), validate_event(r)) for r in recs
+           if validate_event(r)]
+    _check(not bad, f"[chaos] invalid router events: {bad[:3]}")
+    faults = [r for r in recs if r["kind"] == "fault_injected"]
+    _check(sorted(f["spec"] for f in faults)
+           == sorted(CHAOS_ROUTER_FAULTS.split(";")),
+           f"[chaos] router faults fired: {[f['spec'] for f in faults]}")
+    by = {f["fault"]: f for f in faults}
+    kill, stall = by["kill_replica"], by["stall_replica"]
+    kill_resp = _replica_event(recs, kill, ("died", "evicted"))
+    stall_resp = _replica_event(recs, stall, ("died", "evicted"))
+    _check(kill_resp is not None, "[chaos] kill_replica r0 unmatched")
+    _check(stall_resp is not None, "[chaos] stall_replica r1 unmatched")
+    kill_back = _replica_event(recs, kill, ("healthy",))
+    stall_back = _replica_event(recs, stall, ("healthy",))
+    _check(kill_back is not None and stall_back is not None,
+           f"[chaos] router leg: back {kill_back}, {stall_back}")
+    errors = [s for s in samples if s[2] != 200]
+    if errors:
+        moments = {"kill": kill["t"], "stall": stall["t"],
+                   "r0 back": kill_back["t"], "r1 back": stall_back["t"]}
+        when = {k: round(v - kill["t"], 3) for k, v in moments.items()}
+        raise SmokeFailure(
+            f"[chaos] router leg: {len(errors)} client errors, sent at "
+            f"{sorted(round(s[0] - kill['t'], 3) for s in errors)[:8]}... "
+            f"s after the kill (faults and recoveries at {when}); "
+            f"statuses {sorted({s[2] for s in errors})}")
+    _check(all(s[4] for s in samples), "[chaos] router leg: a nonfinite "
+           "answer")
+    t_fault1 = max(kill_back["t"], stall_back["t"])
+    f_rps, f50, f99, fn = _chaos_window(samples, kill["t"], t_fault1)
+    c_rps, c50, c99, cn = _chaos_window(samples, t_recovered, t_clean_end)
+    print(f"[chaos] router (humanoid-sim, 2 in-process replicas, "
+          f"act_timeout_s {CHAOS_ACT_TIMEOUT:g}, retry_budget "
+          f"{CHAOS_RETRY_BUDGET}, {CONTROL_CLIENTS} clients): every spec "
+          f"fired ({CHAOS_ROUTER_FAULTS}); kill_replica r0 -> "
+          f"{kill_resp['state']} in {kill_resp['t'] - kill['t']:.3f} s, "
+          f"healthy again {kill_back['t'] - kill['t']:.3f} s after the "
+          f"kill; stall_replica r1 -> {stall_resp['state']} in "
+          f"{stall_resp['t'] - stall['t']:.3f} s, healthy again "
+          f"{stall_back['t'] - stall['t']:.3f} s after; {len(samples)} "
+          f"answers, 0 client errors, {retried} retried; faulted window "
+          f"({t_fault1 - kill['t']:.2f} s) {f_rps:.1f} requests/s p50 "
+          f"{f50:.2f} p99 {f99:.2f} ms ({fn}); clean window "
+          f"({CHAOS_CLEAN_S:g} s) {c_rps:.1f} requests/s p50 {c50:.2f} "
+          f"p99 {c99:.2f} ms ({cn}) ({card})", flush=True)
+    return [
+        {"leg": "serve_router", "fault": "kill_replica",
+         "spec": kill["spec"], "response": kill_resp["state"],
+         "delay_s": kill_resp["t"] - kill["t"],
+         "healthy_again_s": kill_back["t"] - kill["t"]},
+        {"leg": "serve_router", "fault": "stall_replica",
+         "spec": stall["spec"], "response": stall_resp["state"],
+         "delay_s": stall_resp["t"] - stall["t"],
+         "healthy_again_s": stall_back["t"] - stall["t"]},
+        {"leg": "serve_router", "window": "faulted",
+         "requests_per_s": f_rps, "p50_ms": f50, "p99_ms": f99,
+         "requests": fn},
+        {"leg": "serve_router", "window": "clean", "requests_per_s": c_rps,
+         "p50_ms": c50, "p99_ms": c99, "requests": cn},
+    ]
+
+
+def _chaos_gymproc(torch, dev) -> dict:
+    """``TRPOAgent("gymproc:CartPole-v1", ..., device=dev)``: without
+    gymnasium it must raise naming it before any worker process starts;
+    where gymnasium is installed, the supervised pool builds instead."""
+    import importlib.util
+    import multiprocessing
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import TRPOConfig
+
+    cfg = TRPOConfig(env="gymproc:CartPole-v1", n_envs=2, batch_timesteps=8)
+    before = multiprocessing.active_children()
+    if importlib.util.find_spec("gymnasium") is None:
+        try:
+            TRPOAgent(cfg.env, cfg, device=dev)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise SmokeFailure("[chaos] gymproc: built without gymnasium")
+        _check("gymnasium" in msg, f"[chaos] gymproc: refusal {msg!r}")
+        _check(multiprocessing.active_children() == before,
+               "[chaos] a worker process started before the refusal")
+        print(f"[chaos] gymproc: refused on this machine (no gymnasium), "
+              f"no worker started: RuntimeError: {msg}", flush=True)
+        return {"leg": "gymproc", "response": "refused", "message": msg}
+    agent = TRPOAgent(cfg.env, cfg, device=dev)
+    try:
+        agent.run_iteration(agent.init_state())
+    finally:
+        agent.env.close()
+    print("[chaos] gymproc: gymnasium is installed here; the supervised "
+          "pool built and ran one iteration", flush=True)
+    return {"leg": "gymproc", "response": "ran"}
+
+
+def phase_chaos(torch, dev):
+    """The fault injector (``trpo_torch.resilience``) through the flagship
+    trainer and the replicated server, as users run them (subprocesses),
+    through the router with its timeout and retry bucket set (in
+    process), and the ``gymproc:`` refusal. Returns the train child's
+    launches."""
+    from trpo_torch.ops import _build
+
+    card = _card_line()
+    work = WORK / "chaos"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    counts, ck_dir, records = _chaos_train(torch, dev, work, card)
+    t1 = time.perf_counter()
+    records += _chaos_serve_cli(torch, dev, ck_dir, work, card)
+    records += _chaos_serve_router(torch, dev, ck_dir, work, card)
+    t2 = time.perf_counter()
+    records.append(_chaos_gymproc(torch, dev))
+    here = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check(not here, f"[chaos] launches in the measuring process: {here}")
+    with open(work / "chaos.jsonl", "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")
+    print("[chaos] summary: " + "; ".join(
+        f"{r['fault']} -> {r['response']} in {r['delay_s']:.3f} s"
+        for r in records if "fault" in r)
+        + f"; legs train {t1 - t0:.1f} s, serve {t2 - t1:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s; records in "
+        f"{(work / 'chaos.jsonl').relative_to(ROOT)}", flush=True)
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -4288,6 +4915,7 @@ def main() -> int:
                 ("serve", lambda: phase_serve(torch, dev)),
                 ("control", lambda: phase_control(torch, dev)),
                 ("obs", lambda: phase_obs(torch, dev)),
+                ("chaos", lambda: phase_chaos(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

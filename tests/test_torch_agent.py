@@ -211,17 +211,34 @@ def test_train_cli_on_cpu(capsys):
 
 def test_unported_env_and_preset_paths_raise():
     # the ladder, the fleet presets, the pixel, recurrent and MoE families,
-    # the gym:/native: host envs, the overlapped loop and serving run now;
-    # the gymproc: worker pool still raises, naming its ROADMAP item
+    # the gym:/native: host envs, the overlapped loop, serving and the
+    # gymproc: worker pool run now
     agent = TRPOAgent("cartpole", get_preset("cartpole").replace(
         train_overlap=1, rollout_chunk=5), device="cpu")
     assert agent._overlap and agent.n_steps == 125
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TRPOAgent("gymproc:CartPole-v1", get_preset("cartpole"),
-                  device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        TRPOAgent("cartpole", get_preset("cartpole").replace(
-            env="gymproc:CartPole-v1"), device="cpu")
+    pytest.importorskip("gymnasium")
+    from trpo_torch.envs.proc_env import ProcVecEnv
+    from trpo_torch.resilience import SupervisedEnv
+
+    for name, cfg in (
+            ("gymproc:CartPole-v1", get_preset("cartpole").replace(
+                n_envs=2, batch_timesteps=8, policy_hidden=(8,))),
+            ("cartpole", get_preset("cartpole").replace(
+                env="gymproc:CartPole-v1", n_envs=2, batch_timesteps=8,
+                policy_hidden=(8,)))):
+        # the second builds the config's env, not the name it was given
+        built = TRPOAgent(cfg.env if name == "cartpole" else name, cfg,
+                          device="cpu")
+        try:
+            assert isinstance(built.env, SupervisedEnv)
+            assert isinstance(built.env.env, ProcVecEnv)
+            assert not built.is_device_env and built.obs_shape == (4,)
+            assert built.env.env.step_timeout == cfg.env_step_timeout
+            state, stats = built.run_iteration(built.init_state())
+            assert state.iteration == 1 and stats["entropy"] == \
+                stats["entropy"]
+        finally:
+            built.env.close()
     # the serving data plane and its control plane run now
     assert agent.serve_engine().batch_shapes == (1, 8, 64)
     for control in ({"serve_replicas": 2}, {"serve_hosts": ("a",)},

@@ -5,6 +5,7 @@ the port's device envs as the physics oracle, snapshot/restore, and the
 host obs-norm fold.
 """
 
+import importlib.util
 import os
 import shutil
 
@@ -233,8 +234,18 @@ def test_make_resolves_native_and_refuses_unknown_kinds():
     assert envs.is_device_env(envs.make("cartpole"))
     with pytest.raises(KeyError):
         envs.make("native:walker")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        envs.make("gymproc:CartPole-v1")
+    # the gymproc: worker pool is ported (item 18.3): with gymnasium it
+    # builds a pool that steps, without it it refuses naming gymnasium
+    if importlib.util.find_spec("gymnasium") is None:
+        with pytest.raises(RuntimeError, match="gymnasium"):
+            envs.make("gymproc:CartPole-v1")
+        return
+    pool = envs.make("gymproc:CartPole-v1", n_envs=2, n_workers=1)
+    try:
+        assert not envs.is_device_env(pool)
+        assert pool.host_step(np.zeros(2, np.int64))[0].shape == (2, 4)
+    finally:
+        pool.close()
 
 
 def test_no_toolchain_is_a_clear_error(monkeypatch):

@@ -62,8 +62,11 @@ overlapped loop's ``train/*`` spans with ``cfg.trace_sample_rate``).
 ``TrainState.metrics`` carries the reference's five run-cumulative solver
 counters (``obs/device_metrics.py``), added to inside every update and
 merged into every row. ``cfg.debug_nans`` checks each stage's outputs
-(``config.py`` lists it as a stated difference). The fault injector is not
-ported (ROADMAP.md Queue 1 item 18.4).
+(``config.py`` lists it as a stated difference). ``cfg.inject_faults``
+arms a ``resilience.FaultInjector`` on the serial and async drivers (the
+overlapped loop refuses it at config); a ``gymproc:`` env is wrapped in
+``resilience.SupervisedEnv``, which ``learn`` hands the bus and the
+injector.
 
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
@@ -116,7 +119,14 @@ from trpo_torch.trpo import (
     make_trpo_update,
     standardize_advantages,
 )
-from trpo_torch.resilience import Preempted, PreemptionGuard, RecoveryPolicy
+from trpo_torch.resilience import (
+    FaultInjector,
+    Preempted,
+    PreemptionGuard,
+    RecoveryPolicy,
+    SupervisedEnv,
+    SupervisionConfig,
+)
 from trpo_torch.utils.async_pipe import StatsDrain
 from trpo_torch.utils.metrics import StatsLogger, explained_variance
 from trpo_torch.utils.normalize import (
@@ -192,24 +202,39 @@ class TRPOAgent:
         if isinstance(env, str):
             kwargs = {}
             if env.startswith(envs_lib.HOST_PREFIXES):
-                if (cfg.fleet_n_envs is not None and env.startswith("gym:")
+                if (cfg.fleet_n_envs is not None
+                        and env.startswith(("gym:", "gymproc:"))
                         and self.n_envs > envs_lib.HOST_ENV_FLEET_MAX):
                     raise ValueError(
                         f"fleet_n_envs={cfg.fleet_n_envs} exceeds the host "
                         "simulator fleet cap "
                         f"({envs_lib.HOST_ENV_FLEET_MAX}) for {env!r}: the "
-                        "gym: family constructs one simulator instance per "
-                        "env and cannot honor a thousands-wide fleet — use "
-                        "a device env family (e.g. the -sim stand-ins) or "
-                        "native:, or set n_envs explicitly if you really "
-                        "want this many host simulators")
+                        "gym:/gymproc: families construct one simulator "
+                        "instance per env and cannot honor a thousands-wide "
+                        "fleet — use a device env family (e.g. the -sim "
+                        "stand-ins) or native:, or set n_envs explicitly if "
+                        "you really want this many host simulators")
                 kwargs["n_envs"] = self.n_envs
                 if cfg.normalize_obs:
                     kwargs["normalize_obs"] = True
+                if env.startswith("gymproc:") and cfg.env_step_timeout:
+                    # a dead or hung worker raises WorkerDiedError instead
+                    # of hanging host_step (0/None = wait forever)
+                    kwargs["step_timeout"] = cfg.env_step_timeout
             else:
                 kwargs["device"] = self.device
             env = envs_lib.make(env, max_episode_steps=cfg.max_pathlength,
                                 **kwargs)
+        if hasattr(env, "restart_worker") and not isinstance(
+                env, SupervisedEnv):
+            # a worker pool (gymproc:, or a constructed ProcVecEnv): dead
+            # or hung workers restart with backoff, degrade in-process past
+            # max_worker_restarts, abort below min_env_workers; learn()
+            # attaches the bus and the injector
+            env = SupervisedEnv(env, SupervisionConfig(
+                max_worker_restarts=cfg.max_worker_restarts,
+                min_proc_workers=cfg.min_env_workers,
+                backoff_base=cfg.worker_backoff))
         self.env = env
         self.is_device_env = envs_lib.is_device_env(env)
         self._overlap = bool(cfg.train_overlap)
@@ -1045,11 +1070,20 @@ class TRPOAgent:
         recovery = (RecoveryPolicy(cfg, bus=bus)
                     if cfg.recover_on_nan == "restore" else None)
         guard = PreemptionGuard(enabled=cfg.on_preempt == "checkpoint")
+        injector = (FaultInjector.from_spec(cfg.inject_faults, bus=bus)
+                    if cfg.inject_faults else None)
+        if isinstance(self.env, SupervisedEnv):
+            # the pool reports restarts and degradation on the run's bus,
+            # and hosts the env-level faults (kill/hang/delay)
+            if bus is not None and self.env.bus is None:
+                self.env.bus = bus
+            if injector is not None:
+                self.env.injector = injector
         driver = None
         if cfg.host_async_pipeline and not self.is_device_env:
             driver = lambda: self._learn_host_async(  # noqa: E731
                 n_iterations, state, logger, checkpointer, callback, timer,
-                recovery, guard, telemetry)
+                recovery, guard, telemetry, injector=injector)
         elif self._overlap:
             driver = lambda: self._learn_overlap(  # noqa: E731
                 n_iterations, state, logger, checkpointer, callback, timer,
@@ -1079,8 +1113,13 @@ class TRPOAgent:
                         self._preempt_shutdown(state, checkpointer, guard,
                                                bus)
                     if recovery is not None:
+                        # parked before the injector can poison the state
                         recovery.snapshot(it0 + done + 1, state)
                     k = min(chunk, n_iterations - done)
+                    if injector is not None:
+                        # span=k: a fused chunk's fault lands at its start
+                        state = injector.before_iteration(
+                            it0 + done + 1, state, span=k)
                     if telemetry is not None:
                         # span=k: the window opens for the chunk that
                         # contains the requested iteration
@@ -1134,12 +1173,34 @@ class TRPOAgent:
                                           host_env=self.snapshot_host_env())
                     if stop:
                         break
+                if injector is not None:
+                    self._warn_unfired_faults(injector, bus)
         finally:
             if telemetry is not None:
                 telemetry.finish_run(timer)
             if own_logger:
                 logger.close()
         return state
+
+    @staticmethod
+    def _warn_unfired_faults(injector, bus) -> None:
+        """A completed run whose chaos specs never fired exercised nothing
+        for them: say so, on the bus (a ``health`` ``fault_unfired``
+        warning) or through ``warnings``."""
+        unfired = injector.unfired
+        if not unfired:
+            return
+        msg = ("fault spec(s) never fired: " + "; ".join(unfired) + " — the "
+               "run completed without exercising them (trigger beyond the "
+               "run's steps/iterations, or an env without the targeted "
+               "workers)")
+        if bus is not None:
+            bus.emit("health", check="fault_unfired", level="warn",
+                     message=msg, data={"unfired": list(unfired)})
+        else:
+            import warnings
+
+            warnings.warn(msg)
 
     def _finish_iteration_stats(self, host_stats, reward_running, logger, *,
                                 iteration: int, iteration_ms: float,
@@ -1486,7 +1547,7 @@ class TRPOAgent:
 
     def _learn_host_async(self, n_iterations, state, logger, checkpointer,
                           callback, timer, recovery, guard,
-                          telemetry=None) -> TrainState:
+                          telemetry=None, injector=None) -> TrainState:
         """The asynchronous driver for host envs (counterpart: the
         reference's ``_learn_host_async``).
 
@@ -1591,6 +1652,8 @@ class TRPOAgent:
                 if recovery is not None:
                     land_b()
                     recovery.snapshot(i + 1, cur)
+                if injector is not None:
+                    cur = injector.before_iteration(i + 1, cur)
                 if telemetry is not None:
                     telemetry.profile_tick(i + 1)
                     if j >= 2:
@@ -1628,6 +1691,8 @@ class TRPOAgent:
                 if drain.stop_requested:
                     continue  # the epilogue above lands phase B first
                 j += 1
+            if injector is not None:
+                self._warn_unfired_faults(injector, bus)
         finally:
             drain.close()
         return cur

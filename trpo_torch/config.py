@@ -3,22 +3,21 @@
 The port keeps its own copy of the training fields of ``TRPOConfig`` and of
 the preset ladder, so a preset name means the same run in both packages,
 every ``serve_*`` field with the reference's validation, so a serving
-configuration round-trips, and the telemetry fields (``status_port``,
-``memory_accounting``, ``trace_sample_rate``, ``debug_nans``). The
-supervised worker pool's fields (``env_step_timeout``,
-``max_worker_restarts``, ``min_env_workers``, ``worker_backoff``: ROADMAP.md
-Queue 1 item 18.3), ``inject_faults`` (18.4) and ``mesh_axes`` (item 16)
-are left out until those layers are ported.
+configuration round-trips, the telemetry fields (``status_port``,
+``memory_accounting``, ``trace_sample_rate``, ``debug_nans``), the
+supervised worker pool's (``env_step_timeout``, ``max_worker_restarts``,
+``min_env_workers``, ``worker_backoff``) and ``inject_faults``, parsed at
+construction. ``mesh_axes`` (ROADMAP.md Queue 1 item 16) is left out until
+that layer is ported.
 
 Differences from the reference:
 
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* Paths that are not ported yet (``mesh_shape``, the ``gymproc:`` envs,
-  the serving control plane: replicas, autoscaling, hosts, launch
-  templates, canary) raise ``NotImplementedError`` naming the
-  ``ROADMAP.md`` item that ports them (:func:`check_ported`). They are
+* A path that is not ported yet (``mesh_shape``) raises
+  ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it
+  (:func:`check_ported`). They are
   never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
   copied from the reference stays constructible.
@@ -152,6 +151,24 @@ class TRPOConfig:
     #                                (the CLI exits requeue_exit_code);
     #                                "ignore": default signal behaviour
     requeue_exit_code: int = 75
+    env_step_timeout: Optional[float] = 60.0  # gymproc: pools: seconds a
+    #                                reply gather waits on a worker before
+    #                                declaring it dead (WorkerDiedError);
+    #                                0/None = wait forever
+    max_worker_restarts: int = 2   # supervision: process restarts (with
+    #                                exponential backoff) per env worker
+    #                                before its slice degrades to the
+    #                                in-process fallback
+    min_env_workers: int = 0       # abort (WorkerPoolError) when fewer
+    #                                process-backed workers remain healthy;
+    #                                0 = degrade all the way
+    worker_backoff: float = 0.5    # base seconds of the restart backoff
+    #                                (base·2^(attempt-1), capped at 5 s)
+    inject_faults: Optional[str] = None  # chaos spec
+    #                                (resilience/inject.py grammar, e.g.
+    #                                "nan_update@iter=2;sigterm@iter=4");
+    #                                every fired fault is a fault_injected
+    #                                event
     train_overlap: int = 0         # 1: the overlapped actor/learner
     #                                loop (agent._overlap_run): rollout
     #                                k+1 runs while update k does, one
@@ -271,8 +288,7 @@ class TRPOConfig:
             )
         if self.train_overlap:
             # each of these owns the iteration's sequencing in a way the
-            # overlapped driver cannot compose with (the reference's
-            # inject_faults check lands with its field, item 18.4)
+            # overlapped driver cannot compose with
             if self.rollout_chunk is None:
                 raise ValueError(
                     "train_overlap=1 streams the rollout through the "
@@ -305,6 +321,12 @@ class TRPOConfig:
                     '"restore": the rewind would have to unwind an '
                     "in-flight stale window as well as the update — run "
                     "the synchronous loop when restore-recovery matters"
+                )
+            if self.inject_faults:
+                raise ValueError(
+                    "train_overlap=1 does not support inject_faults: the "
+                    "chaos injector's iteration triggers assume the "
+                    "serial driver's state handoff"
                 )
         if self.status_port is not None and not (
                 0 <= self.status_port < 65536):
@@ -419,6 +441,33 @@ class TRPOConfig:
             raise ValueError(
                 f"max_recoveries must be >= 1, got {self.max_recoveries}"
             )
+        if self.max_worker_restarts < 0:
+            raise ValueError(
+                "max_worker_restarts must be >= 0, got "
+                f"{self.max_worker_restarts}"
+            )
+        if self.min_env_workers < 0:
+            raise ValueError(
+                f"min_env_workers must be >= 0, got {self.min_env_workers}"
+            )
+        if self.env_step_timeout is not None and self.env_step_timeout < 0:
+            # 0/None = wait forever; a negative value would time every
+            # gather out at once and burn the restart budget into silent
+            # pool degradation
+            raise ValueError(
+                "env_step_timeout must be >= 0 (0 or None = no timeout), "
+                f"got {self.env_step_timeout}"
+            )
+        if self.worker_backoff < 0:
+            raise ValueError(
+                f"worker_backoff must be >= 0, got {self.worker_backoff}"
+            )
+        if self.inject_faults:
+            # fail at construction: a chaos run with an unparseable spec
+            # would otherwise pass by injecting nothing
+            from trpo_torch.resilience.inject import parse_fault_specs
+
+            parse_fault_specs(self.inject_faults)
         if not 0 < self.requeue_exit_code < 256:
             raise ValueError(
                 "requeue_exit_code must be in (0, 255], got "
@@ -546,15 +595,12 @@ def check_ported(cfg: TRPOConfig) -> None:
     does not run yet, naming the ROADMAP item that ports it."""
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
-    if cfg.env.startswith("gymproc:"):
-        _not_ported(f"env {cfg.env!r} (the gymproc: worker pool)",
-                    "item 18.3")
 
 
 def refuse_unported(name: str, value, item: str) -> None:
     """Raise ``NotImplementedError`` unless ``value`` is None: a hook of a
-    layer the port does not have yet (an event bus, a tracer, a fault
-    injector) is refused, never silently dropped."""
+    layer the port does not have yet (request capture) is refused, never
+    silently dropped."""
     if value is not None:
         _not_ported(name, item)
 

@@ -10,62 +10,80 @@
 * ``"native:cartpole"``, ``"native:pendulum"``: the batched C++ steppers
   on the host (``envs/native.py``, any width);
 * ``"gym:<EnvId>"``: gymnasium envs on the host (``envs/gym_adapter.py``;
-  needs gymnasium and the id's simulator).
+  needs gymnasium and the id's simulator);
+* ``"gymproc:<EnvId>"``: the same envs over a pool of worker processes
+  (``envs/proc_env.py``; the agent wraps it in
+  ``resilience.SupervisedEnv``).
 
-``"gymproc:<EnvId>"`` (the worker-process pool) is not ported yet
-(ROADMAP.md Queue 1 item 18.3).
+The device env classes are imported on first use (module
+``__getattr__``): a ``gymproc:`` worker process imports this package to
+reach ``envs.proc_env`` and must not pay for ``torch``, which it never
+calls.
 """
 
+import importlib
 import inspect
 
-from trpo_torch.envs.cartpole import CartPole  # noqa: F401
-from trpo_torch.envs.catch import CatchPixels  # noqa: F401
-from trpo_torch.envs.fake import FakeEnv  # noqa: F401
-from trpo_torch.envs.locomotion import (  # noqa: F401
-    ChainLocomotion,
-    HalfCheetahSim,
-    HumanoidSim,
-)
-from trpo_torch.envs.pendulum import Pendulum  # noqa: F401
-from trpo_torch.envs.wrappers import MaskObservation  # noqa: F401
+# the device env classes, by module: resolved on first access
+_LAZY = {
+    "CartPole": "cartpole",
+    "CatchPixels": "catch",
+    "FakeEnv": "fake",
+    "ChainLocomotion": "locomotion",
+    "HalfCheetahSim": "locomotion",
+    "HumanoidSim": "locomotion",
+    "Pendulum": "pendulum",
+    "MaskObservation": "wrappers",
+}
+
+
+def __getattr__(name):
+    mod = _LAZY.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
 
 
 def _pong_sim(grid: int = 21, cell_px: int = 4, frames: int = 4,
               device=None):
     """Catch at the Nature-DQN Atari input shape: 84×84×4 uint8
     frame-stacked pixels."""
-    return CatchPixels(grid=grid, cell_px=cell_px, frames=frames,
-                       device=device)
+    return __getattr__("CatchPixels")(grid=grid, cell_px=cell_px,
+                                      frames=frames, device=device)
 
 
 def _cartpole_po(max_episode_steps: int = 500, device=None):
     """CartPole with velocities hidden (obs = [x, theta])."""
-    return MaskObservation(
-        CartPole(max_episode_steps=max_episode_steps, device=device),
+    return __getattr__("MaskObservation")(
+        __getattr__("CartPole")(max_episode_steps=max_episode_steps,
+                                device=device),
         indices=(0, 2),
     )
 
 
-# The widest fleet the gym: family builds from cfg.fleet_n_envs: it makes
-# one simulator object per env, so a thousands-wide fleet preset there is
-# a misconfiguration, refused at agent construction. Device envs and
-# native: take any width.
+# The widest fleet the gym:/gymproc: families build from cfg.fleet_n_envs:
+# they make one simulator object per env, so a thousands-wide fleet preset
+# there is a misconfiguration, refused at agent construction. Device envs
+# and native: take any width.
 HOST_ENV_FLEET_MAX = 256
 
+# name -> the env class's name (see _LAZY) or a factory
 DEVICE_ENVS = {
-    "cartpole": CartPole,
+    "cartpole": "CartPole",
     "cartpole-po": _cartpole_po,
-    "pendulum": Pendulum,
-    "fake": FakeEnv,
-    "chain": ChainLocomotion,
-    "halfcheetah-sim": HalfCheetahSim,
-    "humanoid-sim": HumanoidSim,
-    "catch": CatchPixels,
+    "pendulum": "Pendulum",
+    "fake": "FakeEnv",
+    "chain": "ChainLocomotion",
+    "halfcheetah-sim": "HalfCheetahSim",
+    "humanoid-sim": "HumanoidSim",
+    "catch": "CatchPixels",
     "pong-sim": _pong_sim,
 }
 
 
-HOST_PREFIXES = ("gym:", "native:")
+HOST_PREFIXES = ("gym:", "gymproc:", "native:")
 
 
 def make(name: str, max_episode_steps=None, device=None, **kwargs):
@@ -86,12 +104,13 @@ def make(name: str, max_episode_steps=None, device=None, **kwargs):
 
         return NativeVecEnv(name[len("native:"):], **kwargs)
     if name.startswith("gymproc:"):
-        raise NotImplementedError(
-            f"env {name!r}: the gymproc: worker pool is not ported to "
-            "trpo_torch yet (ROADMAP.md Queue 1 item 18.3); use gym: or "
-            "native:")
+        from trpo_torch.envs.proc_env import ProcVecEnv
+
+        return ProcVecEnv(name[len("gymproc:"):], **kwargs)
     if name in DEVICE_ENVS:
         cls = DEVICE_ENVS[name]
+        if isinstance(cls, str):
+            cls = __getattr__(cls)
         if "max_episode_steps" in kwargs and "max_episode_steps" not in \
                 inspect.signature(cls).parameters:
             raise TypeError(
@@ -101,7 +120,7 @@ def make(name: str, max_episode_steps=None, device=None, **kwargs):
         return cls(device=device, **kwargs)
     raise KeyError(
         f"unknown env {name!r}; have {sorted(DEVICE_ENVS)}, "
-        "'native:<kind>' or 'gym:<EnvId>'")
+        "'native:<kind>', 'gym:<EnvId>' or 'gymproc:<EnvId>'")
 
 
 def is_device_env(env) -> bool:

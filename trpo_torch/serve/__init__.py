@@ -32,9 +32,9 @@ The control plane composes replicas of the data plane:
 
 ``python -m trpo_torch.serve`` is the CLI (``--replicas N`` puts a router
 in front of N replicas). Every component takes the run-event bus
-(``bus=``) and the front ends a tracer (``tracer=``, ``obs/trace.py``);
-fault injection and request capture are ROADMAP.md Queue 1 items 18.4
-and 18.5.
+(``bus=``) and the front ends a tracer (``tracer=``, ``obs/trace.py``)
+and a fault injector (``injector=``, ``resilience/inject.py``); request
+capture is ROADMAP.md Queue 1 item 18.5.
 """
 
 from trpo_torch.serve.autoscaler import Autoscaler

@@ -45,9 +45,20 @@ requests as ``span`` records, one ``Tracer`` per process role (the
 router, each in-process replica); a ``--replica-cmd`` child arms its own
 through its template. At rate 0 no request is head-sampled, but every
 anomaly (a retried or failed request, a session failover) is still
-traced; without the flag there is no tracer. ``--capture`` (ROADMAP.md Queue 1 item 18.5) and
-``--inject-faults`` (18.4) raise ``NotImplementedError`` naming their
-item.
+traced; without the flag there is no tracer.
+
+``--inject-faults SPEC`` arms one ``resilience.FaultInjector`` (the
+serving grammar: ``kill_replica``, ``stall_replica``, ``wedge_reload``,
+``drop_carry_journal``, ``overload_storm``, ``slow_replica``,
+``flap_replica`` and the host faults), on the event bus when there is one,
+handed to the router (the request clock) and to every in-process replica
+(the reload seam); a spec that never fired is named on stderr at exit.
+The router keeps the reference's fixed act timeout (30 s) and retry
+bucket (8 tokens, 4/s): a ``stall_replica`` shorter than the timeout is
+only latency, and a replica lost with more requests in flight than the
+bucket holds sheds the retries past it as 502s.
+``--capture`` (ROADMAP.md Queue 1 item 18.5) raises
+``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -178,9 +189,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="head-sampling rate of request traces (span "
                         "records on --metrics-jsonl; anomalies are always "
                         "traced)")
-    # capture and faults: parsed so that they refuse by item number
-    # instead of as unknown flags
-    p.add_argument("--inject-faults", help=argparse.SUPPRESS)
+    p.add_argument("--inject-faults",
+                   help="serving chaos spec (resilience/inject.py grammar): "
+                        "kill_replica@request=K:replica=R, stall_replica@"
+                        "request=K:replica=R:seconds=S, wedge_reload@step=N,"
+                        " drop_carry_journal@request=K:replica=R, ...")
+    # capture: parsed so that it refuses by item number instead of as an
+    # unknown flag
     p.add_argument("--capture", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -190,10 +205,6 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "--capture: request capture is not ported to trpo_torch yet "
             "(ROADMAP.md Queue 1 item 18.5)")
-    if args.inject_faults is not None:
-        raise NotImplementedError(
-            "--inject-faults: fault injection is not ported to trpo_torch "
-            "yet (ROADMAP.md Queue 1 item 18.4)")
 
 
 def config_from_args(args):
@@ -312,6 +323,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from trpo_torch.utils.checkpoint import Checkpointer
 
     cfg = config_from_args(args)
+    injector = None
+    if args.inject_faults:
+        from trpo_torch.resilience.inject import FaultInjector
+
+        injector = FaultInjector.from_spec(args.inject_faults)
     agent = TRPOAgent(cfg.env, cfg, device=args.device)
     recurrent = agent.is_recurrent
     error = _arming_error(args, cfg, recurrent)
@@ -340,6 +356,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "replicas": cfg.serve_replicas, "recurrent": recurrent,
             "canary_fraction": cfg.serve_canary_fraction,
             "carry_journal": journal_dir}, device=agent.device))
+    if injector is not None:
+        injector.bus = bus
     # one Tracer per process role, cached by name so a relaunched replica
     # reuses its own instead of leaking a writer thread per restart
     tracers: dict = {}
@@ -382,6 +400,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             carry_sync_every=cfg.serve_carry_sync_every,
             managed_reload=canary,
             initial_step=incumbent["step"],
+            injector=injector,
             session_deadline_ms=cfg.serve_session_deadline_ms,
             session_adaptive_deadline=cfg.serve_adaptive_deadline,
             uds_path=uds_path,
@@ -429,6 +448,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             router = Router(
                 replicaset, args.port, host=args.host,
                 max_inflight=cfg.serve_max_inflight,
+                injector=injector,
                 session_ttl_s=cfg.serve_session_ttl,
                 max_sessions=cfg.serve_max_sessions,
                 journal_dir=journal_dir,
@@ -501,6 +521,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             c.close()
         for t in tracers.values():
             t.close()  # flush pending spans before the bus closes
+        if injector is not None and injector.unfired:
+            # a chaos run whose faults never fired tested nothing
+            print("WARNING: injected faults never fired: "
+                  + "; ".join(injector.unfired), file=sys.stderr, flush=True)
         if bus is not None:
             bus.close()
     if router is not None:

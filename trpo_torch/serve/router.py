@@ -69,9 +69,16 @@ head-sampled): a ``router.act`` / ``router.session_create`` /
 span per replica hop whose id rides the hop's ``X-Trace-Parent`` header
 (TCP or Unix socket), and on a session failover ``router.takeover`` and
 ``router.fence``. A retried, failed or taken-over request is always
-traced, whatever the rate. The fault injector (``injector=``, ROADMAP.md
-Queue 1 item 18.4) and request capture (``capture=``, 18.5) are
-refused.
+traced, whatever the rate. With an ``injector``
+(``resilience.FaultInjector``, which may also be armed later by setting
+``router.injector``) each routed client request is the serving faults'
+trigger point (:meth:`Router._chaos_tick`): it is counted under the
+router's lock, so ``request=K`` is exact under concurrency, and fires the
+request-clocked faults against the replica set, the carry-journal
+directory, the transport and the request's own path and body; on the
+async core it runs on the executor, off the event loop. A hook failure
+never fails the request, and every chaos-fired request is traced. Request
+capture (``capture=``, ROADMAP.md Queue 1 item 18.5) is refused.
 """
 
 from __future__ import annotations
@@ -172,8 +179,6 @@ class Router:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        refuse_unported("the fault injector (injector=)", injector,
-                        "item 18.4")
         refuse_unported("request capture (capture=)", capture, "item 18.5")
         if core not in ("async", "thread"):
             raise ValueError(
@@ -237,6 +242,8 @@ class Router:
         self._last_pressure = 0.0   # monotonic stamp of the last 503/shed
         self.bus = bus
         self.tracer = tracer
+        self.injector = injector  # serving chaos (may be armed later)
+        self._chaos_requests = 0   # routed requests seen while armed
         # shed events: counted per reason, emitted at most once a second
         self._shed_lock = threading.Lock()
         self._shed_counts: Dict[str, int] = {}
@@ -812,6 +819,8 @@ class Router:
             headers = request_headers()
         tid = headers.get(TRACE_HEADER) if headers is not None else None
         ctx = self.tracer.begin(trace_id=tid)
+        if self.injector is not None:
+            ctx.force()  # every chaos-fired request has a trace
         return ctx, ctx.span(name)
 
     def _trace_done(self, ctx, root, status=None) -> None:
@@ -858,6 +867,11 @@ class Router:
     async def _act_async_inner(self, body: bytes, headers, ctx, root):
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
+        if self.injector is not None:
+            # a fault may kill a replica or start a storm: the executor,
+            # never the event loop
+            await asyncio.get_running_loop().run_in_executor(
+                self._httpd._executor, self._chaos_tick, "/act", body)
         shed = self._admission_check(body, headers=headers, ctx=ctx)
         if shed is not None:
             return shed
@@ -879,6 +893,9 @@ class Router:
                                        headers, ctx, root):
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
+        if self.injector is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                self._httpd._executor, self._chaos_tick, path, body)
         sid = self._session_id(path)
         if sid is None:
             return self._bad_session_path()
@@ -1143,6 +1160,24 @@ class Router:
 
     # -- handlers ----------------------------------------------------------
 
+    def _chaos_tick(self, path: str, body: bytes) -> None:
+        """One client request entered the router: the fault injector's
+        trigger point, with the request's shape (an ``overload_storm``
+        replays it). A hook failure never fails the request it rode in
+        on."""
+        if self.injector is None:
+            return
+        with self._lock:
+            self._chaos_requests += 1
+            idx = self._chaos_requests
+        try:
+            self.injector.on_serve_request(
+                idx, replicaset=self.replicaset,
+                journal_dir=self.journal_dir, router=self, path=path,
+                body=body, transport=self.transport)
+        except Exception:
+            pass
+
     def _act(self, body: bytes):
         return self._traced("router.act", self._act_inner, body)
 
@@ -1152,6 +1187,7 @@ class Router:
         headers = request_headers()
         fwd = self._codec_headers(headers)
         self._count_codec(fwd)
+        self._chaos_tick("/act", body)
         shed = self._admission_check(body, headers=headers, ctx=ctx)
         if shed is not None:
             return shed
@@ -1618,6 +1654,7 @@ class Router:
 
         fwd = self._codec_headers(request_headers())
         self._count_codec(fwd)
+        self._chaos_tick(path, body)
         sid = self._session_id(path)
         if sid is None:
             return self._bad_session_path()

@@ -49,9 +49,13 @@ With a ``tracer`` (``obs.trace.Tracer``) every act, session create and
 session act is a ``replica.*`` span, joined to the trace its hop carried
 (``X-Trace-Id``/``X-Trace-Parent``/``X-Trace-Sampled``) or opened here
 for a direct client, with the batcher's ``batch.queue_wait`` and engine
-spans under it; ``/metrics`` adds ``trpo_trace_*``. The fault injector
-(``injector=``, ROADMAP.md Queue 1 item 18.4) and request capture
-(``capture=``, 18.5) are refused.
+spans under it; ``/metrics`` adds ``trpo_trace_*``. With an ``injector``
+(``resilience.FaultInjector``) every restored step passes through its
+``on_checkpoint_load`` before the engine loads it, so a
+``wedge_reload@step=N`` spec replaces step N's params with NaN on the
+first replica to load it (the canary, under a gated deployment); the
+engine copies them into the new snapshot it captures its graphs over.
+Request capture (``capture=``, ROADMAP.md Queue 1 item 18.5) is refused.
 """
 
 from __future__ import annotations
@@ -142,8 +146,6 @@ class PolicyServer:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        refuse_unported("the fault injector (injector=)", injector,
-                        "item 18.4")
         refuse_unported("request capture (capture=)", capture, "item 18.5")
         if (checkpointer is None) != (template is None):
             raise ValueError(
@@ -167,6 +169,7 @@ class PolicyServer:
         self.batcher = batcher
         self.bus = bus
         self.tracer = tracer
+        self.injector = injector  # chaos: the reload seam (wedge_reload)
         self.checkpointer = checkpointer
         self.template = template
         self.snapshot_fn = snapshot_fn or (
@@ -283,6 +286,10 @@ class PolicyServer:
             params, obs_norm = self.snapshot_fn(state)
             if not self.engine.with_obs_norm:
                 obs_norm = None
+            if self.injector is not None:
+                # the checkpoint restored cleanly; a wedge_reload spec
+                # makes it answer garbage, what the canary gate must catch
+                params = self.injector.on_checkpoint_load(step, params)
             self.engine.load(params, obs_norm, step=step)
         except Exception as e:  # keep serving the last good snapshot
             self.reload_failures_total += 1

@@ -25,8 +25,9 @@ transport makes those failure modes explicit:
   is untouched: detection comes from lease expiry
   (``serve/replicaset.py``). The gates (``partition``, ``heal``,
   ``slow``, ``lose_descriptors``) are the transport's own methods; the
-  fault injector that arms them from a fault grammar is ROADMAP.md
-  Queue 1 item 18.4.
+  fault injector arms them from the partition grammar
+  (``partition_host``, ``slow_network``, ``lost_descriptor``) through the
+  router's request clock.
 * **Bounded descriptor discovery** — a transport-launched replica is
   discovered through its ``run.json`` with bounded retries under
   exponential backoff and a per-attempt time budget; a descriptor that

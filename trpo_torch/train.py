@@ -12,6 +12,10 @@
         [--host-inference cpu]
     python -m trpo_torch.train --preset halfcheetah --device cpu  # gymnasium
     python -m trpo_torch.train --preset humanoid-sim-fleet --overlap
+    python -m trpo_torch.train --preset cartpole --env gymproc:CartPole-v1 \
+        --device cpu --inject-faults "kill_worker@step=3:worker=0"
+    python -m trpo_torch.train --preset humanoid-sim --recover-on-nan \
+        restore --inject-faults "nan_update@iter=2;sigterm@iter=4"
     python -m trpo_torch.train --preset humanoid-sim --metrics-jsonl ev.jsonl \
         --health-checks --status-port 0 --memory-accounting \
         --run-descriptor run.json --profile-dir prof --profile-iteration 3
@@ -23,10 +27,16 @@ iteration. ``--resume`` continues from the newest complete checkpoint in
 ``--checkpoint-dir``. On SIGTERM/SIGINT the run writes a final checkpoint
 and exits with the requeue code (75). ``--evaluate STEPS`` runs a greedy
 rollout of STEPS per env after training. A host env's (``native:``,
-``gym:``) simulator state is checkpointed beside each step and restored
-with ``--resume``. ``--overlap`` runs the overlapped actor/learner loop
+``gym:``, ``gymproc:``) simulator state is checkpointed beside each step
+and restored with ``--resume``. ``--overlap`` runs the overlapped actor/learner loop
 (device envs with a rollout chunk: rollout k+1 runs while update k does,
 one window stale, importance-weighted).
+
+Resilience: ``--env gymproc:<Id>`` steps gymnasium envs over worker
+processes, supervised (``--env-step-timeout``, ``--max-worker-restarts``);
+``--inject-faults SPEC`` fires the ``resilience.inject`` grammar's faults
+at their steps or iterations (with ``--recover-on-nan restore`` a poisoned
+update is rewound; ``sigterm@iter=N`` ends the run with exit 75).
 
 Telemetry (``obs/``): ``--metrics-jsonl`` appends the typed run events
 (manifest, iteration, phase, health, recompile, memory; the reference's
@@ -73,9 +83,6 @@ _LADDER_PRINTED = ("solve_cosine", "solve_fallback", "solve_pinned",
 REFUSED = {
     "--mesh-shape": ("item 16", str),
     "--mesh-axes": ("item 16", str),
-    "--env-step-timeout": ("item 18.3", float),
-    "--max-worker-restarts": ("item 18.3", int),
-    "--inject-faults": ("item 18.4", str),
 }
 
 # the reference's flags the port replaces, with what replaces them
@@ -180,6 +187,20 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="SIGTERM/SIGINT: 'checkpoint' (default) writes a "
                    "final checkpoint and exits 75 for requeue; 'ignore' "
                    "keeps the default signal behaviour")
+    p.add_argument("--max-worker-restarts", type=int,
+                   help="gymproc: pools: process restarts per env worker "
+                   "before its slice degrades to an in-process fallback "
+                   "(default 2)")
+    p.add_argument("--env-step-timeout", type=float,
+                   help="gymproc: pools: seconds to wait on a worker reply "
+                   "before declaring it dead and restarting it (default 60; "
+                   "0 = wait forever)")
+    p.add_argument("--inject-faults", metavar="SPEC",
+                   help="deterministic chaos (trpo_torch.resilience.inject), "
+                   "';'-separated, each firing once: kill_worker@step=K:"
+                   "worker=W, hang_worker@step=K:worker=W, delay_step@step=K"
+                   ":seconds=S, nan_update@iter=N, sigterm@iter=N — each a "
+                   "fault_injected event on --metrics-jsonl")
     p.add_argument("--host-pipeline-groups", type=_positive_int,
                    help="host envs: step the envs in this many groups, "
                    "each on its own thread, overlapping inference")
@@ -301,6 +322,9 @@ def build_config(args):
         "recover_on_nan": args.recover_on_nan,
         "max_recoveries": args.max_recoveries,
         "on_preempt": args.on_preempt,
+        "max_worker_restarts": args.max_worker_restarts,
+        "env_step_timeout": args.env_step_timeout,
+        "inject_faults": args.inject_faults,
         "log_jsonl": args.log_jsonl,
         "checkpoint_dir": args.checkpoint_dir,
         "checkpoint_every": args.checkpoint_every,
