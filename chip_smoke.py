@@ -100,7 +100,8 @@ Phases:
      ``TemplateTransport`` on hosts h0/h1 (their startup seconds and device
      memory), the load from client threads here and from a load process;
      one engine's ``infer`` while another captures; a replica killed under
-     16 clients (0 client errors, retried, relaunched); 16 sessions x 20
+     16 clients while it holds requests it cannot finish (0 client
+     errors, retried, relaunched); 16 sessions x 20
      steps with the replica pinned by half of them killed at step 10
      (resumed from the journal, actions identical, carries within 1e-6);
      a canary promoted (step 4) and a NaN step rolled back under 8
@@ -141,10 +142,31 @@ Phases:
      and p50/p99 in the faulted and a clean window of each;
      ``gymproc:`` refused naming gymnasium before any worker starts; the
      records in ``build/chip_smoke/chaos/chaos.jsonl``;
- 23. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19-22) is driven with the launch counts set to 0
-just before it and read just after ([chaos]'s train leg in its child, a
-fresh process). The fused kernel's launches on each path
+ 23. ``[replay]`` request capture, deterministic replay, offline analysis
+     and alerts through the port's entry points (``trpo_torch.scripts``):
+     ``python -m trpo_torch.train --preset humanoid-sim`` (5 iterations,
+     ``--status-port 0``) in a child, watched while it runs by the
+     observatory's aggregator and ``observatory --targets ... --once
+     --json`` frames (``status.iteration`` advancing, 0 alerts), then
+     ``analyze_run`` (5 iterations; ``--compare`` itself exit 0) and
+     ``validate_events`` on its log; the child's K1 exactly Σ(cheap + 1)
+     = ``cg_iters_total`` + updates less the audited full solve, K2 5;
+     ``python -m trpo_torch.serve --preset cartpole-po --replicas 2
+     --capture`` recording window A (4 sessions x 50 acts, one at a time)
+     and B (8 x 50 from 8 clients), each exported from its 11th act
+     (``analyze_run --export-bundle``) and replayed by ``replay_run``:
+     every session journal-seeded, REPLAY BIT-EXACT, 0 capture drops, and
+     exit 1 on another step's weights; the serve CLI (humanoid-sim, 64
+     paced clients) under ``overload_storm``, watched in process by a
+     ``MetricsAggregator`` + ``AlertEngine(default_rules)``: 0 alerts in
+     the clean window, ``slo_p99`` and ``shed_rate`` fired and resolved,
+     the log clean under ``validate_events`` and read by ``observatory
+     --events``; capture's cost (64 clients, trace rate 1.0, off/on
+     alternating); logs in ``build/chip_smoke/replay/``;
+ 24. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19-23) is driven with the launch counts set to 0
+just before it and read just after ([chaos]'s and [replay]'s train legs
+in their children, fresh processes). The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -3272,15 +3294,38 @@ def _control_scaling_subprocess(torch, dev, ck_dir, bare, card) -> dict:
 
 
 def _control_failover(torch, agent, params, loads, card) -> None:
-    """Leg 3: 16 clients on two in-process replicas; r0 is killed 1 s in.
-    No client sees an error, the router retries, and r0 is relaunched and
-    answers again."""
+    """Leg 3: 16 clients on two in-process replicas; r0 is killed 1 s in,
+    while it holds requests it cannot finish: from just before the kill
+    its handlers wait at its batcher for a release that comes only after
+    the kill, so the requests seen in flight are lost with it. No client
+    sees an error, the router retries, and r0 is relaunched and answers
+    again."""
     import http.client
     import threading
 
     from trpo_torch.serve import Router
 
-    rs = _in_process_set(lambda rid: _ff_replica(loads, agent, params), 2)
+    hold, release = threading.Event(), threading.Event()
+
+    def factory(rid):
+        make = _ff_replica(loads, agent, params)
+        if rid != "r0":
+            return make
+
+        def gated():
+            server, closers = make()
+            submit = server.batcher.submit
+
+            def held(*args, **kw):
+                if hold.is_set():
+                    release.wait(60)
+                return submit(*args, **kw)
+
+            server.batcher.submit = held
+            return server, closers
+        return gated
+
+    rs = _in_process_set(factory, 2)
     router = Router(rs, port=0)
     stop = threading.Event()
     fails, answered = [], [0]
@@ -3312,7 +3357,9 @@ def _control_failover(torch, agent, params, loads, card) -> None:
         for t in threads:
             t.start()
         time.sleep(1.0)
-        # kill r0 while it holds requests: they are lost with it
+        # kill r0 while it holds requests it cannot finish: they are lost
+        # with it
+        hold.set()
         deadline = time.monotonic() + 10
         while (rs.replicas["r0"].inflight == 0
                and time.monotonic() < deadline):
@@ -3320,6 +3367,7 @@ def _control_failover(torch, agent, params, loads, card) -> None:
         inflight = rs.replicas["r0"].inflight
         t_kill = time.perf_counter()
         rs.replicas["r0"].handle.kill()
+        release.set()
         deadline = time.monotonic() + 60
         while time.monotonic() < deadline:
             row = rs.snapshot()["replicas"]["r0"]
@@ -3353,6 +3401,7 @@ def _control_failover(torch, agent, params, loads, card) -> None:
               f"({row['last_death_reason']!r}), then answered {r0_after} "
               f"requests in 0.5 s ({card})", flush=True)
     finally:
+        release.set()
         stop.set()
         router.close()
         rs.close()
@@ -4297,8 +4346,15 @@ def _chaos_train_child(counts_path: str) -> int:
 
 
 def _events(path: Path) -> list:
-    return ([json.loads(x) for x in path.read_text().splitlines()]
-            if path.exists() else [])
+    """The records of a log, which another process may still be appending
+    to: a torn last line is left for the next read."""
+    out = []
+    for line in (path.read_text().splitlines() if path.exists() else []):
+        try:
+            out.append(json.loads(line))
+        except ValueError:
+            break
+    return out
 
 
 def _after(recs, t0, pred):
@@ -4858,6 +4914,701 @@ def phase_chaos(torch, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [replay] capture, deterministic replay, offline analysis and alerts
+# ---------------------------------------------------------------------------
+
+REPLAY_ITERS = 5          # the observed train child's iterations
+REPLAY_ACTS = 50          # acts per session in each recorded window
+REPLAY_MID = 10           # each window opens after this many acts
+REPLAY_PACE_S = 0.8       # each of the storm leg's 64 clients sends ~1.25
+#                           requests/s: 80/s offered, a quarter of what
+#                           that server (2 in-process replicas, every
+#                           request an event on its log) routes on the card
+REPLAY_CALIBRATE_S = 10.5  # the SLO is read once the router's 10 s recent
+#                            window holds no connection's first request
+REPLAY_STORM_AT = 1075    # the storm's request clock: ~13.4 s at the
+#                           paced load, so the clean window runs ~3 s armed
+REPLAY_STORMS = 4          # storms at once, 16 workers each
+REPLAY_STORM = ";".join(
+    f"overload_storm@request={REPLAY_STORM_AT + i}:rps=8000:seconds=8"
+    for i in range(REPLAY_STORMS))
+REPLAY_SLO_X = 2.0         # the SLO over the calibrated clean p99
+REPLAY_STORM_INFLIGHT = 8  # per replica: 16 admitted, the rest shed
+REPLAY_COST_PER = 8       # requests per client in a capture-cost run
+
+
+def _spawn(argv, log: Path, err: Path = None):
+    """A child process of the port's entry points, its output in ``log``
+    (a pipe left unread could fill and stall it), its errors there too or
+    in ``err`` (a JSON answer must stay parseable)."""
+    f = open(log, "w")
+    e = open(err, "w") if err is not None else None
+    try:
+        return subprocess.Popen(argv, cwd=str(ROOT), stdout=f,
+                                stderr=e or subprocess.STDOUT, text=True)
+    finally:
+        f.close()
+        if e is not None:
+            e.close()
+
+
+
+def _tool(*argv) -> list:
+    return [sys.executable, "-m", *argv]
+
+
+def _finish(children: dict, timeout: float = 300) -> dict:
+    """Wait for every ``name -> (Popen, log)``: ``name -> (code, output)``."""
+    out = {}
+    deadline = time.monotonic() + timeout
+    for name, (proc, log) in children.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        out[name] = (proc.returncode, Path(log).read_text())
+    return out
+
+
+def _serve_up(child, desc: Path, log: Path, what: str,
+              timeout: float = 300) -> str:
+    """The URL of a serve CLI child once its replicas are all healthy."""
+    deadline = time.monotonic() + timeout
+    while not desc.exists():
+        _check(child.poll() is None and time.monotonic() < deadline,
+               f"[replay] {what}: exit {child.poll()}:\n"
+               f"{log.read_text()[-3000:]}")
+        time.sleep(0.1)
+    url = json.loads(desc.read_text())["url"]
+    while json.loads(_get_url(url + "/status"))["healthy"] < 2:
+        _check(time.monotonic() < deadline, f"[replay] {what}: replicas")
+        time.sleep(0.1)
+    return url
+
+
+def _stop_serve(child, log: Path, what: str) -> None:
+    child.send_signal(signal.SIGTERM)
+    try:
+        child.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+    _check(child.returncode == 0, f"[replay] {what}: exit "
+           f"{child.returncode}:\n{log.read_text()[-3000:]}")
+
+
+def _metric(text: str, name: str) -> float:
+    rows = [ln for ln in text.splitlines() if ln.startswith(name + " ")]
+    _check(len(rows) == 1, f"[replay] /metrics {name}: {rows}")
+    return float(rows[0].split()[1])
+
+
+def _replay_train(torch, dev, work: Path, card: str):
+    """Leg 1: ``python -m trpo_torch.train --preset humanoid-sim`` as
+    published, 5 iterations, watched while it runs by the observatory's
+    aggregator (in process, ticking) and by ``observatory --targets
+    train=URL --once --json`` frames; then ``analyze_run`` (summary and a
+    self-compare) and ``validate_events`` on its log, started here and
+    read by ``_replay_train_report``. Returns (the child's launches, its
+    checkpoint directory, what the report reads)."""
+    from trpo_torch.obs.aggregate import HttpTarget, MetricsAggregator
+    from trpo_torch.obs.alerts import AlertEngine, default_rules
+
+    ck, ev, desc = work / "ck", work / "train.jsonl", work / "train.json"
+    counts_path, log = work / "train_counts.json", work / "train.log"
+    t0 = time.perf_counter()
+    child = _spawn([
+        sys.executable, "-c", "import sys, chip_smoke as cs; "
+        "sys.exit(cs._chaos_train_child(sys.argv.pop(1)))", str(counts_path),
+        "--preset", "humanoid-sim", "--device", dev.type, "--iterations",
+        str(REPLAY_ITERS), "--metrics-jsonl", str(ev), "--status-port", "0",
+        "--run-descriptor", str(desc), "--checkpoint-dir", str(ck),
+        "--checkpoint-every", str(REPLAY_ITERS)], log)
+    agg = engine = frame = None
+    seen, frames, n = [], [], 0
+    try:
+        while child.poll() is None:
+            _check(time.perf_counter() - t0 < 600, "[replay] train child")
+            if agg is None and desc.exists():
+                url = json.loads(desc.read_text())["status_url"]
+                engine = AlertEngine(default_rules())
+                agg = MetricsAggregator([HttpTarget("train", url)],
+                                        engine=engine, interval=0.2)
+            if agg is not None:
+                agg.tick()
+                it = agg.latest("train", "status.iteration")
+                if it is not None and (not seen or seen[-1][1] != it):
+                    seen.append((time.time(), it))
+                if frame is None or frame[0].poll() is not None:
+                    if frame is not None:
+                        frames.append(json.loads(
+                            frame[1].read_text() or "null"))
+                    n += 1
+                    frame = (_spawn(_tool(
+                        "trpo_torch.scripts.observatory", "--targets",
+                        f"train={url}", "--once", "--json"),
+                        work / f"frame{n}.json", work / f"frame{n}.err"),
+                        work / f"frame{n}.json")
+            time.sleep(0.2)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        if agg is not None:
+            agg.close()
+    wall = time.perf_counter() - t0
+    if frame is not None:
+        frame[0].wait(timeout=60)
+        frames.append(json.loads(frame[1].read_text() or "null"))
+    _check(child.returncode == 0, f"[replay] train child exit "
+           f"{child.returncode}:\n{log.read_text()[-3000:]}")
+    iters = [it for _, it in seen]
+    _check(len(iters) >= 2 and iters == sorted(iters),
+           f"[replay] status.iteration over the watch: {iters}")
+    _check(engine is not None and not engine.firing_total,
+           f"[replay] alerts on the clean train run: "
+           f"{engine and engine.firing_total}")
+    live = [f for f in frames
+            if f and f["targets"].get("train", {}).get("up") == 1.0]
+    _check(live and all(not f["alerts"]["firing"] for f in frames if f),
+           f"[replay] observatory frames: {frames}")
+    # the child's kernels, exactly: K1 its cheap solves' iterations + 1 an
+    # update, K2 once an iteration
+    counts = json.loads(counts_path.read_text())
+    launches, updates = counts["launches"], counts["updates"]
+    _check(len(updates) == REPLAY_ITERS,
+           f"[replay] {len(updates)} updates recorded")
+    k1 = launches.get("fused_fvp", 0)
+    _check(k1 == sum(u["cheap"] + 1 for u in updates),
+           f"[replay] K1 {k1} against the updates {updates}")
+    _check(launches.get("reverse_scan", 0) == REPLAY_ITERS,
+           f"[replay] K2 {launches.get('reverse_scan', 0)}")
+    plain = {k: v for k, v in launches.items() if k.endswith("_plain") and v}
+    _check(not plain, f"[replay] a plain version ran: {plain}")
+    tools = {
+        "summary": (_spawn(_tool("trpo_torch.scripts.analyze_run", str(ev),
+                                 "--json"), work / "summary.json",
+                           work / "summary.err"), work / "summary.json"),
+        "compare": (_spawn(_tool("trpo_torch.scripts.analyze_run", str(ev),
+                                 "--compare", str(ev), "--json"),
+                           work / "compare.json", work / "compare.err"),
+                    work / "compare.json"),
+        "validate": (_spawn(_tool("trpo_torch.scripts.validate_events",
+                                  str(ev)), work / "validate.log"),
+                     work / "validate.log")}
+    seen_s = (wall, iters, len(frames), len(live))
+    return ({k: v for k, v in launches.items() if v}, str(ck),
+            (tools, seen_s, k1, updates, launches))
+
+
+def _replay_train_report(card: str, state) -> None:
+    """Leg 1's tools on the train log: 5 iterations and a steady
+    iteration ms, a self-compare with no verdict moved, a clean log, and
+    K1 against the summary's ``cg_iters_total``."""
+    tools, (wall, iters, n_frames, n_live), k1, updates, launches = state
+    res = _finish(tools)
+    for name, (code, out) in res.items():
+        _check(code == 0, f"[replay] train log {name}: exit {code}:\n"
+               f"{out[-2000:]}")
+    summary = json.loads(res["summary"][1])
+    verdicts = json.loads(res["compare"][1])["verdicts"]
+    _check(summary["iterations"] == REPLAY_ITERS
+           and math.isfinite(summary["steady_iteration_ms"] or math.nan),
+           f"[replay] summary {summary['iterations']} iterations, steady "
+           f"{summary['steady_iteration_ms']}")
+    moved = [v for v in verdicts if v["verdict"] not in ("ok", "skipped")]
+    _check(not moved, f"[replay] self-compare verdicts {moved}")
+    cg = summary["last_stats"]["cg_iters_total"]
+    fallback = sum(u["used"] - u["cheap"] for u in updates)
+    _check(k1 == cg + len(updates) - fallback,
+           f"[replay] K1 {k1}, cg_iters_total {cg}, {len(updates)} updates, "
+           f"audited full solves {fallback}")
+    print(f"[replay] train child (humanoid-sim as published, "
+          f"{REPLAY_ITERS} iterations, --status-port 0): exit 0 in "
+          f"{wall:.1f} s; status.iteration seen advancing {iters} by the "
+          f"in-process aggregator, 0 alerts fired under default_rules; "
+          f"{n_frames} observatory --once --json frames ({n_live} with "
+          f"the target up), 0 firing; analyze_run: {summary['iterations']} "
+          f"iterations, steady iteration {summary['steady_iteration_ms']:.2f}"
+          f" ms, --compare itself exit 0 ({len(verdicts)} verdicts, none "
+          f"moved); validate_events exit 0; K1 {k1} = Σ(cheap + 1) over "
+          f"{len(updates)} updates = cg_iters_total {cg} + {len(updates)} "
+          f"updates - {fallback} (the audited update's full solve counts in "
+          f"cg_iters_total, its cheap one ran on K1), K2 "
+          f"{launches.get('reverse_scan', 0)} ({card})", flush=True)
+
+
+def _replay_sessions(url: str, obs_dim: int, sessions: int, concurrent: bool,
+                     seed: int, at_mark) -> tuple:
+    """``sessions`` cartpole-po sessions x ``REPLAY_ACTS`` acts through the
+    router, one at a time (round robin) or one client thread each: every
+    answer must be 200. After ``REPLAY_MID`` acts of every session the
+    clients wait while ``at_mark()`` runs. Returns the times the window
+    opens (after ``at_mark``) and closes."""
+    import http.client
+    import threading
+
+    port = int(url.rsplit(":", 1)[1])
+    marks, errors = [], []
+    lock = threading.Lock()
+
+    def run(acts, conn, sid, rng):
+        for _ in range(acts):
+            st, ans = _post(conn, f"/session/{sid}/act", {
+                "obs": rng.standard_normal(obs_dim).astype(
+                    np.float32).tolist()})
+            if st != 200:
+                with lock:
+                    errors.append((st, ans))
+
+    def open_session(k):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        st, ans = _post(conn, "/session")
+        _check(st == 200, f"[replay] /session: {st} {ans}")
+        return conn, ans["session"], np.random.default_rng(seed + k)
+
+    if not concurrent:
+        opened = [open_session(k) for k in range(sessions)]
+        for r in range(REPLAY_ACTS):
+            if r == REPLAY_MID:
+                at_mark()
+                marks.append(time.time())
+            for conn, sid, rng in opened:
+                run(1, conn, sid, rng)
+        for conn, _, _ in opened:
+            conn.close()
+    else:
+        barrier = threading.Barrier(
+            sessions, action=lambda: (at_mark(), marks.append(time.time())))
+
+        def client(k):
+            conn, sid, rng = open_session(k)
+            try:
+                run(REPLAY_MID, conn, sid, rng)
+                barrier.wait(timeout=120)
+                run(REPLAY_ACTS - REPLAY_MID, conn, sid, rng)
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(sessions)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    _check(not errors and len(marks) == 1,
+           f"[replay] session acts: {errors[:3]}, marks {marks}")
+    return marks[0], time.time()
+
+
+def _replay_capture(torch, dev, work: Path, card: str, po_child) -> None:
+    """Leg 2: the ``cartpole-po`` server (GRU 64, 2 replicas, capture at
+    trace rate 1.0) records window A (4 sessions x 50 acts one at a time)
+    and window B (8 sessions x 50 acts from 8 clients); each window is
+    exported from its 11th act on (journal-seeded) and replayed by
+    ``replay_run``: bit-exact, and one replay on another step's weights
+    must exit 1."""
+    from trpo_torch.obs.replay import load_bundle, write_bundle
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    child, log, desc, ck, agent = po_child
+    sv, cj = work / "po_serve.jsonl", work / "po_journal"
+    url = _serve_up(child, desc, log, "cartpole-po server")
+    dim = agent.obs_shape[0]
+    # the journals self-compact (past 256 lines a replica) and coalesce a
+    # session's entries while its acts outrun the writer: at each window's
+    # start the clients pause for the writers to flush, and the journal
+    # directory is archived, as an operator keeps it for an incident
+
+    def archive(name):
+        def at_mark():
+            time.sleep(0.5)
+            shutil.copytree(cj, work / name)
+        return at_mark
+
+    marks = [time.perf_counter()]
+    a0, a1 = _replay_sessions(url, dim, 4, False, 100, archive("journal_A"))
+    b0, b1 = _replay_sessions(url, dim, 8, True, 200, archive("journal_B"))
+    marks.append(time.perf_counter())
+    metrics = _get_url(url + "/metrics")
+    acts = (4 + 8) * REPLAY_ACTS
+    req, drop = (_metric(metrics, "trpo_capture_requests_total"),
+                 _metric(metrics, "trpo_capture_dropped_total"))
+    _check(req == acts and drop == 0, f"[replay] router capture: "
+           f"{req} requests, {drop} dropped for {acts} acts")
+    _stop_serve(child, log, "cartpole-po server")
+    marks.append(time.perf_counter())
+    caps = [r for r in _events(sv) if r["kind"] == "capture"]
+    by_proc = {}
+    for c in caps:
+        by_proc[c["process"]] = by_proc.get(c["process"], 0) + 1
+    routed = {}
+    for c in caps:
+        if c["process"] == "router":
+            routed[c["replica"]] = routed.get(c["replica"], 0) + 1
+    _check(by_proc.get("router") == acts and all(
+        by_proc.get(r) == n for r, n in routed.items())
+        and sum(routed.values()) == acts,
+        f"[replay] capture records by process {by_proc}, routed {routed}")
+    bundles = {"A": work / "A.bundle.json", "B": work / "B.bundle.json"}
+    res = _finish({
+        w: (_spawn(_tool("trpo_torch.scripts.analyze_run", str(sv),
+                         "--export-bundle", "--window", repr(lo), repr(hi),
+                         "--journal-dir", str(work / f"journal_{w}"),
+                         "--out", str(bundles[w])),
+                   work / f"export_{w}.log"), work / f"export_{w}.log")
+        for w, (lo, hi) in (("A", (a0, a1)), ("B", (b0, b1)))})
+    for w, (code, out) in res.items():
+        _check(code == 0, f"[replay] export {w}: exit {code}:\n{out}")
+    marks.append(time.perf_counter())
+    # another step's weights, published after the recording: replaying
+    # window A's step-1 actions on them must diverge
+    Checkpointer(str(ck)).save(2, agent.init_state(seed=1))
+    other = load_bundle(str(bundles["A"]))
+    other["checkpoint_step"] = 2
+    bundles["A@2"] = work / "A_step2.bundle.json"
+    write_bundle(other, str(bundles["A@2"]))
+    t0 = time.perf_counter()
+    res = _finish({
+        w: (_spawn(_tool("trpo_torch.scripts.replay_run", str(b),
+                         "--checkpoint-dir", str(ck), "--preset",
+                         "cartpole-po", "--device", dev.type, "--events",
+                         str(work / f"replay_{w}.jsonl")),
+                   work / f"replay_{w}.log"), work / f"replay_{w}.log")
+        for w, b in bundles.items()})
+    replay_wall = time.perf_counter() - t0
+    lines = {}
+    for w, n_sess in (("A", 4), ("B", 8)):
+        code, out = res[w]
+        seeded = [ln for ln in out.splitlines()
+                  if ln.startswith("seeded session")]
+        _check(code == 0 and out.rstrip().endswith("REPLAY BIT-EXACT")
+               and len(seeded) == n_sess,
+               f"[replay] window {w}: exit {code}, {len(seeded)} seeded:\n"
+               f"{out[-3000:]}")
+        recs = _events(work / f"replay_{w}.jsonl")
+        rep = [r for r in recs if r["kind"] == "replay"]
+        begin = next(r for r in rep if r["event"] == "begin")
+        done = next(r for r in rep if r["event"] == "complete")
+        n = done["acts"]
+        _check(n == n_sess * (REPLAY_ACTS - REPLAY_MID)
+               and done["mismatches"] == 0,
+               f"[replay] window {w}: {done}")
+        lines[w] = (n, n / (done["t"] - begin["t"]), [
+            ln.strip() for ln in out.splitlines()
+            if ln.strip().startswith("trace/") and "_p99_ms" in ln])
+    code, out = res["A@2"]
+    mism = [ln for ln in out.splitlines() if "MISMATCH" in ln]
+    _check(code == 1 and mism and "REPLAY DIVERGED" in out,
+           f"[replay] window A on step 2: exit {code}:\n{out[-3000:]}")
+    code, out = _finish({"v": (_spawn(_tool(
+        "trpo_torch.scripts.validate_events", str(sv),
+        *[str(work / f"replay_{w}.jsonl") for w in bundles]),
+        work / "validate_po.log"), work / "validate_po.log")})["v"]
+    _check(code == 0, f"[replay] validate_events: {out[-3000:]}")
+    marks.append(time.perf_counter())
+    for w in ("A", "B"):
+        n, rate, rows = lines[w]
+        print(f"[replay] window {w} ({4 if w == 'A' else 8} cartpole-po GRU "
+              f"64 sessions x {REPLAY_ACTS} acts, "
+              f"{'one at a time' if w == 'A' else 'from 8 clients'}; "
+              f"exported from act {REPLAY_MID + 1} on): replay_run exit 0, "
+              f"every session seeded from its journal through "
+              f"Router.restore_session, {n} acts REPLAY BIT-EXACT at "
+              f"{rate:.1f} acts/s; recorded against replayed p99 "
+              f"(advisory): {'; '.join(rows)} ({card})", flush=True)
+    print(f"[replay] capture: router {by_proc['router']} records, replicas "
+          f"{ {k: v for k, v in by_proc.items() if k != 'router'} } (= the "
+          f"acts the router sent each), trpo_capture_requests_total {req:g}, "
+          f"dropped 0; window A on step 2's weights: exit 1, "
+          f"{len(mism)} of {lines['A'][0]} acts named MISMATCH; the three "
+          f"replays ran side by side in {replay_wall:.1f} s; every log "
+          f"validate_events-clean; seconds: recording "
+          f"{marks[1] - marks[0]:.1f}, server stop {marks[2] - marks[1]:.1f}"
+          f", exports {marks[3] - marks[2]:.1f}, replays {replay_wall:.1f}, "
+          f"validate {marks[4] - marks[3] - replay_wall:.1f} ({card})",
+          flush=True)
+
+
+def _paced_load(port: int, stop, samples: list, lock):
+    """``CONTROL_CLIENTS`` keep-alive clients, each sending one humanoid-sim
+    /act about every ``REPLAY_PACE_S`` (jittered, so they do not move in
+    step) until ``stop``: ``(sent, answered, status)`` in ``samples``."""
+    import http.client
+    import threading
+
+    def client(k):
+        r = np.random.default_rng(9000 + k)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while not stop.is_set():
+                t0 = time.time()
+                try:
+                    st, _ = _post(conn, "/act", {
+                        "obs": r.standard_normal(376).tolist()})
+                except Exception:
+                    st = -1
+                    conn.close()
+                    conn = http.client.HTTPConnection(
+                        "127.0.0.1", port, timeout=60)
+                with lock:
+                    samples.append((t0, time.time(), st))
+                stop.wait(REPLAY_PACE_S * r.uniform(0.5, 1.5))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(CONTROL_CLIENTS)]
+    for t in threads:
+        t.start()
+    return threads
+
+
+def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
+    """Leg 3: alerts on a live router. The serve CLI (humanoid-sim, 2
+    replicas) under 64 paced clients, ``overload_storm`` at request
+    ``REPLAY_STORM_AT``; a ``MetricsAggregator`` + ``AlertEngine(
+    default_rules)`` in this process scrapes its /status and /metrics.
+    The SLO is set at 2x the router's p99 over the first 10.5 s (a
+    calibration: the card's /act takes a few ms, where the reference's
+    smoke simulates 50 ms acts); the clean window from then until the
+    storm must fire nothing, and slo_p99 and shed_rate must fire and
+    resolve."""
+    import threading
+
+    from trpo_torch.obs.aggregate import HttpTarget, MetricsAggregator
+    from trpo_torch.obs.alerts import AlertEngine, default_rules
+    from trpo_torch.obs.events import EventBus, JsonlSink, manifest_fields
+
+    child, log, desc = storm_child
+    sv, watch = work / "storm_serve.jsonl", work / "storm_watch.jsonl"
+    url = _serve_up(child, desc, log, "storm server")
+    stop, samples, lock = threading.Event(), [], threading.Lock()
+    threads = _paced_load(int(url.rsplit(":", 1)[1]), stop, samples, lock)
+    bus = EventBus(JsonlSink(str(watch)))
+    bus.emit("run_manifest", **manifest_fields(
+        None, extra={"driver": "chip_smoke_watch"}, device=dev))
+    try:
+        time.sleep(REPLAY_CALIBRATE_S)
+        status = json.loads(_get_url(url + "/status"))
+        clean_p99 = status["latency_recent_ms"]["0.99"]
+        slo = REPLAY_SLO_X * clean_p99
+        engine = AlertEngine(default_rules(slo_p99_ms=slo), bus=bus)
+        agg = MetricsAggregator(
+            [HttpTarget("router", url, metrics_path="/metrics")], bus=bus,
+            engine=engine, interval=0.25)
+        t_armed = time.time()
+        fault = None
+        deadline = time.monotonic() + 120
+        try:
+            while time.monotonic() < deadline:
+                agg.tick()
+                if fault is None:
+                    fault = next((r for r in _events(sv)
+                                  if r["kind"] == "fault_injected"), None)
+                done = {r for r in ("slo_p99", "shed_rate")
+                        if engine.resolved_total.get(r)}
+                if fault is not None and len(done) == 2 and \
+                        not engine.active():
+                    break
+                time.sleep(0.25)
+        finally:
+            agg.close()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        bus.close()
+    _stop_serve(child, log, "storm server")
+    _check(fault is not None, "[replay] the storm never fired")
+    hist = [r for r in _events(watch) if r["kind"] == "alert"]
+    early = [e for e in hist if e["state"] == "firing" and e["t"] < fault["t"]]
+    _check(not early, f"[replay] false positives in the clean window: "
+           f"{early}")
+    fired = {r: next((e for e in hist if e["rule"] == r
+                      and e["state"] == "firing"), None)
+             for r in ("slo_p99", "shed_rate")}
+    resolved = {r: next((e for e in hist if e["rule"] == r
+                         and e["state"] == "resolved"), None)
+                for r in fired}
+    p99s = [r["value"] for r in _events(watch)
+            if r["kind"] == "metric_sample"
+            and r["series"] == "status.latency_recent_ms.0.99"
+            and r.get("value") is not None]
+    _check(all(fired.values()) and all(resolved.values())
+           and not engine.active(),
+           f"[replay] storm alerts: fired {engine.firing_total}, resolved "
+           f"{engine.resolved_total}, active {engine.active()}; SLO "
+           f"{slo:.3f} ms, the router's recent p99 peaked at "
+           f"{max(p99s, default=math.nan):.3f} ms; client p50/p99 clean "
+           f"{_quantiles([(s[1] - s[0]) * 1e3 for s in samples if s[0] < fault['t'] and s[2] == 200])}"
+           f", storm {_quantiles([(s[1] - s[0]) * 1e3 for s in samples if fault['t'] <= s[0] < fault['t'] + 8 and s[2] == 200] or [math.nan])}")
+    merged = work / "storm_merged.jsonl"
+    recs = sorted(_events(sv) + _events(watch), key=lambda r: r["t"])
+    merged.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    res = _finish({
+        "validate": (_spawn(_tool("trpo_torch.scripts.validate_events",
+                                  str(merged)), work / "validate_storm.log"),
+                     work / "validate_storm.log"),
+        "observatory": (_spawn(_tool(
+            "trpo_torch.scripts.observatory", "--events", str(merged),
+            "--once", "--json"), work / "storm_obs.json",
+            work / "storm_obs.err"), work / "storm_obs.json")})
+    for name, (code, out) in res.items():
+        _check(code == 0, f"[replay] storm {name}: exit {code}:\n"
+               f"{out[-3000:]}")
+    view = json.loads(res["observatory"][1])["alerts"]
+    for r in fired:
+        row = view["rules"].get(r, {})
+        _check(row.get("fired", 0) >= 1 and row.get("resolved", 0) >= 1
+               and not row.get("active"), f"[replay] observatory {r}: {row}")
+    _check(not view["firing"], f"[replay] observatory firing {view}")
+    storm_end = fault["t"] + 8.0
+    clean_max = max((r["value"] for r in _events(watch)
+                     if r["kind"] == "metric_sample"
+                     and r["series"] == "status.latency_recent_ms.0.99"
+                     and r.get("value") is not None
+                     and r["t"] < fault["t"]), default=math.nan)
+    clean = [s for s in samples if t_armed <= s[0] < fault["t"]]
+    stormy = [s for s in samples if fault["t"] <= s[0] < storm_end]
+    sheds = sum(1 for s in stormy if s[2] == 503)
+    print(f"[replay] storm ({REPLAY_STORM}: {16 * REPLAY_STORMS} workers, "
+          f"64 clients paced at ~{1 / REPLAY_PACE_S:.2f}/s each, "
+          f"--max-inflight {REPLAY_STORM_INFLIGHT}): clean p99 "
+          f"{clean_p99:.3f} ms -> SLO {slo:.3f} ms; the router's recent "
+          f"p99 peaked at {clean_max:.3f} ms in the clean window and "
+          f"{max(p99s, default=math.nan):.3f} ms in all; clean window "
+          f"{fault['t'] - t_armed:.1f} s, "
+          f"{len(clean)} client answers, 0 alerts; under the storm "
+          f"{len(stormy)} client answers, {sheds} shed (503); "
+          + "; ".join(
+              f"{r} fired {fired[r]['t'] - fault['t']:.2f} s after the "
+              f"fault (value {fired[r]['value']:.3f}, threshold "
+              f"{fired[r]['threshold']:.3f}) and resolved "
+              f"{resolved[r]['t'] - storm_end:.2f} s after the storm's end"
+              for r in fired)
+          + f"; validate_events and observatory --events clean ({card})",
+          flush=True)
+    return {r: fired[r]["t"] - fault["t"] for r in fired}
+
+
+def _replay_capture_cost(torch, dev, work: Path, card: str, cost) -> dict:
+    """Leg 4: the serve CLI (humanoid-sim, 2 replicas, trace rate 1.0)
+    with ``--capture`` off and on, side by side; 64 clients x
+    ``REPLAY_COST_PER`` on each in the order off, on, on, off, off, on."""
+    urls = {m: _serve_up(c, d, lg, f"capture-{m} server")
+            for m, (c, lg, d) in cost.items()}
+    runs = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off", "off", "on"):
+        port = int(urls[mode].rsplit(":", 1)[1])
+        runs[mode].append(_load_result(*_http_load(
+            port, CONTROL_CLIENTS, REPLAY_COST_PER,
+            lambda r: r.standard_normal(376).tolist()), f"capture {mode}"))
+    metrics = _get_url(urls["on"] + "/metrics")
+    req, drop = (_metric(metrics, "trpo_capture_requests_total"),
+                 _metric(metrics, "trpo_capture_dropped_total"))
+    for m, (c, lg, _) in cost.items():
+        _stop_serve(c, lg, f"capture-{m} server")
+    med = {m: float(np.median([r["rps"] for r in runs[m]])) for m in runs}
+
+    def fmt(m):
+        return ", ".join(f"{r['rps']:.1f} req/s p50 {r['p50']:.3f} p99 "
+                         f"{r['p99']:.3f} ms" for r in runs[m])
+
+    spread = {m: (min(r["rps"] for r in runs[m]),
+                  max(r["rps"] for r in runs[m])) for m in runs}
+    print(f"[replay] capture cost (humanoid-sim /act through the serve CLI, "
+          f"2 replicas, trace rate 1.0, {CONTROL_CLIENTS} clients x "
+          f"{REPLAY_COST_PER}, runs off, on, on, off, off, on): off "
+          f"[{fmt('off')}], on [{fmt('on')}]; median {med['off']:.1f} -> "
+          f"{med['on']:.1f} req/s ({(med['on'] / med['off'] - 1) * 100:+.2f}"
+          f"%), spread off {spread['off'][0]:.1f}-{spread['off'][1]:.1f}, on "
+          f"{spread['on'][0]:.1f}-{spread['on'][1]:.1f}; the capture's router "
+          f"recorded {req:g} requests, dropped {drop:g} ({card})", flush=True)
+    return {"median": med, "drops": drop}
+
+
+def phase_replay(torch, dev):
+    """Request capture, deterministic replay, offline analysis and alerts
+    (``trpo_torch/obs``, ``trpo_torch/scripts``) through the port's entry
+    points as users run them: a live-watched flagship train child, a
+    recorded and replayed ``cartpole-po`` serving window, a storm that
+    must page and recover, and capture's cost. Returns the train child's
+    launches."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.ops import _build
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    card = _card_line()
+    work = WORK / "replay"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    serve = ["trpo_torch.serve", "--device", dev.type, "--port", "0",
+             "--replicas", "2"]
+    # the servers start beside the train child (the recorded one now, the
+    # trained checkpoint's once it exists), so their start costs no leg
+    po_ck = work / "po_ck"
+    agent = TRPOAgent("cartpole-po", get_preset("cartpole-po"), device=dev)
+    Checkpointer(str(po_ck)).save(1, agent.init_state(seed=0))
+    po = (_spawn(_tool(*serve, "--preset", "cartpole-po", "--checkpoint-dir",
+                       str(po_ck), "--trace-sample-rate", "1.0", "--capture",
+                       "--metrics-jsonl", str(work / "po_serve.jsonl"),
+                       "--carry-journal-dir", str(work / "po_journal"),
+                       "--run-descriptor", str(work / "po.json")),
+                 work / "po_serve.log"),
+          work / "po_serve.log", work / "po.json", po_ck, agent)
+    children = [po[0]]
+    try:
+        counts, ck_dir, train = _replay_train(torch, dev, work, card)
+        t1 = time.perf_counter()
+        storm = (_spawn(_tool(*serve, "--preset", "humanoid-sim",
+                              "--checkpoint-dir", ck_dir, "--max-inflight",
+                              str(REPLAY_STORM_INFLIGHT), "--inject-faults",
+                              REPLAY_STORM, "--metrics-jsonl",
+                              str(work / "storm_serve.jsonl"),
+                              "--run-descriptor", str(work / "storm.json")),
+                        work / "storm_serve.log"),
+                 work / "storm_serve.log", work / "storm.json")
+        children.append(storm[0])
+        cost = {}
+        for mode in ("off", "on"):
+            extra = ["--capture"] if mode == "on" else []
+            cost[mode] = (_spawn(_tool(
+                *serve, "--preset", "humanoid-sim", "--checkpoint-dir",
+                ck_dir, "--trace-sample-rate", "1.0", *extra,
+                "--metrics-jsonl", str(work / f"cost_{mode}.jsonl"),
+                "--run-descriptor", str(work / f"cost_{mode}.json")),
+                work / f"cost_{mode}.log"),
+                work / f"cost_{mode}.log", work / f"cost_{mode}.json")
+            children.append(cost[mode][0])
+        _replay_capture(torch, dev, work, card, po)
+        _replay_train_report(card, train)
+        t2 = time.perf_counter()
+        _replay_capture_cost(torch, dev, work, card, cost)
+        t3 = time.perf_counter()
+        _replay_storm(torch, dev, work, card, storm)
+        t4 = time.perf_counter()
+    finally:
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait()
+    here = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check(not here, f"[replay] launches in the measuring process: {here}")
+    print(f"[replay] legs: train {t1 - t0:.1f} s (the recording server "
+          f"starting beside it), capture and replay {t2 - t1:.1f} s (the "
+          f"other servers starting beside it), capture cost "
+          f"{t3 - t2:.1f} s, storm {t4 - t3:.1f} s; phase "
+          f"{time.perf_counter() - t0:.1f} s; logs in "
+          f"{work.relative_to(ROOT)}", flush=True)
+    return counts
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -4916,6 +5667,7 @@ def main() -> int:
                 ("control", lambda: phase_control(torch, dev)),
                 ("obs", lambda: phase_obs(torch, dev)),
                 ("chaos", lambda: phase_chaos(torch, dev)),
+                ("replay", lambda: phase_replay(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

@@ -675,10 +675,20 @@ def test_same_host_hops_dial_the_replica_unix_socket(ff, tmp_path,
 def test_router_refuses_item_18_hooks_and_bad_arguments(ff):
     rs = _ff_set(ff, 1)
     try:
-        # the bus, the tracer and the injector are ported; capture still
-        # refuses, naming its sub-item
-        with pytest.raises(NotImplementedError, match="item 18.5"):
-            Router(rs, port=0, capture=object())
+        # the bus, the tracer, the injector and the capture are ported:
+        # a capture is taken, not refused
+        from trpo_torch.obs.capture import RequestCapture
+        from trpo_torch.obs.events import EventBus
+
+        bus = EventBus()
+        cap = RequestCapture(bus)
+        router = Router(rs, port=0, capture=cap)
+        try:
+            assert router.capture is cap
+        finally:
+            router.close()
+            cap.close()
+            bus.close()
         from trpo_torch.resilience import FaultInjector
 
         inj = FaultInjector.from_spec("kill_replica@request=9:replica=0")

@@ -620,10 +620,20 @@ def test_server_refuses_unported_hooks_and_unpaired_checkpointer(
     try:
         with pytest.raises(ValueError, match="come together"):
             PolicyServer(engine, batcher, port=0, checkpointer=object())
-        # the bus, the tracer and the injector are ported; capture still
-        # refuses, naming its sub-item
-        with pytest.raises(NotImplementedError, match="item 18.5"):
-            PolicyServer(engine, batcher, port=0, capture=object())
+        # the bus, the tracer, the injector and the capture are ported:
+        # a capture is taken, not refused
+        from trpo_torch.obs.capture import RequestCapture
+        from trpo_torch.obs.events import EventBus
+
+        bus = EventBus()
+        cap = RequestCapture(bus)
+        srv = PolicyServer(engine, batcher, port=0, capture=cap)
+        try:
+            assert srv.capture is cap
+        finally:
+            srv.close()
+            cap.close()
+            bus.close()
         from trpo_torch.resilience import FaultInjector
 
         inj = FaultInjector.from_spec("wedge_reload@step=3")
@@ -819,10 +829,12 @@ def test_cli_parser_overrides_and_refusals():
     assert build_parser().parse_args(
         ["--checkpoint-dir", "x", "--router-core", "thread"]
     ).router_core == "thread"
-    # --metrics-jsonl, --trace-sample-rate and --inject-faults are ported
-    # (the rate needs the event log); --capture refuses by sub-item
-    with pytest.raises(NotImplementedError, match="item 18.5"):
-        main(["--checkpoint-dir", "/nonexistent", "--capture"])
+    # --metrics-jsonl, --trace-sample-rate, --inject-faults and --capture
+    # are ported (the rate needs the event log; capture needs both)
+    assert main(["--checkpoint-dir", "/nonexistent", "--device", "cpu",
+                 "--capture"]) == 2
+    assert main(["--checkpoint-dir", "/nonexistent", "--device", "cpu",
+                 "--capture", "--trace-sample-rate", "1"]) == 2
     # a spec is parsed before anything is built: a bad one raises the
     # grammar's ValueError, a good one reaches the run (exit 2 here, from
     # the trace rate's missing event log)

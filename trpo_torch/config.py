@@ -40,8 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported",
-           "refuse_unported"]
+__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported"]
 
 
 @dataclasses.dataclass
@@ -595,14 +594,6 @@ def check_ported(cfg: TRPOConfig) -> None:
     does not run yet, naming the ROADMAP item that ports it."""
     if cfg.mesh_shape is not None:
         _not_ported("mesh_shape", "item 16")
-
-
-def refuse_unported(name: str, value, item: str) -> None:
-    """Raise ``NotImplementedError`` unless ``value`` is None: a hook of a
-    layer the port does not have yet (request capture) is refused, never
-    silently dropped."""
-    if value is not None:
-        _not_ported(name, item)
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ Every record is a flat JSON object with a versioned envelope (``v``,
 what each kind requires. The schema is the reference's, unchanged
 (``SCHEMA_VERSION`` 1, ``schema: "trpo-tpu-events"`` in the manifest), so
 the reference's offline tools (``scripts/validate_events.py``,
-``scripts/analyze_run.py``) read the port's logs; the kinds and their
+``scripts/analyze_run.py``) read the port's logs, as the port's own copies
+do (``python -m trpo_torch.scripts.validate_events``); the kinds and their
 fields are documented in the reference module.
 
 One stated difference, in :func:`manifest_fields`: the port has no jax.

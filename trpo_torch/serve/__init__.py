@@ -33,8 +33,8 @@ The control plane composes replicas of the data plane:
 ``python -m trpo_torch.serve`` is the CLI (``--replicas N`` puts a router
 in front of N replicas). Every component takes the run-event bus
 (``bus=``) and the front ends a tracer (``tracer=``, ``obs/trace.py``)
-and a fault injector (``injector=``, ``resilience/inject.py``); request
-capture is ROADMAP.md Queue 1 item 18.5.
+a fault injector (``injector=``, ``resilience/inject.py``) and a request
+capture (``capture=``, ``obs/capture.py``).
 """
 
 from trpo_torch.serve.autoscaler import Autoscaler

@@ -57,8 +57,12 @@ The router keeps the reference's fixed act timeout (30 s) and retry
 bucket (8 tokens, 4/s): a ``stall_replica`` shorter than the timeout is
 only latency, and a replica lost with more requests in flight than the
 bucket holds sheds the retries past it as 502s.
-``--capture`` (ROADMAP.md Queue 1 item 18.5) raises
-``NotImplementedError`` naming its item.
+``--capture`` (which needs ``--trace-sample-rate`` > 0 and
+``--metrics-jsonl``) records every emitted request's replayable inputs
+as ``capture`` records, one ``obs.capture.RequestCapture`` per process
+role like the tracers; export a window with ``python -m
+trpo_torch.scripts.analyze_run LOG --export-bundle`` and re-execute it
+with ``python -m trpo_torch.scripts.replay_run``.
 """
 
 from __future__ import annotations
@@ -194,17 +198,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "kill_replica@request=K:replica=R, stall_replica@"
                         "request=K:replica=R:seconds=S, wedge_reload@step=N,"
                         " drop_carry_journal@request=K:replica=R, ...")
-    # capture: parsed so that it refuses by item number instead of as an
-    # unknown flag
-    p.add_argument("--capture", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--capture", action="store_true",
+                   help="record every SAMPLED request's replayable inputs "
+                        "(wire-encoded obs, session, seq, checkpoint step, "
+                        "answered action) as capture events; needs "
+                        "--trace-sample-rate > 0 and --metrics-jsonl. Export "
+                        "with analyze_run --export-bundle, re-execute with "
+                        "replay_run")
     return p
-
-
-def _refuse_unported(args) -> None:
-    if args.capture:
-        raise NotImplementedError(
-            "--capture: request capture is not ported to trpo_torch yet "
-            "(ROADMAP.md Queue 1 item 18.5)")
 
 
 def config_from_args(args):
@@ -288,6 +289,10 @@ def _arming_error(args, cfg, recurrent: bool) -> Optional[str]:
     if cfg.trace_sample_rate > 0 and not args.metrics_jsonl:
         return ("--trace-sample-rate emits spans on the event bus — pass "
                 "--metrics-jsonl so they land somewhere.")
+    if args.capture and (cfg.trace_sample_rate <= 0
+                         or not args.metrics_jsonl):
+        return ("--capture records SAMPLED requests — pass "
+                "--trace-sample-rate > 0 and --metrics-jsonl.")
     if cfg.serve_max_replicas is not None and cfg.serve_replicas < 2:
         return ("--max-replicas (the elastic autoscaler) needs the "
                 "replicated control plane — run with --replicas >= 2.")
@@ -306,7 +311,6 @@ def _arming_error(args, cfg, recurrent: bool) -> Optional[str]:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     from trpo_torch.agent import TRPOAgent
     from trpo_torch.serve import (
         Autoscaler,
@@ -376,6 +380,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                    host=host)
         return tracers[name]
 
+    # request capture: cached per role like the tracers; it records iff
+    # the trace is emitting, so the two agree on which requests it keeps
+    captures: dict = {}
+
+    def make_capture(name: str):
+        if not args.capture or bus is None:
+            return None
+        if name not in captures:
+            from trpo_torch.obs.capture import RequestCapture
+
+            host = name.split("--", 1)[0] if "--" in name else None
+            captures[name] = RequestCapture(bus, process=name, host=host)
+        return captures[name]
+
     def build_replica(replica_name, port, uds_path=None):
         """One serving stack: its engine, batcher, checkpoint watcher and
         port. Under a canary it runs MANAGED reload pinned to the
@@ -406,6 +424,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             uds_path=uds_path,
             bus=bus,
             tracer=make_tracer(replica_name or "solo"),
+            capture=make_capture(replica_name or "solo"),
         )
         return server, [batcher] if batcher is not None else []
 
@@ -455,7 +474,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 canary_fraction=cfg.serve_canary_fraction,
                 min_latency_samples=cfg.serve_autoscale_min_samples,
                 uds_path=args.uds_path, core=args.router_core, bus=bus,
-                tracer=make_tracer("router"))
+                tracer=make_tracer("router"),
+                capture=make_capture("router"))
             if canary:
                 controller = CanaryController(
                     replicaset, router,
@@ -521,6 +541,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             c.close()
         for t in tracers.values():
             t.close()  # flush pending spans before the bus closes
+        for c in captures.values():
+            c.close()  # and pending captures
         if injector is not None and injector.unfired:
             # a chaos run whose faults never fired tested nothing
             print("WARNING: injected faults never fired: "

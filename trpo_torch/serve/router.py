@@ -77,8 +77,12 @@ router's lock, so ``request=K`` is exact under concurrency, and fires the
 request-clocked faults against the replica set, the carry-journal
 directory, the transport and the request's own path and body; on the
 async core it runs on the executor, off the event loop. A hook failure
-never fails the request, and every chaos-fired request is traced. Request
-capture (``capture=``, ROADMAP.md Queue 1 item 18.5) is refused.
+never fails the request, and every chaos-fired request is traced. With a
+``capture`` (``obs.capture.RequestCapture``) every answered act whose
+trace is emitted is recorded for deterministic replay: the stamped body
+(``seq`` travels in it) and the replica's raw answer, parsed on the
+capture's writer thread, never on the request path (one append in
+``_trace_done``, on both cores); ``/metrics`` adds ``trpo_capture_*``.
 """
 
 from __future__ import annotations
@@ -94,7 +98,6 @@ import urllib.parse
 from collections import deque
 from typing import Dict, Optional, Tuple
 
-from trpo_torch.config import refuse_unported
 from trpo_torch.obs.trace import TRACE_HEADER, Tracer
 from trpo_torch.serve import wire as _wire
 from trpo_torch.utils.exposition import _esc, _fmt, _json_safe
@@ -179,7 +182,6 @@ class Router:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        refuse_unported("request capture (capture=)", capture, "item 18.5")
         if core not in ("async", "thread"):
             raise ValueError(
                 f"core must be 'async' or 'thread', got {core!r}"
@@ -242,6 +244,12 @@ class Router:
         self._last_pressure = 0.0   # monotonic stamp of the last 503/shed
         self.bus = bus
         self.tracer = tracer
+        # request capture: the same sampling verdict as the tracer, so
+        # capture and spans name the same traces. Caller-owned; None =
+        # off. The notes park each in-flight request's raw fields until
+        # _trace_done knows the final verdict.
+        self.capture = capture
+        self._capture_notes: Dict[int, dict] = {}
         self.injector = injector  # serving chaos (may be armed later)
         self._chaos_requests = 0   # routed requests seen while armed
         # shed events: counted per reason, emitted at most once a second
@@ -834,7 +842,30 @@ class Router:
         if status is not None and status >= 500 and status != 503:
             ctx.force()
         root.end(**({} if status is None else {"status": status}))
+        if self.capture is not None:
+            # after the forcing above: a late-forced trace (a passed-
+            # through 5xx) is captured exactly when its spans emit
+            with self._lock:
+                note = self._capture_notes.pop(id(ctx), None)
+            if note is not None:
+                self.capture.record(
+                    ctx, status=status if status is not None else 500,
+                    **note)
         self.tracer.finish(ctx)
+
+    def _capture_note(self, ctx, path: str, endpoint: str, body: bytes,
+                      binary: bool, replica, result,
+                      session: Optional[str] = None) -> None:
+        """Park one answered request's raw capture fields (the body and
+        the replica's answer, unparsed) until its ``_trace_done``. One
+        dict assignment; a no-op when capture is off."""
+        if self.capture is None or ctx is None:
+            return
+        note = dict(path=path, endpoint=endpoint, body=body, binary=binary,
+                    session=session, replica=replica, response=result[2],
+                    response_ctype=result[1])
+        with self._lock:
+            self._capture_notes[id(ctx)] = note
 
     def _traced(self, name: str, fn, *args, headers=None):
         """The handler trace wrapper: open the edge context, run the
@@ -881,6 +912,8 @@ class Router:
             "/act", body, fwd_headers=fwd, ctx=ctx, parent=root,
         )
         if result is not None:
+            self._capture_note(ctx, "/act", "act", body,
+                               _wire.is_binary_body(headers), rid, result)
             return result
         return self._unrouted(rid, retried, stateless=True, ctx=ctx)
 
@@ -942,6 +975,9 @@ class Router:
                 with self._lock:
                     aff.acts += 1
                 self._book_feedback(sid, aff, rid, body, fwd)
+            self._capture_note(ctx, f"/session/{sid}/act", "session_act",
+                               body, _wire.is_binary_body(fwd), aff.replica,
+                               result, session=sid)
             return result
         # the anomaly tail (journal lookup, fence, sync re-dispatch)
         # blocks: run the shared sync code on the executor, aff.lock
@@ -1199,6 +1235,8 @@ class Router:
                                               fwd_headers=fwd, ctx=ctx,
                                               parent=root)
         if result is not None:
+            self._capture_note(ctx, "/act", "act", body,
+                               _wire.is_binary_body(headers), rid, result)
             return result
         return self._unrouted(rid, retried, stateless=True, ctx=ctx)
 
@@ -1836,6 +1874,11 @@ class Router:
             with self._lock:
                 aff.acts += 1
             self._book_feedback(sid, aff, rid, body, fwd_headers)
+        # the STAMPED body (seq travels) and the replica's raw answer: the
+        # failover decoration below touches neither the obs nor the action
+        self._capture_note(ctx, f"/session/{sid}/act", "session_act", body,
+                           _wire.is_binary_body(fwd_headers), rid, result,
+                           session=sid)
         resumed_steps = int(entry["steps"]) if resumed else None
         if status == 200 and aff.pending_resumed_steps is not None:
             pending = aff.pending_resumed_steps
@@ -2143,6 +2186,17 @@ class Router:
             fam("trpo_trace_dropped_total", "counter",
                 "trace spans dropped by writer backpressure",
                 [({}, self.tracer.dropped_total)])
+        if self.capture is not None:
+            # dropped_total 0 certifies the capture log is complete
+            fam("trpo_capture_requests_total", "counter",
+                "requests captured for deterministic replay",
+                [({}, self.capture.requests_total)])
+            fam("trpo_capture_dropped_total", "counter",
+                "capture records dropped by writer backpressure",
+                [({}, self.capture.dropped_total)])
+            fam("trpo_capture_bytes_total", "counter",
+                "request payload bytes accepted for capture",
+                [({}, self.capture.bytes_total)])
         body = ("\n".join(lines) + "\n").encode()
         return 200, "text/plain; version=0.0.4; charset=utf-8", body
 

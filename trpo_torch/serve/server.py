@@ -55,7 +55,12 @@ spans under it; ``/metrics`` adds ``trpo_trace_*``. With an ``injector``
 ``wedge_reload@step=N`` spec replaces step N's params with NaN on the
 first replica to load it (the canary, under a gated deployment); the
 engine copies them into the new snapshot it captures its graphs over.
-Request capture (``capture=``, ROADMAP.md Queue 1 item 18.5) is refused.
+With a ``capture`` (``obs.capture.RequestCapture``) every act whose trace
+is emitted is recorded for deterministic replay: its raw body, the
+answered action and the step of the snapshot the batch ran on (read from
+the dispatched snapshot, never from the server's current step, so a
+window that spans a reload replays on the right weights); ``/metrics``
+adds ``trpo_capture_*``.
 """
 
 from __future__ import annotations
@@ -66,11 +71,10 @@ import sys
 import threading
 import time
 from concurrent.futures import TimeoutError as _FutureTimeout
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 
-from trpo_torch.config import refuse_unported
 from trpo_torch.serve import wire as _wire
 from trpo_torch.utils.httpd import BackgroundHTTPServer, request_headers
 
@@ -146,7 +150,6 @@ class PolicyServer:
         uds_path: Optional[str] = None,
         capture=None,
     ):
-        refuse_unported("request capture (capture=)", capture, "item 18.5")
         if (checkpointer is None) != (template is None):
             raise ValueError(
                 "checkpointer and template come together: the watcher "
@@ -169,6 +172,12 @@ class PolicyServer:
         self.batcher = batcher
         self.bus = bus
         self.tracer = tracer
+        # request capture: this replica's own record of the emitted acts
+        # it answered. Caller-owned like the tracer; None = off. The notes
+        # park each in-flight act's capture fields until _traced knows
+        # the trace's final verdict.
+        self.capture = capture
+        self._capture_notes: Dict[int, dict] = {}
         self.injector = injector  # chaos: the reload seam (wedge_reload)
         self.checkpointer = checkpointer
         self.template = template
@@ -345,7 +354,27 @@ class PolicyServer:
             if out is None or (status >= 500 and status != 503):
                 ctx.force()
             span.end(status=status)
+            if self.capture is not None:
+                # after the forcing above: capture and span emission
+                # agree on the final verdict
+                with self._counter_lock:
+                    note = self._capture_notes.pop(id(ctx), None)
+                if note is not None:
+                    self.capture.record(ctx, status=status, **note)
             self.tracer.finish(ctx)
+
+    def _capture_note(self, ctx, path: str, endpoint: str, body: bytes,
+                      step, action, session: Optional[str] = None) -> None:
+        """Park one answered act's capture fields until its trace closes;
+        a no-op when capture is off."""
+        if self.capture is None or ctx is None:
+            return
+        note = dict(path=path, endpoint=endpoint, body=body,
+                    binary=_wire.is_binary_body(request_headers()),
+                    session=session, replica=self.replica_name, step=step,
+                    action=np.asarray(action).tolist())
+        with self._counter_lock:
+            self._capture_notes[id(ctx)] = note
 
     def _watch(self) -> None:
         while not self._stop.wait(self.poll_interval):
@@ -544,6 +573,7 @@ class PolicyServer:
             return _reply(500, {
                 "error": f"inference failed: {type(e).__name__}"})
         # `step` is the snapshot the batch ran on, captured in the engine
+        self._capture_note(ctx, "/act", "act", body, step, action)
         return self._answer({"step": step}, action, reply_binary)
 
     # -- session protocol --------------------------------------------------
@@ -661,6 +691,9 @@ class PolicyServer:
                     # replayed seq: already applied (exactly once)
                     self.sessions.deduped_total += 1
                     sess.last_used = time.monotonic()
+                    self._capture_note(ctx, path, "session_act", body,
+                                       sess.last_step, sess.last_action,
+                                       session=sid)
                     return self._answer(
                         {"step": sess.last_step, "session": sid,
                          "session_steps": sess.steps, "deduped": True},
@@ -695,6 +728,8 @@ class PolicyServer:
                 "error": f"inference failed: {type(e).__name__}"})
         with self._counter_lock:
             self.session_acts_total += 1
+        self._capture_note(ctx, path, "session_act", body, step, action,
+                           session=sid)
         return self._answer({"step": step, "session": sid,
                              "session_steps": sess.steps},
                             action, reply_binary)
@@ -831,6 +866,18 @@ class PolicyServer:
             one("trpo_trace_dropped_total", "counter",
                 "trace spans dropped by writer backpressure",
                 self.tracer.dropped_total)
+        if self.capture is not None:
+            # the tracer contract again: dropped_total 0 certifies a
+            # complete capture log
+            one("trpo_capture_requests_total", "counter",
+                "requests captured for deterministic replay",
+                self.capture.requests_total)
+            one("trpo_capture_dropped_total", "counter",
+                "capture records dropped by writer backpressure",
+                self.capture.dropped_total)
+            one("trpo_capture_bytes_total", "counter",
+                "request payload bytes accepted for capture",
+                self.capture.bytes_total)
         return 200, _PROMETHEUS, ("\n".join(lines) + "\n").encode()
 
     # -- teardown ----------------------------------------------------------
