@@ -6,6 +6,8 @@ result.
 
     python3 chip_smoke.py                 # needs one CUDA card
     python3 chip_smoke.py --kernels-only  # phases 1-4 only
+    python3 chip_smoke.py --phases=flywheel,compat  # named path phases
+                                          # alone, no result lines
 
 Phases:
   1. build ``trpo_torch/csrc`` (nvcc, sm_90a) and name the card;
@@ -163,10 +165,33 @@ Phases:
      the log clean under ``validate_events`` and read by ``observatory
      --events``; capture's cost (64 clients, trace rate 1.0, off/on
      alternating); logs in ``build/chip_smoke/replay/``;
- 24. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19-23) is driven with the launch counts set to 0
-just before it and read just after ([chaos]'s and [replay]'s train legs
-in their children, fresh processes). The fused kernel's launches on each path
+ 24. ``[flywheel]`` the fleet orchestrator and the train→serve flywheel
+     through their entry points: ``python -m trpo_torch.scripts.fleet``
+     over 2 ``humanoid-sim`` members as published (grid seed=0..1, 3
+     iterations each, 2 slots, ``--status-port 0``, one PBT round of 1
+     iteration, ``seed1=sigterm@iter=2``): seed1 exits 75, requeues once
+     and resumes at step 2 + 1 with its iterations gapless; the fleet
+     ``/metrics`` carries a running member's ``trpo_fleet_member_*``
+     iteration timing; the culled member respawns from the winner's
+     step 3 with the reference's explore draw (its seed, computed here
+     with the port's spec code); the gate exits 0, the logs pass
+     ``validate_events``, and every member process launches K1 exactly
+     Σ(cheap + 1) and K2 once an iteration (each read from that
+     process's own counts); beside it ``python -m
+     trpo_torch.scripts.flywheel_smoke`` at the reference's sizes
+     (kill_promoter and its restart, the reward gate rejecting a
+     regressed step, a torn step rejected by its reload, 0 client
+     errors); logs in ``build/chip_smoke/flywheel/``;
+ 25. ``[compat]`` ``python -m trpo_torch.scripts.reference_style`` (the
+     reference's hand-written loop on ``trpo_torch.compat``, 5
+     iterations) in a child: per-iteration ms, host CG iterations and
+     line-search probes, K2 once per path from ``compat.discount``; and
+     ``compat.discount`` on a CUDA tensor against the plain scan at K2's
+     2e-5;
+ 26. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19-25) is driven with the launch counts set to 0
+just before it and read just after ([chaos]'s, [replay]'s, [flywheel]'s
+and [compat]'s children in their own processes, fresh ones). The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -4321,11 +4346,11 @@ CHAOS_RETRY_BUDGET = 128  # the router leg's retry tokens: a kill and a
 CHAOS_CLEAN_S = 3.0       # the clean window's length
 
 
-def _chaos_train_child(counts_path: str) -> int:
-    """Run in a child process: ``python -m trpo_torch.train`` (by runpy,
-    with this process's argv) under the update recorder, then write the
-    process's launch counts and each update's record to ``counts_path``.
-    A fresh process starts every count at 0."""
+def _counted_child(counts_path: str, module: str = "trpo_torch.train") -> int:
+    """Run in a child process: ``python -m <module>`` (by runpy, with this
+    process's argv) under the update recorder, then write the process's
+    launch counts and each update's record to ``counts_path``. A fresh
+    process starts every count at 0."""
     import runpy
 
     from trpo_torch.ops import _build
@@ -4333,8 +4358,7 @@ def _chaos_train_child(counts_path: str) -> int:
     code = 1
     with _updates() as log:
         try:
-            runpy.run_module("trpo_torch.train", run_name="__main__",
-                             alter_sys=True)
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
         except SystemExit as e:
             code = e.code if isinstance(e.code, int) else 1
         updates = [{"launched": launched, "cheap": int(cheap),
@@ -4374,7 +4398,7 @@ def _chaos_train(torch, dev, work: Path, card: str):
     counts_path = work / "train_counts.json"
     argv = [sys.executable, "-c",
             "import sys, chip_smoke as cs; "
-            "sys.exit(cs._chaos_train_child(sys.argv.pop(1)))",
+            "sys.exit(cs._counted_child(sys.argv.pop(1)))",
             str(counts_path), "--preset", "humanoid-sim", "--device",
             dev.type, "--iterations", "6", "--inject-faults",
             CHAOS_TRAIN_FAULTS, "--recover-on-nan", "restore",
@@ -4921,14 +4945,22 @@ def phase_chaos(torch, dev):
 REPLAY_ITERS = 5          # the observed train child's iterations
 REPLAY_ACTS = 50          # acts per session in each recorded window
 REPLAY_MID = 10           # each window opens after this many acts
-REPLAY_PACE_S = 0.8       # each of the storm leg's 64 clients sends ~1.25
-#                           requests/s: 80/s offered, a quarter of what
+REPLAY_PACE_S = 1.6       # each of the storm leg's 64 clients sends ~0.6
+#                           requests/s: 40/s offered, an eighth of what
 #                           that server (2 in-process replicas, every
-#                           request an event on its log) routes on the card
-REPLAY_CALIBRATE_S = 10.5  # the SLO is read once the router's 10 s recent
-#                            window holds no connection's first request
-REPLAY_STORM_AT = 1075    # the storm's request clock: ~13.4 s at the
-#                           paced load, so the clean window runs ~3 s armed
+#                           request an event on its log) routes on the card;
+#                           at 80/s a host at half the usual speed held ~16
+#                           requests in flight, the admission limit, and
+#                           shed in the clean window
+REPLAY_CALIBRATE_S = 10.5  # the SLO's readings start once the router's
+#                            10 s recent window holds no connection's
+#                            first request
+REPLAY_CALIBRATE_PEAK_S = 10.0  # and run this long: the SLO sits over
+#                                 the peak of the clean steady state, not
+#                                 one reading of it (a single 10 s p99 of
+#                                 ~400 requests moved 2.2x on a clean load)
+REPLAY_STORM_AT = 970     # the storm's request clock: ~24 s at the paced
+#                           load, so the clean window runs ~3 s armed
 REPLAY_STORMS = 4          # storms at once, 16 workers each
 REPLAY_STORM = ";".join(
     f"overload_storm@request={REPLAY_STORM_AT + i}:rps=8000:seconds=8"
@@ -5021,7 +5053,7 @@ def _replay_train(torch, dev, work: Path, card: str):
     t0 = time.perf_counter()
     child = _spawn([
         sys.executable, "-c", "import sys, chip_smoke as cs; "
-        "sys.exit(cs._chaos_train_child(sys.argv.pop(1)))", str(counts_path),
+        "sys.exit(cs._counted_child(sys.argv.pop(1)))", str(counts_path),
         "--preset", "humanoid-sim", "--device", dev.type, "--iterations",
         str(REPLAY_ITERS), "--metrics-jsonl", str(ev), "--status-port", "0",
         "--run-descriptor", str(desc), "--checkpoint-dir", str(ck),
@@ -5371,11 +5403,13 @@ def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
     replicas) under 64 paced clients, ``overload_storm`` at request
     ``REPLAY_STORM_AT``; a ``MetricsAggregator`` + ``AlertEngine(
     default_rules)`` in this process scrapes its /status and /metrics.
-    The SLO is set at 2x the router's p99 over the first 10.5 s (a
-    calibration: the card's /act takes a few ms, where the reference's
-    smoke simulates 50 ms acts); the clean window from then until the
-    storm must fire nothing, and slo_p99 and shed_rate must fire and
-    resolve."""
+    The SLO is set at 2x the peak of the router's recent p99 as read
+    every 0.25 s from 10.5 s to 20.5 s, the aggregator's own scrapes
+    running from the start (a calibration: the card's /act takes a few
+    ms, where the reference's smoke simulates 50 ms acts and puts its
+    SLO at 2x the top of that steady state); the clean window from then
+    until the storm must fire nothing, and slo_p99 and shed_rate must
+    fire and resolve."""
     import threading
 
     from trpo_torch.obs.aggregate import HttpTarget, MetricsAggregator
@@ -5391,9 +5425,27 @@ def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
     bus.emit("run_manifest", **manifest_fields(
         None, extra={"driver": "chip_smoke_watch"}, device=dev))
     try:
-        time.sleep(REPLAY_CALIBRATE_S)
-        status = json.loads(_get_url(url + "/status"))
-        clean_p99 = status["latency_recent_ms"]["0.99"]
+        # the calibration scrapes as the armed watcher will, so the
+        # readings carry the same load as the window they arm
+        t_load = time.monotonic()
+        cal = MetricsAggregator(
+            [HttpTarget("router", url, metrics_path="/metrics")],
+            interval=0.25)
+        readings = []
+        try:
+            while time.monotonic() - t_load < (REPLAY_CALIBRATE_S
+                                               + REPLAY_CALIBRATE_PEAK_S):
+                cal.tick()
+                n = cal.latest("router", "status.latency_recent_samples")
+                p99 = cal.latest("router", "status.latency_recent_ms.0.99")
+                if time.monotonic() - t_load >= REPLAY_CALIBRATE_S \
+                        and n and n >= 8 and p99 is not None:
+                    readings.append(p99)
+                time.sleep(0.25)
+        finally:
+            cal.close()
+        _check(readings, "[replay] no clean p99 reading to calibrate on")
+        clean_p99 = max(readings)
         slo = REPLAY_SLO_X * clean_p99
         engine = AlertEngine(default_rules(slo_p99_ms=slo), bus=bus)
         agg = MetricsAggregator(
@@ -5426,7 +5478,12 @@ def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
     hist = [r for r in _events(watch) if r["kind"] == "alert"]
     early = [e for e in hist if e["state"] == "firing" and e["t"] < fault["t"]]
     _check(not early, f"[replay] false positives in the clean window: "
-           f"{early}")
+           f"{early}; SLO {slo:.3f} ms over {len(readings)} calibration "
+           f"readings {min(readings):.3f}-{clean_p99:.3f} ms; the "
+           f"router's recent p99 while armed: "
+           f"{[(round(r['t'] - fault['t'], 2), round(r['value'], 3)) for r in _events(watch) if r['kind'] == 'metric_sample' and r['series'] == 'status.latency_recent_ms.0.99' and r['t'] < fault['t']]}"
+           f" (s before the fault, ms); client ms over 20 in the clean "
+           f"window: {[(round(s[0] - fault['t'], 2), round((s[1] - s[0]) * 1e3, 1)) for s in samples if t_armed - 10 <= s[0] < fault['t'] and (s[1] - s[0]) * 1e3 > 20]}")
     fired = {r: next((e for e in hist if e["rule"] == r
                       and e["state"] == "firing"), None)
              for r in ("slo_p99", "shed_rate")}
@@ -5477,7 +5534,8 @@ def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
     print(f"[replay] storm ({REPLAY_STORM}: {16 * REPLAY_STORMS} workers, "
           f"64 clients paced at ~{1 / REPLAY_PACE_S:.2f}/s each, "
           f"--max-inflight {REPLAY_STORM_INFLIGHT}): clean p99 "
-          f"{clean_p99:.3f} ms -> SLO {slo:.3f} ms; the router's recent "
+          f"{min(readings):.3f}-{clean_p99:.3f} ms over {len(readings)} "
+          f"readings -> SLO {slo:.3f} ms; the router's recent "
           f"p99 peaked at {clean_max:.3f} ms in the clean window and "
           f"{max(p99s, default=math.nan):.3f} ms in all; clean window "
           f"{fault['t'] - t_armed:.1f} s, "
@@ -5609,6 +5667,385 @@ def phase_replay(torch, dev):
     return counts
 
 
+FLY_ITERS = 3        # each [flywheel] fleet member's iterations
+FLY_FAULT = "sigterm@iter=2"   # injected into member seed1
+COMPAT_ITERS = 5     # the reference-style loop's iterations
+
+
+def _fleet_cli_child() -> int:
+    """Run in a child process: ``python -m trpo_torch.scripts.fleet`` (by
+    runpy, with this process's argv), every member launched as the stock
+    ``python -m trpo_torch.train`` argv run under ``_counted_child``,
+    so each member process writes its own launch counts and update
+    records to ``<member dir>/counts.<attempt>.json``."""
+    import runpy
+
+    from trpo_torch.fleet import scheduler
+
+    stock = scheduler.default_member_argv
+
+    def counted(spec, member, ctx):
+        argv = stock(spec, member, ctx)
+        head = argv.index("trpo_torch.train") + 1
+        counts = os.path.join(ctx["member_dir"],
+                              f"counts.{ctx['attempt']}.json")
+        return [argv[0], "-c", "import sys, chip_smoke as cs; "
+                "sys.exit(cs._counted_child(sys.argv.pop(1)))",
+                counts] + argv[head:]
+
+    scheduler.default_member_argv = counted
+    code = 1
+    try:
+        runpy.run_module("trpo_torch.scripts.fleet", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    return code
+
+
+def _segments(path: Path) -> list:
+    """A member's event log split at each ``run_manifest``: one list of
+    records per process that wrote it."""
+    segs = []
+    for r in _events(path):
+        if r["kind"] == "run_manifest" or not segs:
+            segs.append([])
+        segs[-1].append(r)
+    return segs
+
+
+def _fleet_scrape(url: str, done, seen: list) -> None:
+    """Poll the fleet's ``/metrics`` until ``done``: keep every scrape
+    that carries a live member's iteration timing."""
+    while not done.is_set():
+        try:
+            text = _get_url(url + "/metrics", timeout=5.0)
+        except Exception:
+            text = ""
+        if "trpo_fleet_member_iteration_ms{" in text:
+            seen.append((time.time(), text))
+        time.sleep(0.1)
+
+
+def _flywheel_fleet(torch, dev, work: Path, card: str) -> dict:
+    """Leg A: ``python -m trpo_torch.scripts.fleet`` over 2 ``humanoid-sim``
+    members as published (grid seed=0..1), ``FLY_ITERS`` iterations each
+    on 2 slots, ``--status-port 0``, one PBT round of 1 iteration, with
+    ``FLY_FAULT`` injected into seed1. Returns the members' launches,
+    summed over their processes."""
+    import random
+    import threading
+
+    from trpo_torch.fleet import MemberSpec, expand_grid, member_cli_args
+
+    fleet_dir = work / "fleet"
+    out, err = work / "fleet_result.json", work / "fleet.err"
+    t0 = time.perf_counter()
+    child = _spawn([
+        sys.executable, "-c", "import sys, chip_smoke as cs; "
+        "sys.exit(cs._fleet_cli_child())", "--fleet-dir", str(fleet_dir),
+        "--grid", "seed=0..1", "--max-workers", "2", "--backoff", "0.2",
+        "--status-port", "0", "--scrape-interval", "0.2", "--inject",
+        f"seed1={FLY_FAULT}", "--cull-bottom-k", "1", "--pbt-rounds", "1",
+        "--pbt-iterations", "1", "--json", "--", "--preset",
+        "humanoid-sim", "--device", dev.type, "--iterations",
+        str(FLY_ITERS), "--checkpoint-every", "1", "--health-checks"],
+        out, err)
+    done, seen, scraper = threading.Event(), [], None
+    try:
+        while child.poll() is None:
+            _check(time.perf_counter() - t0 < 400, "[flywheel] fleet CLI")
+            if scraper is None and "fleet endpoint:" in err.read_text():
+                url = err.read_text().split("fleet endpoint: ")[1].split()[0]
+                scraper = threading.Thread(
+                    target=_fleet_scrape, daemon=True,
+                    args=(url.rsplit("/status", 1)[0], done, seen))
+                scraper.start()
+            time.sleep(0.1)
+    finally:
+        if child.poll() is None:
+            child.kill()
+        child.wait()
+        done.set()
+        if scraper is not None:
+            scraper.join(timeout=10)
+    wall = time.perf_counter() - t0
+    _check(child.returncode == 0, f"[flywheel] fleet CLI exit "
+           f"{child.returncode}:\n{err.read_text()[-3000:]}")
+    result = json.loads(out.read_text())
+    _check(result["gate"]["exit_code"] == 0 and result["exit_code"] == 0,
+           f"[flywheel] fleet gate {result['gate']}")
+    fleet = [r for r in _events(fleet_dir / "fleet_events.jsonl")
+             if r["kind"] == "fleet"]
+    by = {m: [r for r in fleet if r["member"] == m]
+          for m in result["members"]}
+    # the sigterm'd member: exit 75, one requeue, resumed at the newest
+    # complete step + 1, its iterations gapless across the two processes
+    s1 = [(r["state"], r["attempt"], r.get("exit_code"), r.get("resume_step"))
+          for r in by["seed1"]]
+    resume = 2   # sigterm@iter=2: preempted after its checkpoint of step 2
+    _check(s1[:4] == [("launched", 1, None, None), ("preempted", 1, 75, None),
+                      ("requeued", 1, 75, resume),
+                      ("launched", 2, None, resume)]
+           and result["members"]["seed1"]["requeues"] == 1,
+           f"[flywheel] seed1's lifecycle {s1}")
+    respawned = result["respawned"]
+    _check(len(respawned) == 1 and result["culled"],
+           f"[flywheel] PBT: culled {result['culled']}, respawned "
+           f"{respawned}")
+    culled = respawned[0]
+    winner = next(m for m in result["members"] if m != culled)
+    rot = sorted(fleet_dir.glob(f"{culled}/events.gen*.jsonl"))
+    s1_log = (rot[0] if culled == "seed1" else
+              fleet_dir / "seed1" / "events.jsonl")
+    segs = _segments(s1_log)
+    its = [[r["iteration"] for r in seg if r["kind"] == "iteration"]
+           for seg in segs]
+    _check(len(segs) == 2 and sum(its, []) == list(range(1, FLY_ITERS + 1))
+           and its[1][0] == resume + 1,
+           f"[flywheel] seed1's iterations by process {its}")
+    # the respawn: exploit the winner's newest step, explore the seed as
+    # the reference draws it (plain Python, so identical)
+    resp = next(r for r in by[culled] if r["state"] == "respawned")
+    attempt = resp["attempt"]
+    rng = random.Random(f"{culled}:{attempt}")
+    factor = 0.8 if rng.random() < 0.5 else 1.2
+    base = next(m for m in expand_grid("seed=0..1")
+                if m.member_id == culled).overrides_dict
+    if culled == "seed1":
+        base["inject_faults"] = FLY_FAULT
+    base["seed"] = rng.randrange(2 ** 31)
+    want_args = member_cli_args(MemberSpec(culled, tuple(base.items())))
+    _check(resp["resume_step"] == FLY_ITERS and resp["reason"] ==
+           f"pbt exploit {winner}@{FLY_ITERS} explore x{factor:g}",
+           f"[flywheel] respawn record {resp}")
+    new_seg = _segments(fleet_dir / culled / "events.jsonl")
+    manifest = new_seg[-1][0]
+    new_its = [r["iteration"] for r in new_seg[-1] if r["kind"] == "iteration"]
+    _check(manifest["config"]["seed"] == base["seed"]
+           and new_its == [FLY_ITERS + 1],
+           f"[flywheel] respawned {culled}: seed "
+           f"{manifest['config']['seed']} (want {base['seed']}), "
+           f"iterations {new_its}")
+    # the live fleet view while members ran
+    live = [t for _, t in seen if 'state="running"} 1' in t]
+    _check(live, "[flywheel] the fleet /metrics never carried a running "
+           "member's iteration timing")
+    timed = sorted({m for t in live for m in result["members"]
+                    if f'trpo_fleet_member_iteration_ms{{member="{m}"}}' in t})
+    # every member process: K1 Σ(cheap + 1) over its updates, K2 once an
+    # iteration, no plain version
+    totals, per = {}, []
+    for mdir in sorted(p for p in fleet_dir.iterdir() if p.is_dir()):
+        for cpath in sorted(mdir.glob("counts.*.json")):
+            counts = json.loads(cpath.read_text())
+            launches, updates = counts["launches"], counts["updates"]
+            k1 = launches.get("fused_fvp", 0)
+            _check(k1 == sum(u["cheap"] + 1 for u in updates)
+                   and all(u["launched"]["fused_fvp"] == u["cheap"] + 1
+                           for u in updates),
+                   f"[flywheel] {cpath.relative_to(work)}: K1 {k1} for "
+                   f"{updates}")
+            _check(launches.get("reverse_scan", 0) == len(updates) > 0,
+                   f"[flywheel] {cpath.relative_to(work)}: K2 "
+                   f"{launches.get('reverse_scan', 0)} for {len(updates)} "
+                   "iterations")
+            plain = {k: v for k, v in launches.items()
+                     if k.endswith("_plain") and v}
+            _check(not plain, f"[flywheel] a plain version ran: {plain}")
+            per.append(f"{mdir.name}#{cpath.name.split('.')[1]} K1 {k1} "
+                       f"K2 {launches['reverse_scan']}")
+            totals = _add(totals, {k: v for k, v in launches.items() if v})
+    # seed0 once, seed1 twice (the requeue), the culled one's respawn
+    _check(len(per) == 4, f"[flywheel] member processes {per}")
+    logs = [str(fleet_dir / "fleet_events.jsonl")] + [
+        str(p) for p in sorted(fleet_dir.glob("*/events*.jsonl"))]
+    check = subprocess.run(_tool("trpo_torch.scripts.validate_events", *logs),
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=300)
+    _check(check.returncode == 0, f"[flywheel] validate_events:\n"
+           f"{check.stdout[-3000:]}{check.stderr[-2000:]}")
+    # each process's start: its launch record to its first iteration
+    starts, steady = [], []
+    for m, recs in by.items():
+        launched = [r for r in recs if r["state"] == "launched"]
+        segs = [seg for p in ([fleet_dir / m / "events.jsonl"]
+                              + sorted(fleet_dir.glob(f"{m}/events.gen*")))
+                for seg in _segments(p)]
+        segs.sort(key=lambda seg: seg[0]["t"])
+        for rec, seg in zip(launched, segs):
+            first = next(r for r in seg if r["kind"] == "iteration")
+            starts.append(f"{m}#{rec['attempt']} {first['t'] - rec['t']:.1f}")
+            steady += [r["stats"]["iteration_ms"] for r in seg
+                       if r["kind"] == "iteration"][1:]
+    rows = {m: (r["attempt"], r["requeues"], r["state"], r["score"])
+            for m, r in result["members"].items()}
+    print(f"[flywheel] fleet CLI (2 humanoid-sim members as published, "
+          f"{FLY_ITERS} iterations, 2 slots, seed1 {FLY_FAULT}, 1 PBT "
+          f"round of 1): exit 0, gate exit 0, wall {wall:.1f} s (bench "
+          f"row: fleet {result['bench']['fleet_wall_ms'] / 1e3:.1f} s, "
+          f"members {result['bench']['members_wall_ms'] / 1e3:.1f} s); "
+          f"members (attempts, requeues, state, score) {rows}; first "
+          f"iteration s after launch {starts}; steady iteration ms "
+          f"{[round(x, 1) for x in sorted(steady)]}; seed1 preempted "
+          f"(exit 75), requeued once, resumed at step {resume} + 1, "
+          f"iterations {its} gapless; {culled} culled and respawned from "
+          f"{winner}@{FLY_ITERS} with {want_args} (x{factor:g}; seed as "
+          f"the reference draws it), ran iteration {new_its}; live "
+          f"/metrics: {len(live)} scrapes with a running member's "
+          f"iteration_ms (members {timed}); per process {per}; "
+          f"validate_events exit 0 over {len(logs)} logs ({card})",
+          flush=True)
+    return totals
+
+
+def _flywheel_loop(dev, work: Path):
+    """Leg B, started: ``python -m trpo_torch.scripts.flywheel_smoke`` at
+    the reference's sizes (not ``--quick``) on the card."""
+    return _spawn(_tool("trpo_torch.scripts.flywheel_smoke", "--tmp",
+                        str(work / "loop"), "--device", dev.type),
+                  work / "loop.log")
+
+
+def _flywheel_loop_report(child, work: Path, card: str) -> None:
+    log = work / "loop.log"
+    try:
+        child.wait(timeout=400)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        child.wait()
+    _check(child.returncode == 0, f"[flywheel] flywheel_smoke exit "
+           f"{child.returncode}:\n{log.read_text()[-3000:]}")
+    lines = log.read_text().splitlines()
+    summary = json.loads(next(ln for ln in reversed(lines)
+                              if ln.startswith("{")))
+    _check(summary["client_errors"] == 0 and summary["episodes"] > 0,
+           f"[flywheel] flywheel_smoke {summary}")
+    events = work / "loop" / "flywheel_events.jsonl"
+    check = subprocess.run(_tool("trpo_torch.scripts.validate_events",
+                                 str(events)), cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+    _check(check.returncode == 0, f"[flywheel] validate_events:\n"
+           f"{check.stdout[-3000:]}")
+    recs = _events(events)
+    outcomes = [(r["event"], r["step"]) for r in recs
+                if r["kind"] == "promote" and r["event"] in
+                ("promoted", "rejected", "rolled_back")]
+    _check(outcomes == [("promoted", 1), ("rejected", 2), ("rejected", 3)],
+           f"[flywheel] promotion outcomes {outcomes}")
+    tm = summary["timings_s"]
+    print(f"[flywheel] flywheel_smoke (2 pendulum GRU-8 members, 2 "
+          f"iterations each, sessions through the canary-striding router): "
+          f"exit 0; fleet {tm['fleet']:.1f} s (winner {summary['winner']}); "
+          f"kill_promoter at serving step 1, promoter_stuck fired "
+          f"{tm['stuck_fired'] - tm['killed']:.1f} s after, the restarted "
+          f"controller converged without republishing and promoted in "
+          f"{tm['promoted'] - tm['stuck_fired']:.2f} s; gate decisions "
+          f"{summary['gate_decision_s']} (regress_checkpoint rejected "
+          f"naming the realized return, corrupt_checkpoint by its failed "
+          f"reload); outcomes {outcomes}; {summary['episodes']} episodes "
+          f"booked as feedback; client errors {summary['client_errors']}; "
+          f"validate_events exit 0 ({card})", flush=True)
+
+
+def phase_flywheel(torch, dev):
+    """The fleet orchestrator and the train→serve flywheel
+    (``trpo_torch.fleet``) through their entry points: the fleet CLI over
+    the flagship (leg A) beside the closed-loop smoke (leg B). Returns
+    the fleet members' launches."""
+    from trpo_torch.ops import _build
+
+    card = _card_line()
+    work = WORK / "flywheel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    loop = _flywheel_loop(dev, work)
+    try:
+        counts = _flywheel_fleet(torch, dev, work, card)
+        t1 = time.perf_counter()
+        _flywheel_loop_report(loop, work, card)
+    finally:
+        if loop.poll() is None:
+            loop.kill()
+            loop.wait()
+    here = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check(not here, f"[flywheel] launches in the measuring process: {here}")
+    print(f"[flywheel] legs: fleet {t1 - t0:.1f} s (the loop running "
+          f"beside it), loop done {time.perf_counter() - t0:.1f} s after "
+          f"the phase's start; logs in {work.relative_to(ROOT)}", flush=True)
+    return counts
+
+
+def phase_compat(torch, dev):
+    """The reference's ``utils.py`` surface (``trpo_torch.compat``):
+    ``python -m trpo_torch.scripts.reference_style`` in a child for its
+    ``COMPAT_ITERS`` iterations on the card (K2 once per path from
+    ``compat.discount``, read from the child's counts), and
+    ``compat.discount`` on a CUDA tensor held against the plain scan.
+    Returns the child's launches."""
+    from trpo_torch import compat
+    from trpo_torch.ops import _build
+    from trpo_torch.ops.reverse_scan import reverse_affine_scan_plain
+
+    card = _card_line()
+    work = WORK / "compat"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    counts_path, log = work / "counts.json", work / "reference_style.log"
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke as cs; "
+         "sys.exit(cs._counted_child(sys.argv.pop(1), "
+         "'trpo_torch.scripts.reference_style'))", str(counts_path),
+         "--device", dev.type, "--iterations", str(COMPAT_ITERS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log.write_text(child.stdout + child.stderr)
+    _check(child.returncode == 0, f"[compat] reference_style exit "
+           f"{child.returncode}:\n{log.read_text()[-3000:]}")
+    rows = [dict(kv.split("=") for kv in ln.split()[2:])
+            for ln in child.stdout.splitlines() if ln.startswith("iter ")]
+    _check(len(rows) == COMPAT_ITERS, f"[compat] {len(rows)} iterations:\n"
+           f"{child.stdout[-2000:]}")
+    for r in rows:
+        _check(all(_finite(torch, float(r[k])) for k in
+                   ("mean_reward", "ms")) and int(r["cg_iters"]) >= 1,
+               f"[compat] iteration {r}")
+    launches = json.loads(counts_path.read_text())["launches"]
+    paths = sum(int(r["paths"]) for r in rows)
+    _check(launches.get("reverse_scan", 0) == paths,
+           f"[compat] K2 launched {launches.get('reverse_scan', 0)} for "
+           f"{paths} paths' discount")
+    other = {k: v for k, v in launches.items()
+             if v and k != "reverse_scan"}
+    _check(not other, f"[compat] other launches in the child: {other}")
+    # compat.discount on the card against the plain scan, same input
+    x = torch.randn(200, generator=torch.Generator().manual_seed(0)).to(dev)
+    _build.reset_launches()
+    got = compat.discount(x, 0.95)
+    _check(_build.LAUNCHES["reverse_scan"] == 1,
+           f"[compat] compat.discount on {dev}: {dict(_build.LAUNCHES)}")
+    plain = reverse_affine_scan_plain(
+        torch.full((200, 1), 0.95, device=dev), x[:, None])[:, 0]
+    err = float(np.max(np.abs(got - plain.cpu().numpy())))
+    _check(err <= K2_TOL * max(1.0, float(plain.abs().max())),
+           f"[compat] compat.discount against plain: max err {err}")
+    _build.reset_launches()
+    print(f"[compat] reference_style ({COMPAT_ITERS} iterations, cartpole "
+          f"on the native stepper one env at a time, host CG and line "
+          f"search): exit 0 in {wall:.1f} s; per iteration ms "
+          f"{[float(r['ms']) for r in rows]}, CG host-loop iterations "
+          f"{[int(r['cg_iters']) for r in rows]}, line-search probes "
+          f"{[int(r['ls_probes']) for r in rows]}, mean reward "
+          f"{[float(r['mean_reward']) for r in rows]}; K2 {paths} = one "
+          f"per path's compat.discount, no other kernel; compat.discount "
+          f"on a CUDA (200,) input against the plain scan: max err "
+          f"{err:.2e} (K2's {K2_TOL}) ({card})", flush=True)
+    return {k: v for k, v in launches.items() if v}
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -5638,6 +6075,16 @@ def main() -> int:
 
     kernels_only = "--kernels-only" in sys.argv[1:]
     phase_build(torch)
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--phases=")]
+    if only:
+        # named path phases alone (no kernel phases, no result lines)
+        for tag in only[0]:
+            t0 = time.perf_counter()
+            got = globals()[f"phase_{tag}"](torch, dev)
+            print(f"[time] {tag} {time.perf_counter() - t0:.1f} s; "
+                  f"launches {got}", flush=True)
+        return 0
     with torch.cuda.stream(torch.cuda.Stream()):  # capturable for graphs
         scan = phase_scan(torch, np, peaks, dev)
         fvp = phase_fvp(torch, np, peaks, dev)
@@ -5668,6 +6115,8 @@ def main() -> int:
                 ("obs", lambda: phase_obs(torch, dev)),
                 ("chaos", lambda: phase_chaos(torch, dev)),
                 ("replay", lambda: phase_replay(torch, dev)),
+                ("flywheel", lambda: phase_flywheel(torch, dev)),
+                ("compat", lambda: phase_compat(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

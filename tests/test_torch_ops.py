@@ -156,10 +156,16 @@ def test_unported_paths_raise(override):
         importlib.import_module("trpo_torch.obs.capture")
         return
     if override == "fleet":
-        # the fleet orchestrator and the promotion controller are item
-        # 18.6: the port has no module for them yet
-        with pytest.raises(ModuleNotFoundError):
-            importlib.import_module("trpo_torch.fleet")
+        # the fleet orchestrator and the promotion controller run now
+        # (item 18.6): the package imports and exposes the reference's
+        # surface, and so does the compat module
+        fleet = importlib.import_module("trpo_torch.fleet")
+        tpu_fleet = importlib.import_module("trpo_tpu.fleet")
+        assert fleet.__all__ == tpu_fleet.__all__
+        assert all(hasattr(fleet, name) for name in fleet.__all__)
+        compat = importlib.import_module("trpo_torch.compat")
+        assert compat.__all__ == importlib.import_module(
+            "trpo_tpu.compat").__all__
         return
     cfg = port_config.TRPOConfig(**override)
     if "env" in override:

@@ -668,8 +668,13 @@ def test_stall_of_a_subprocess_replica_stops_and_continues_it():
         rs = types.SimpleNamespace(replicas={"r0": types.SimpleNamespace(
             handle=types.SimpleNamespace(proc=proc))})
         FaultInjector.from_spec(
-            "stall_replica@request=1:replica=0:seconds=0.3"
+            "stall_replica@request=1:replica=0:seconds=2"
         ).on_serve_request(1, replicaset=rs)
+        # SIGSTOP lands asynchronously: poll for the stop inside the 2 s
+        # window, then for the timed SIGCONT
+        deadline = time.monotonic() + 1.5
+        while state() != "T" and time.monotonic() < deadline:
+            time.sleep(0.005)
         assert state() == "T"
         deadline = time.monotonic() + 10
         while state() == "T" and time.monotonic() < deadline:

@@ -964,8 +964,21 @@ def _async_exchanges(server_cls, headers_fn, transport, sock_path):
     out = []
     try:
         for method, path, body, headers in requests:
-            conn.request(method, path, body=body, headers=headers)
-            resp = conn.getresponse()
+            if len(body or b"") > 64:
+                # head and body in ONE write: the server answers 413 and
+                # closes once it has read the head, so a body written
+                # after the head can meet a closed AF_UNIX peer (EPIPE)
+                # before the client reads the 413
+                if conn.sock is None:
+                    conn.connect()
+                conn.sock.sendall(
+                    f"{method} {path} HTTP/1.1\r\nHost: localhost\r\n"
+                    f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+                resp = http.client.HTTPResponse(conn.sock, method=method)
+                resp.begin()
+            else:
+                conn.request(method, path, body=body, headers=headers)
+                resp = conn.getresponse()
             out.append((resp.status, resp.getheader("Content-Type"),
                         resp.read(), resp.getheader("Connection")))
             if resp.getheader("Connection") == "close":
@@ -1107,3 +1120,37 @@ def test_concurrent_infers_across_reloads_never_mix_snapshots():
     for obs, actions, step in answers:
         want = agent.act(states[step], obs, eval_mode=True)[0].numpy()
         np.testing.assert_allclose(actions, want, rtol=0, atol=ROW_ATOL)
+
+
+@pytest.mark.parametrize("transport", ["tcp", "uds"])
+def test_async_httpd_accepts_right_after_construction(transport, tmp_path,
+                                                      monkeypatch):
+    """The constructor returns only once its listeners accept: a request
+    sent the moment it returns is answered, 200 times over."""
+    import http.client
+    import socket
+
+    from trpo_torch.utils import httpd
+
+    monkeypatch.chdir(tmp_path)
+
+    class Conn(http.client.HTTPConnection):
+        def connect(self):
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.settimeout(10)
+            self.sock.connect("s.sock")
+
+    for _ in range(200):
+        srv = httpd.AsyncBackgroundServer(
+            0, get={"/hello": lambda: (200, "text/plain", b"hi")},
+            uds_path="s.sock" if transport == "uds" else None)
+        conn = (Conn("localhost", timeout=10) if transport == "uds" else
+                http.client.HTTPConnection("127.0.0.1", srv.port,
+                                           timeout=10))
+        try:
+            conn.request("GET", "/hello")
+            resp = conn.getresponse()
+            assert (resp.status, resp.read()) == (200, b"hi")
+        finally:
+            conn.close()
+            srv.close()

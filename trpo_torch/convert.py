@@ -28,6 +28,7 @@ from trpo_torch.utils.normalize import RunningStats
 from trpo_torch.vf import AdamState, VFState
 
 __all__ = [
+    "compat_vf_from_numpy",
     "damping_from_numpy",
     "ladder_from_numpy",
     "ladder_to_numpy",
@@ -127,6 +128,37 @@ def vf_state_from_numpy(params: Any, adam_mu: Any, adam_nu: Any, count: int,
         opt_state=AdamState(int(count), conv(adam_mu), conv(adam_nu)),
         initialized=bool(initialized),
     )
+
+
+def compat_vf_from_numpy(vf, params: Any, adam_mu: Any, adam_nu: Any,
+                         count: int):
+    """Load ``trpo_tpu.compat.VF``'s MLP params and its ``optax.adam``
+    moments and step count (numpy, the reference's ``{"layers": [{"w":
+    (in, out), "b"}]}`` layout) into the port's ``compat.VF`` ``vf``:
+    its net is built at the params' input width, each ``w`` crosses as
+    the ``nn.Linear`` weight ``w.T``, and ``torch.optim.Adam`` gets the
+    moments and the count as its per-parameter state. Returns ``vf``."""
+    layers = params["layers"]
+    vf._create_net(int(np.shape(layers[0]["w"])[0]))
+    linears = [m for m in vf.net if isinstance(m, torch.nn.Linear)]
+    if len(linears) != len(layers):
+        raise ValueError(f"{len(layers)} layers for a VF of "
+                         f"{len(linears)}")
+    dev = linears[0].weight.device
+    to = lambda x: _tensor(x, dev).float()  # noqa: E731
+    with torch.no_grad():
+        for lin, layer, mu, nu in zip(linears, layers, adam_mu["layers"],
+                                      adam_nu["layers"]):
+            for param, key in ((lin.weight, "w"), (lin.bias, "b")):
+                flip = (lambda t: t.T.contiguous()) if key == "w" else (
+                    lambda t: t)
+                param.copy_(flip(to(layer[key])))
+                vf.opt.state[param] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": flip(to(mu[key])),
+                    "exp_avg_sq": flip(to(nu[key])),
+                }
+    return vf
 
 
 def trajectory_from_numpy(traj: Any, device="cpu") -> Trajectory:

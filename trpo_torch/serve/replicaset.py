@@ -222,7 +222,7 @@ class SubprocessReplica:
         importing torch, loading its checkpoint or binding its port."""
         if self.url is not None:
             return self.url
-        from trpo_torch.utils.exposition import read_descriptor
+        from trpo_torch.fleet.scrape import read_descriptor
 
         desc = read_descriptor(self.descriptor_path)
         if desc and desc.get("url"):

@@ -1,19 +1,16 @@
 """Text helpers of the serving control plane: Prometheus label escaping
-and sample formatting, RFC-valid JSON, and the run descriptor reader.
+and sample formatting, and RFC-valid JSON.
 
 Counterparts: ``_esc``, ``_fmt`` and ``_json_safe`` of
-``trpo_tpu/obs/server.py`` and ``read_descriptor`` of
-``trpo_tpu/fleet/scrape.py``, copied (the port imports nothing of the
+``trpo_tpu/obs/server.py``, copied (the port imports nothing of the
 reference package, even where a module of it is pure Python).
 """
 
 from __future__ import annotations
 
-import json
 import math
-from typing import Optional
 
-__all__ = ["_esc", "_fmt", "_json_safe", "read_descriptor"]
+__all__ = ["_esc", "_fmt", "_json_safe"]
 
 
 def _esc(label) -> str:
@@ -48,12 +45,3 @@ def _json_safe(obj):
         return [_json_safe(v) for v in obj]
     return obj
 
-
-def read_descriptor(path: str) -> Optional[dict]:
-    """Parse one process's ``run.json``; None while it is absent or
-    partial (the process may not have reached its write yet)."""
-    try:
-        with open(path) as f:
-            return json.load(f)
-    except (OSError, ValueError):
-        return None
