@@ -188,10 +188,26 @@ Phases:
      line-search probes, K2 once per path from ``compat.discount``; and
      ``compat.discount`` on a CUDA tensor against the plain scan at K2's
      2e-5;
- 26. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19-25) is driven with the launch counts set to 0
-just before it and read just after ([chaos]'s, [replay]'s, [flywheel]'s
-and [compat]'s children in their own processes, fresh ones). The fused kernel's launches on each path
+ 26. ``[mesh]`` data and sequence parallelism (``trpo_torch/parallel``)
+     in children under ``torchrun`` (the parent holds no process group):
+     leg 1 ``python -m trpo_torch.train --preset humanoid-sim
+     --mesh-shape 1`` as published on an NCCL world of one (3
+     iterations, a checkpoint each; K2 once an iteration, K1 never: the
+     GGN operator on a mesh), resumed from step 2 bitwise the
+     uninterrupted step 3, its step 2 against the meshless run (rtol
+     1e-4, atol 1e-5); leg 2 ``make_sharded_fused_fvp`` at 37,536 x
+     376-256-256-17 in a 10-iteration CG, f32 and bf16, against K1 and
+     K1-bf16 alone (relative L2 1e-5, 1e-2), its ms a call beside theirs
+     and the all-reduce's µs; leg 3, beside leg 1, two ranks on the one
+     card over gloo: K1 over two halves of leg 2's rows, the seq GAE at
+     (392, 128) on K2 per rank, ``cartpole-fleet`` as published on a
+     ``data x seq`` mesh against one rank, ``Population(mesh)`` over 4
+     ``humanoid-sim`` members with member 1 bitwise its solo run; logs in
+     ``build/chip_smoke/mesh/``;
+ 27. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Each path (5-8, 10-17, 19-26) is driven with the launch counts set to 0
+just before it and read just after ([chaos]'s, [replay]'s, [flywheel]'s,
+[compat]'s and [mesh]'s children in their own processes, fresh ones). The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -774,8 +790,8 @@ def _updates():
                     stats.cg_iterations_cheap, stats.cg_iterations,
                     stats.solve_fallback))
 
-    def make(policy, cfg):
-        update = real(policy, cfg)
+    def make(policy, cfg, *a, **kw):
+        update = real(policy, cfg, *a, **kw)
 
         def recorded(*args, **kw):
             before = launches()
@@ -4573,6 +4589,10 @@ def _chaos_serve_cli(torch, dev, ck_dir: str, work: Path,
     ev, desc = work / "serve_cli.jsonl", work / "serve_run.json"
     specs = CHAOS_CLI_FAULTS + f";wedge_reload@step={CHAOS_WEDGE_STEP}"
     t_start = time.perf_counter()
+    # the child's output goes to a file, kept if it hangs; SIGABRT makes
+    # it print every thread's stack (PYTHONFAULTHANDLER)
+    log_path = work / "serve_cli.log"
+    log = open(log_path, "w")
     child = subprocess.Popen(
         [sys.executable, "-m", "trpo_torch.serve", "--device", dev.type,
          "--preset", "humanoid-sim", "--checkpoint-dir", ck_dir,
@@ -4580,8 +4600,8 @@ def _chaos_serve_cli(torch, dev, ck_dir: str, work: Path,
          "--canary-fraction", "0.25", "--canary-window", "24",
          "--poll-interval", "0.2", "--inject-faults", specs,
          "--metrics-jsonl", str(ev), "--run-descriptor", str(desc)],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True)
+        cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT, text=True,
+        env={**os.environ, "PYTHONFAULTHANDLER": "1"})
     stop = threading.Event()
     samples, lock = [], threading.Lock()
     try:
@@ -4639,7 +4659,16 @@ def _chaos_serve_cli(torch, dev, ck_dir: str, work: Path,
             t.join(timeout=120)
         counters = status()["counters"]
         child.send_signal(signal.SIGTERM)
-        text, _ = child.communicate(timeout=120)
+        try:
+            child.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            child.send_signal(signal.SIGABRT)
+            child.wait(timeout=60)
+            raise SmokeFailure(
+                "[chaos] the serve CLI did not exit within 120 s of "
+                f"SIGTERM; its threads at SIGABRT, from {log_path}:\n"
+                f"{log_path.read_text()[-6000:]}") from None
+        text = log_path.read_text()
         _check(child.returncode == 0,
                f"[chaos] serve CLI exit {child.returncode}: {text[-3000:]}")
     finally:
@@ -4647,6 +4676,7 @@ def _chaos_serve_cli(torch, dev, ck_dir: str, work: Path,
         if child.poll() is None:
             child.kill()
             child.wait(timeout=60)
+        log.close()
     recs = _events(ev)
     bad = [(r.get("kind"), validate_event(r)) for r in recs
            if validate_event(r)]
@@ -5555,11 +5585,13 @@ def _replay_storm(torch, dev, work: Path, card: str, storm_child) -> dict:
 def _replay_capture_cost(torch, dev, work: Path, card: str, cost) -> dict:
     """Leg 4: the serve CLI (humanoid-sim, 2 replicas, trace rate 1.0)
     with ``--capture`` off and on, side by side; 64 clients x
-    ``REPLAY_COST_PER`` on each in the order off, on, on, off, off, on."""
+    ``REPLAY_COST_PER`` on each in the order off, on, on, off (two runs of
+    each since the script gained ``[mesh]``: the whole script keeps to
+    its time budget)."""
     urls = {m: _serve_up(c, d, lg, f"capture-{m} server")
             for m, (c, lg, d) in cost.items()}
     runs = {"off": [], "on": []}
-    for mode in ("off", "on", "on", "off", "off", "on"):
+    for mode in ("off", "on", "on", "off"):
         port = int(urls[mode].rsplit(":", 1)[1])
         runs[mode].append(_load_result(*_http_load(
             port, CONTROL_CLIENTS, REPLAY_COST_PER,
@@ -5579,7 +5611,7 @@ def _replay_capture_cost(torch, dev, work: Path, card: str, cost) -> dict:
                   max(r["rps"] for r in runs[m])) for m in runs}
     print(f"[replay] capture cost (humanoid-sim /act through the serve CLI, "
           f"2 replicas, trace rate 1.0, {CONTROL_CLIENTS} clients x "
-          f"{REPLAY_COST_PER}, runs off, on, on, off, off, on): off "
+          f"{REPLAY_COST_PER}, runs off, on, on, off): off "
           f"[{fmt('off')}], on [{fmt('on')}]; median {med['off']:.1f} -> "
           f"{med['on']:.1f} req/s ({(med['on'] / med['off'] - 1) * 100:+.2f}"
           f"%), spread off {spread['off'][0]:.1f}-{spread['off'][1]:.1f}, on "
@@ -6046,6 +6078,417 @@ def phase_compat(torch, dev):
     return {k: v for k, v in launches.items() if v}
 
 
+# ---------------------------------------------------------------------------
+# [mesh] data and sequence parallelism (trpo_torch/parallel)
+# ---------------------------------------------------------------------------
+
+MESH_ROWS = 37_536         # the flagship's ¾ curvature subsample of 50,048
+MESH_DIMS = (376, 256, 256, 17)
+MESH_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_agent_mesh.py:52-54
+MESH_GAE = (392, 128)      # 391 steps are odd: seq=2 needs an even T
+MESH_COLLECTIVE_S = 300    # every collective's timeout in the children
+
+
+def _torchrun(n: int, *args) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(n), str(ROOT / "chip_smoke.py"),
+            *map(str, args)]
+
+
+def _mesh_problem(torch, dev, dtype=None):
+    """The flagship policy (seeded params) and leg 2's rows, drawn on the
+    host from seed 0 so every rank holds the same numbers."""
+    from trpo_torch.models.policy import BoxSpec, make_policy
+    from trpo_torch.ops.flat import flatten_params, tree_map
+    from trpo_torch.trpo import TRPOBatch
+
+    kw = {} if dtype is None else {"compute_dtype": dtype}
+    policy = make_policy((MESH_DIMS[0],), BoxSpec(MESH_DIMS[-1]),
+                         hidden=MESH_DIMS[1:-1], **kw)
+    gen = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: t.to(dev), policy.init(gen))
+    obs = torch.randn(MESH_ROWS, MESH_DIMS[0], generator=gen).to(dev)
+    n = flatten_params(params)[0].numel()
+    v = torch.randn(n, generator=gen).to(dev)
+    batch = TRPOBatch(obs, None, None, None,
+                      torch.ones(MESH_ROWS, device=dev))
+    return policy, params, batch, v
+
+
+def _rel(torch, a, b) -> float:
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def _event_ms(torch, fn, reps: int = 20) -> float:
+    """Milliseconds a call by CUDA events around ``reps`` calls, after two
+    warm-up calls (NaN off the card: a CPU rehearsal measures nothing)."""
+    if not torch.cuda.is_available():
+        return float("nan")
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class _PathCounts:
+    """Launches of the driven paths, apart from those made to compare a
+    kernel with its plain version or a mesh run with its one-rank run."""
+
+    def __init__(self):
+        from trpo_torch.ops import _build
+
+        self._build = _build
+        self.total: dict = {}
+        _build.reset_launches()
+
+    def path(self) -> dict:
+        got = {k: v for k, v in self._build.LAUNCHES.items() if v}
+        self.total = _add(self.total, got)
+        self._build.reset_launches()
+        return got
+
+    def skip(self) -> None:
+        self._build.reset_launches()
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_nccl_child(out: str, ck1: str, ck2: str, device: str) -> int:
+    """Leg 1's resume and comparison, and leg 2, in one rank of an NCCL
+    world of one (torchrun). ``device`` is ``cuda``; ``cpu`` rehearses the
+    child's control flow on gloo with the plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from trpo_torch import train
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import TRPOConfig, get_preset
+    from trpo_torch.ops.allreduce import all_sum
+    from trpo_torch.ops.cg import conjugate_gradient
+    from trpo_torch.ops.flat import flatten_params
+    from trpo_torch.ops.fused_fvp import make_fused_gaussian_mlp_fvp
+    from trpo_torch.parallel import make_mesh, make_sharded_fused_fvp
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    res, counts = {}, _PathCounts()
+    # leg 1: resume step 2 on the mesh for one iteration
+    for name in ("step_1", "step_2", "step_1.complete", "step_2.complete",
+                 ".markers_enabled"):
+        src = Path(ck1) / name
+        (shutil.copytree if src.is_dir() else shutil.copy)(src,
+                                                           Path(ck2) / name)
+    with contextlib.redirect_stdout(io.StringIO()):
+        res["resume_code"] = train.main([
+            "--preset", "humanoid-sim", "--device", device, "--mesh-shape",
+            "1", "--iterations", "1", "--checkpoint-dir", ck2,
+            "--checkpoint-every", "1", "--resume"])
+    res["resume_launches"] = counts.path()
+    res["backend"] = dist.get_backend()
+    cfg = get_preset("humanoid-sim")
+    tmpl_agent = TRPOAgent(cfg.env, cfg.replace(fvp_mode="ggn"), device=dev)
+    a, b = (Checkpointer(d).restore(tmpl_agent.init_state(), step=3,
+                                    prune=False) for d in (ck1, ck2))
+    res["resume_diff"] = _state_diff(torch, a, b)
+    mesh2 = Checkpointer(ck1).restore(tmpl_agent.init_state(), step=2,
+                                      prune=False)
+    want = flatten_params(mesh2.policy_params)[0]
+    counts.skip()
+    # the same seed without a mesh, on the mesh's operator (the meshless
+    # run on K1 differs from it by about 1e-8 on an H100: PERF.md)
+    st, _ = tmpl_agent.run_iterations(tmpl_agent.init_state(), 2)
+    got = flatten_params(st.policy_params)[0]
+    res["meshless_close"] = bool(torch.allclose(want, got, **MESH_TOL))
+    res["meshless_maxdiff"] = float((want - got).abs().max())
+    counts.skip()
+    # leg 2: the sharded fused FVP at the flagship shape, inside CG
+    mesh = make_mesh((1,), ("data",), device=dev)
+    group = mesh.group("data")
+    for dtype, key in ((None, "f32"), (torch.bfloat16, "bf16")):
+        policy, params, batch, v = _mesh_problem(torch, dev, dtype)
+        op = make_sharded_fused_fvp(policy, TRPOConfig(cg_damping=0.1),
+                                    mesh).operator(params, batch)
+        y = op(v)
+        x = conjugate_gradient(op, v, cg_iters=10, residual_tol=0.0).x
+        _sync(torch, dev)
+        res[f"leg2_{key}_launches"] = counts.path()
+        # K1 alone over every row, its damping added after it as the
+        # sharded operator adds it after the all-reduce
+        single = make_fused_gaussian_mlp_fvp(
+            params["net"], batch.obs, batch.weight, params["log_std"], 0.0,
+            compute_dtype=dtype or torch.float32)
+        k1 = lambda u: single.flat(u) + 0.1 * u.float()  # noqa: E731
+        y1 = k1(v)
+        x1 = conjugate_gradient(k1, v, cg_iters=10, residual_tol=0.0).x
+        res[f"leg2_{key}_fvp_rel"] = _rel(torch, y, y1)
+        res[f"leg2_{key}_cg_rel"] = _rel(torch, x, x1)
+        res[f"leg2_{key}_plain_rel"] = _rel(torch, y,
+                                            single.plain(v) + 0.1 * v)
+        res[f"leg2_{key}_ms"] = _event_ms(torch, lambda: op(v))
+        res[f"leg2_{key}_k1_ms"] = _event_ms(torch, lambda: single.flat(v))
+        counts.skip()
+    payload = torch.zeros(flatten_params(params)[0].numel() + 1, device=dev)
+    res["leg2_floats"] = payload.numel()
+    res["leg2_allreduce_us"] = 1e3 * _event_ms(
+        torch, lambda: all_sum(payload, group))
+    res["path_launches"] = counts.total
+    Path(out).write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_gloo_child(out_prefix: str, device: str) -> int:
+    """Leg 3 in one of two ranks sharing the one card over gloo: NCCL
+    refuses two ranks on one device (``device="cpu"`` rehearses it)."""
+    import torch
+    import torch.distributed as dist
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import TRPOConfig, get_preset
+    from trpo_torch.ops.flat import flatten_params
+    from trpo_torch.ops.fused_fvp import make_fused_gaussian_mlp_fvp
+    from trpo_torch.ops.returns import gae_from_next_values
+    from trpo_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        make_sharded_fused_fvp,
+        seq_sharded_gae,
+        shard_batch,
+    )
+    from trpo_torch.population import Population
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(backend="gloo", timeout=MESH_COLLECTIVE_S)
+    rank = dist.get_rank()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    res, counts = {"backend": dist.get_backend()}, _PathCounts()
+    mesh = make_mesh((2,), ("data",), device=dev)
+    # the fused FVP over two halves of leg 2's rows
+    policy, params, batch, v = _mesh_problem(torch, dev)
+    y = make_sharded_fused_fvp(policy, TRPOConfig(cg_damping=0.1), mesh)(
+        params, shard_batch(mesh, batch), v)
+    _sync(torch, dev)
+    res["fvp_launches"] = counts.path()
+    if rank == 0:
+        y1 = make_fused_gaussian_mlp_fvp(
+            params["net"], batch.obs, batch.weight, params["log_std"],
+            0.0).flat(v) + 0.1 * v
+        res["fvp_rel"] = _rel(torch, y, y1)
+    counts.skip()
+    # the sequence-parallel GAE on K2 per rank
+    seq = make_mesh((2,), ("seq",), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    T, N = MESH_GAE
+    args = [torch.randn(T, N, generator=gen).to(dev) for _ in range(3)]
+    flags = [(torch.rand(T, N, generator=gen) < p).to(dev)
+             for p in (0.005, 0.01)]
+    term, done = flags[0], flags[0] | flags[1]
+    adv, vt = seq_sharded_gae(seq, args[0], args[1], args[2], term, done,
+                              0.99, 0.97)
+    _sync(torch, dev)
+    res["gae_launches"] = counts.path()
+    if rank == 0:
+        want, _ = gae_from_next_values(args[0], args[1], args[2], term,
+                                       done, 0.99, 0.97)
+        res["gae_err"] = float((adv - want).abs().max())
+        res["gae_scale"] = float(want.abs().max())
+    counts.skip()
+    # cartpole-fleet on a data×seq mesh, against its one-rank run
+    cfg = get_preset("cartpole-fleet")
+    agent = TRPOAgent(cfg.env, cfg.replace(mesh_shape=(1, 2),
+                                           mesh_axes=("data", "seq")),
+                      device=dev)
+    st, stats = agent.run_iterations(agent.init_state(), 2)
+    got = flatten_params(st.policy_params)[0]
+    res["fleet_launches"] = counts.path()
+    res["fleet_kl"] = [float(k) for k in stats["kl_old_new"]]
+    if rank == 0:
+        solo = TRPOAgent(cfg.env, cfg, device=dev)
+        s1, _ = solo.run_iterations(solo.init_state(), 2)
+        want = flatten_params(s1.policy_params)[0]
+        res["fleet_close"] = bool(torch.allclose(got, want, **MESH_TOL))
+        res["fleet_maxdiff"] = float((got - want).abs().max())
+        counts.skip()
+    # Population(mesh): four humanoid-sim members, two a rank
+    hcfg = get_preset("humanoid-sim")
+    pop = Population(TRPOAgent(hcfg.env, hcfg, device=dev), [0, 1, 2, 3],
+                     mesh=mesh)
+    pstats = pop.run_iteration()
+    _sync(torch, dev)
+    res["pop_launches"] = counts.path()
+    res["pop_reward"] = [float(r) for r in pstats["mean_episode_reward"]]
+    if rank == 0:
+        solo = TRPOAgent(hcfg.env, hcfg.replace(fvp_mode="ggn"), device=dev)
+        s1, _ = solo.run_iteration(solo.init_state(1))
+        res["pop_member1_diff"] = _state_diff(torch, pop.member_state(1), s1)
+        counts.skip()
+    res["path_launches"] = counts.total
+    Path(f"{out_prefix}.{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def _mesh_child(mode: str, argv: list) -> int:
+    """A ``[mesh]`` child, started by torchrun with this script."""
+    if mode == "train":
+        sys.argv = [sys.argv[0]] + argv[1:]
+        return _counted_child(argv[0])
+    if mode == "nccl":
+        return _mesh_nccl_child(*argv)
+    return _mesh_gloo_child(*argv)
+
+
+def phase_mesh(torch, dev):
+    """Data and sequence parallelism on the card, in child processes (the
+    parent never holds a process group): leg 1 the flagship through the
+    train CLI under torchrun on an NCCL world of one (3 iterations, a
+    checkpoint each), resumed from step 2 (bitwise the uninterrupted step
+    3), its step 2 against the meshless run; leg 2 the sharded fused FVP
+    at 37,536 x 376-256-256-17 inside a 10-iteration CG (f32 and bf16)
+    against K1 / K1-bf16 alone, with its all-reduce timed; leg 3 two ranks
+    on the one card over gloo: the FVP over two halves, the
+    sequence-parallel GAE on K2, cartpole-fleet on data x seq against one
+    rank, and Population(mesh) with member 1 bitwise its solo run. Returns
+    the children's path launches."""
+    card = _card_line()
+    work = WORK / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    ck1, ck2 = work / "ck1", work / "ck2"
+    ck2.mkdir()
+    total, secs = {}, {}
+
+    def start(tag, argv):
+        log = open(work / f"{tag}.log", "w")
+        return (tag, time.perf_counter(), log, subprocess.Popen(
+            argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            text=True))
+
+    def finish(started, timeout):
+        tag, t0, log, proc = started
+        try:
+            code = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        secs[tag] = time.perf_counter() - t0
+        out = (work / f"{tag}.log").read_text()
+        _check(code == 0, f"[mesh] {tag} exit {code}:\n{out[-3000:]}")
+        return out
+
+    # leg 3 (two ranks on the one card over gloo) runs beside leg 1's
+    # train child; leg 2's timings run alone after both
+    prefix = work / "gloo"
+    leg3 = start("leg3_gloo", _torchrun(2, "--mesh-child=gloo", prefix,
+                                        dev.type))
+    # leg 1: python -m trpo_torch.train under torchrun, NCCL world of one
+    counts_path = work / "train_counts.json"
+    try:
+        train_out = finish(start("leg1_train", _torchrun(
+            1, "--mesh-child=train", counts_path, "--preset", "humanoid-sim",
+            "--device", dev.type, "--mesh-shape", "1", "--iterations", "3",
+            "--checkpoint-dir", ck1, "--checkpoint-every", "1")), 300)
+    finally:
+        finish(leg3, 300)
+    rows = [ln for ln in train_out.splitlines() if ln.startswith("iter ")]
+    _check(len(rows) == 3, f"[mesh] leg 1: {len(rows)} rows")
+    train = {k: v for k, v in json.loads(counts_path.read_text())[
+        "launches"].items() if v}
+    _check(train == {"reverse_scan": 3}, f"[mesh] leg 1 launches {train} "
+           "(K2 once an iteration, K1 never: the GGN operator on a mesh)")
+    total = _add(total, train)
+    out = work / "nccl.json"
+    finish(start("leg1_resume_leg2", _torchrun(
+        1, "--mesh-child=nccl", out, ck1, ck2, dev.type)), 300)
+    r = json.loads(out.read_text())
+    _check(r["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
+           and r["resume_code"] == 0,
+           f"[mesh] resume child: {r['backend']}, exit {r['resume_code']}")
+    _check(r["resume_launches"] == {"reverse_scan": 1},
+           f"[mesh] resume launches {r['resume_launches']}")
+    _check(not r["resume_diff"], f"[mesh] resumed step 3 differs from the "
+           f"uninterrupted run: {r['resume_diff'][:4]}")
+    _check(r["meshless_close"], "[mesh] the mesh's step 2 against the "
+           f"meshless GGN run: max|diff| {r['meshless_maxdiff']:.3e}")
+    for key, bound in (("f32_fvp_rel", K1_RTOL), ("f32_cg_rel", K1_RTOL),
+                       ("f32_plain_rel", K1_RTOL),
+                       ("bf16_fvp_rel", K1_BF16_RTOL),
+                       ("bf16_plain_rel", K1_BF16_RTOL)):
+        _check(r[f"leg2_{key}"] < bound, f"[mesh] leg 2 {key} "
+               f"{r[f'leg2_{key}']:.3e} >= {bound}")
+    _check(r["leg2_f32_launches"] == {"fused_fvp": 11}
+           and r["leg2_bf16_launches"] == {"fused_fvp_bf16": 11},
+           f"[mesh] leg 2 launches {r['leg2_f32_launches']} "
+           f"{r['leg2_bf16_launches']}")
+    total = _add(total, r["path_launches"])
+    # leg 3's results
+    g = [json.loads((work / f"gloo.{i}.json").read_text()) for i in (0, 1)]
+    _check(all(x["backend"] == "gloo" for x in g), "[mesh] leg 3 backend")
+    _check(g[0]["fvp_rel"] < K1_RTOL, f"[mesh] leg 3 FVP halves: relative "
+           f"L2 {g[0]['fvp_rel']:.3e} to one K1 over every row")
+    _check(g[0]["gae_err"] <= K2_TOL * max(1.0, g[0]["gae_scale"]),
+           f"[mesh] leg 3 seq GAE: max err {g[0]['gae_err']:.3e}")
+    _check(g[0]["fleet_close"], "[mesh] leg 3 cartpole-fleet data x seq "
+           f"against one rank: max|diff| {g[0]['fleet_maxdiff']:.3e}")
+    _check(not g[0]["pop_member1_diff"], "[mesh] leg 3 population member 1 "
+           f"against its solo run: {g[0]['pop_member1_diff'][:4]}")
+    for x in g:
+        _check(x["fvp_launches"] == {"fused_fvp": 1}
+               and x["gae_launches"] == {"reverse_scan": 2}
+               and x["fleet_launches"] == {"reverse_scan": 4}
+               and x["pop_launches"] == {"reverse_scan": 2},
+               f"[mesh] leg 3 launches {x}")
+        total = _add(total, x["path_launches"])
+    print(f"[mesh] leg 1: torchrun --nproc_per_node 1 -m trpo_torch.train "
+          f"--preset humanoid-sim --mesh-shape 1 (NCCL, 3 iterations, "
+          f"{secs['leg1_train']:.1f} s): K2 {train.get('reverse_scan')}, K1 "
+          f"0 (the GGN operator on a mesh); resumed from step 2 bitwise the "
+          f"uninterrupted step 3; step 2 against the meshless run on the "
+          f"same operator max|diff| {r['meshless_maxdiff']:.3e} "
+          f"(rtol 1e-4/atol 1e-5) ({card})", flush=True)
+    print(f"[mesh] leg 2: make_sharded_fused_fvp at {MESH_ROWS} x "
+          f"{'-'.join(map(str, MESH_DIMS))}, NCCL world of one: f32 "
+          f"{r['leg2_f32_ms']:.4f} ms a call against K1 alone "
+          f"{r['leg2_f32_k1_ms']:.4f} ms, FVP rel L2 "
+          f"{r['leg2_f32_fvp_rel']:.2e}, 10-iteration CG rel L2 "
+          f"{r['leg2_f32_cg_rel']:.2e}; bf16 {r['leg2_bf16_ms']:.4f} ms "
+          f"against K1-bf16 {r['leg2_bf16_k1_ms']:.4f} ms, rel L2 "
+          f"{r['leg2_bf16_fvp_rel']:.2e} (plain bf16 "
+          f"{r['leg2_bf16_plain_rel']:.2e}); all-reduce of "
+          f"{r['leg2_floats']} floats {r['leg2_allreduce_us']:.1f} us "
+          f"({card})", flush=True)
+    print(f"[mesh] leg 3: two ranks on the one card over gloo (NCCL refuses "
+          f"two ranks on one device; collectives staged through host "
+          f"memory), beside leg 1, both done in "
+          f"{secs['leg3_gloo']:.1f} s: FVP over two halves rel L2 "
+          f"{g[0]['fvp_rel']:.2e} to one K1; seq GAE at {MESH_GAE} max err "
+          f"{g[0]['gae_err']:.2e}; cartpole-fleet on data x seq against "
+          f"one rank max|diff| {g[0]['fleet_maxdiff']:.3e}, KL "
+          f"{g[0]['fleet_kl']}; Population(mesh) member 1 bitwise its solo "
+          f"run, rewards {g[0]['pop_reward']} ({card})", flush=True)
+    print(f"[mesh] child seconds {json.dumps(secs)}; path launches {total}",
+          flush=True)
+    return total
+
+
 def phase_bench(torch):
     from trpo_torch import bench
 
@@ -6058,6 +6501,9 @@ def phase_bench(torch):
 
 
 def main() -> int:
+    child = [a for a in sys.argv[1:] if a.startswith("--mesh-child=")]
+    if child:
+        return _mesh_child(child[0].split("=", 1)[1], sys.argv[2:])
     import torch
 
     if not torch.cuda.is_available():
@@ -6117,6 +6563,7 @@ def main() -> int:
                 ("replay", lambda: phase_replay(torch, dev)),
                 ("flywheel", lambda: phase_flywheel(torch, dev)),
                 ("compat", lambda: phase_compat(torch, dev)),
+                ("mesh", lambda: phase_mesh(torch, dev)),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})

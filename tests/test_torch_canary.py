@@ -350,3 +350,36 @@ def test_session_stride_and_episode_booking():
     finally:
         router.close()
         rs.close()
+
+
+def test_reward_window_skips_an_episode_begun_before_its_reset():
+    """An episode straddling the gate's reset had actions answered by the
+    canary's previous step: it is booked (``episodes_total``) but never
+    judged in the fresh window; the next whole episode is."""
+    agent, state = port_agent("cartpole-po", policy_gru=8,
+                              serve_session_batch_shapes=(1, 4))
+    rs = make_set(lambda rid: rec_factory(agent, state.policy_params), 1)
+    router = Router(rs, port=0)
+    try:
+        status, out = post(router.url + "/session")
+        assert status == 200
+        sid, rid = out["session"], out["replica"]
+        obs = np.zeros(agent.obs_shape, np.float32).tolist()
+
+        def act(body):
+            status, out = post(router.url + f"/session/{sid}/act",
+                               {"obs": obs, **body})
+            assert status == 200, out
+
+        act({})
+        router.reset_replica_episodes()
+        act({"reward": 2.0})
+        act({"reward": 2.0, "done": True})
+        assert router.episodes_total == 1
+        assert router.replica_episode_returns(rid) == []
+        act({})
+        act({"reward": 0.5, "done": True})
+        assert router.replica_episode_returns(rid) == [0.5]
+    finally:
+        router.close()
+        rs.close()

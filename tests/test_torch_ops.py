@@ -186,9 +186,20 @@ def test_unported_paths_raise(override):
         finally:
             pool.close()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-        port_config.check_ported(cfg)
-    assert "item 16" in str(e.value)
+    # data and sequence parallelism run now (item 16.1): a "data" or
+    # ("data", "seq") mesh passes, and what is still refused — parameter
+    # axes and host-simulator envs on a mesh — names item 16.2
+    port_config.check_ported(cfg)
+    port_config.check_ported(port_config.TRPOConfig(
+        mesh_shape=(2, 2), mesh_axes=("data", "seq")))
+    for refused in ({"mesh_axes": ("data", "model")},
+                    {"mesh_axes": ("data", "expert")},
+                    {"mesh_axes": ("data",), "mesh_shape": (2,),
+                     "env": "gym:CartPole-v1"}):
+        kw = dict({"mesh_shape": (2, 2)}, **refused)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
+            port_config.check_ported(port_config.TRPOConfig(**kw))
+        assert "item 16.2" in str(e.value)
 
 
 @pytest.mark.parametrize(

@@ -199,18 +199,30 @@ def test_member_scores_match_reference(case):
         ref, {k: jnp.asarray(v) for k, v in stats.items()})
 
 
+class _FakeMesh:
+    """The mesh attributes Population reads before any collective."""
+
+    def __init__(self, n):
+        self.shape = {"data": n}
+
+
 @pytest.mark.parametrize("make, kw, error, match", [
     (lambda: _agent(), dict(seeds=[]), ValueError, "at least one seed"),
     (lambda: _agent(), dict(seeds=[0, 1], lam=[0.9]), ValueError,
      "parallel to seeds"),
-    (lambda: _agent(), dict(seeds=[0, 1], mesh=object()),
-     NotImplementedError, "item 16"),
+    # Population(mesh) runs now (item 16.1: tests/test_torch_agent_mesh.py
+    # steps one over two ranks); what it still refuses is the reference's
+    # divisibility error, and a mesh agent's parameter axes name item 16.2
+    (lambda: _agent(), dict(seeds=[0, 1, 2], mesh=_FakeMesh(2)),
+     ValueError, "must divide evenly over the data=2 mesh axis"),
     (lambda: _agent(n_envs=8, batch_timesteps=128, rollout_chunk=4,
                     train_overlap=1), dict(seeds=[0, 1]), ValueError,
      "train_overlap"),
     (lambda: TRPOAgent("native:cartpole", TRPOConfig(
         env="native:cartpole", n_envs=2, batch_timesteps=16), device="cpu"),
      dict(seeds=[0]), ValueError, "device env"),
+    (lambda: _agent(mesh_shape=(2, 2), mesh_axes=("data", "model")),
+     dict(seeds=[0, 1]), NotImplementedError, "item 16.2"),
 ])
 def test_population_validates_inputs(make, kw, error, match):
     with pytest.raises(error, match=match):

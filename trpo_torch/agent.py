@@ -71,12 +71,29 @@ injector.
 The agent runs on ``cuda`` unless the caller passes ``device="cpu"`` (as
 the tests do). With no device given and no CUDA available it raises; it
 never carries on quietly on the CPU.
+
+A mesh (``cfg.mesh_shape``/``cfg.mesh_axes``, ``parallel/``) runs one
+process per rank (``torchrun``), as the reference's agent runs its mesh
+in one program: the first axis splits the envs, so rank r of D steps
+envs ``[r·N/D, (r+1)·N/D)``, drawing the resets and the action noise of
+ALL N envs from the shared seeded generator and keeping its slice, so a
+mesh run equals the one-rank run to float tolerance; every batch
+reduction (advantage standardization, the update, the critic fit, the
+observation statistics, the episode stats) is an all-reduce over that
+axis, and the update takes the Gauss-Newton operator, as on the
+reference's mesh. A ``"seq"`` axis runs GAE sequence-parallel
+(``parallel/seq.py``): the ranks of one ``data`` coordinate roll out the
+same envs and each scans its block of time on K2. Only rank 0 writes rows,
+checkpoints (``utils/checkpoint.py`` gathers the carry) and telemetry;
+a preemption signal to any rank stops every rank at the same iteration
+boundary.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, NamedTuple, Optional
@@ -97,6 +114,7 @@ from trpo_torch.obs.device_metrics import (
     metrics_stats,
 )
 from trpo_torch.obs.trace import TraceContext, Tracer, mint_span_id
+from trpo_torch.ops.allreduce import all_gather_cat, all_max, all_sum
 from trpo_torch.ops.flat import tree_leaves, tree_map
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.ops.returns import gae_from_next_values
@@ -199,6 +217,13 @@ class TRPOAgent:
             # process-wide, as the reference's jax_debug_nans is
             torch.autograd.set_detect_anomaly(True)
         self.n_envs = cfg.resolved_n_envs()
+        # steps per env per iteration, so T·N ≥ batch_timesteps
+        self.n_steps = max(1, -(-cfg.batch_timesteps // self.n_envs))
+        self.mesh = None
+        self._group = self._seq_group = None
+        self._dp, self._dp_rank = 1, 0
+        if cfg.mesh_shape is not None:
+            self._setup_mesh()
         if isinstance(env, str):
             kwargs = {}
             if env.startswith(envs_lib.HOST_PREFIXES):
@@ -237,6 +262,17 @@ class TRPOAgent:
                 backoff_base=cfg.worker_backoff))
         self.env = env
         self.is_device_env = envs_lib.is_device_env(env)
+        if self.mesh is not None and not self.is_device_env:
+            raise NotImplementedError(
+                "a host-simulator env on a mesh is not ported to trpo_torch "
+                "yet (ROADMAP.md Queue 1 item 16.2); drop mesh_shape")
+        # the rollout's env: on a mesh, resets draw every rank's envs from
+        # the shared generator and keep this rank's slice
+        self._roll_env = env
+        if self.mesh is not None:
+            from trpo_torch.parallel.sharded import LocalSliceEnv
+
+            self._roll_env = LocalSliceEnv(env, self._dp_rank, self._dp)
         self._overlap = bool(cfg.train_overlap)
         if self._overlap and not self.is_device_env:
             raise ValueError(
@@ -294,7 +330,16 @@ class TRPOAgent:
             train_steps=cfg.vf_train_steps,
             compute_dtype=compute_dtype,
         )
-        self.trpo_update = make_trpo_update(self.policy, cfg)
+        # on a mesh the update's batch reductions are all-reduced over the
+        # batch axis, and the operator is the Gauss-Newton one, for parity
+        # with the reference's mesh (whose GSPMD partitioner cannot split
+        # the fused kernel). A mesh run therefore launches no K1:
+        # parallel/sharded.py's make_sharded_fused_fvp, which runs K1 on
+        # each rank's rows, is not on the training path
+        self.trpo_update = (
+            make_trpo_update(self.policy, cfg) if self.mesh is None
+            else make_trpo_update(self.policy, cfg, group=self._group,
+                                  allow_fused=False))
         if self._overlap:
             # the update split at the solve → line-search seam, so the
             # learner's stage times are real
@@ -305,11 +350,61 @@ class TRPOAgent:
             and cfg.precond_refresh_every > 1
         )
         self._ladder_stateful = ladder_stateful(cfg)
-        # steps per env per iteration, so T·N ≥ batch_timesteps
-        self.n_steps = max(1, -(-cfg.batch_timesteps // self.n_envs))
         self._check_host_options()
         self._host_act_fn = self._host_eval_act_fn = None
         self._host_env_reset_pending = False
+
+    def _setup_mesh(self) -> None:
+        """The reference's mesh validation (``trpo_tpu/agent.py``), made
+        on the config before any process group exists, then the mesh:
+        ``self.n_envs`` becomes this rank's share of the envs."""
+        cfg = self.cfg
+        from trpo_torch.parallel.mesh import check_shape, make_mesh
+
+        axes = tuple(cfg.mesh_axes)
+        shape = check_shape(cfg.mesh_shape, axes)
+        if axes[0] in ("seq", "model", "expert"):
+            raise ValueError(
+                "mesh_axes[0] is the batch/env axis and cannot be named "
+                f'"{axes[0]}"; put the {axes[0]!r} axis second, e.g. '
+                f'mesh_axes=("data", "{axes[0]}")')
+        dp = shape[0]
+        if self.n_envs % dp != 0:
+            raise ValueError(
+                f"n_envs={self.n_envs} must divide evenly over the "
+                f"{axes[0]}={dp} mesh axis")
+        param_axes = [ax for ax in ("model", "expert") if ax in axes[1:]]
+        if len(param_axes) > 1:
+            raise ValueError(
+                'mesh axes "model" and "expert" do not compose in one '
+                "mesh — pick one parameter-sharding axis")
+        if param_axes:
+            raise NotImplementedError(
+                f'a "{param_axes[0]}" mesh axis (parameter sharding) is not '
+                "ported to trpo_torch yet (ROADMAP.md Queue 1 item 16.2)")
+        if "seq" in axes[1:]:
+            sp = shape[axes.index("seq")]
+            if self.n_steps % sp != 0:
+                raise ValueError(
+                    f"steps per iteration ({self.n_steps} = "
+                    f"ceil(batch_timesteps/n_envs)) must divide evenly "
+                    f"over the seq={sp} mesh axis")
+        self.mesh = make_mesh(shape, axes, device=self.device)
+        self.device = self.mesh.device
+        self._group = self.mesh.group(axes[0])
+        self._dp, self._dp_rank = dp, self.mesh.coordinate(axes[0])
+        if "seq" in axes[1:]:
+            self._seq_group = self.mesh.group("seq")
+        self.n_envs //= dp
+
+    def _sampling_policy(self, policy):
+        """``policy`` for the rollout: on a mesh its samples draw the noise
+        of every rank's envs and keep this rank's slice."""
+        if self.mesh is None:
+            return policy
+        from trpo_torch.parallel.sharded import global_draw_policy
+
+        return global_draw_policy(policy, self._dp_rank, self._dp)
 
     def _check_host_options(self) -> None:
         """The reference's construction-time checks of the host options."""
@@ -367,7 +462,7 @@ class TRPOAgent:
         rng = torch.Generator(device=self.device).manual_seed(seed + 2)
         policy_params = _to(self.policy.init(g_policy), self.device)
         if self.is_device_env:
-            env_carry = init_env_states(self.env, self.n_envs, rng,
+            env_carry = init_env_states(self._roll_env, self.n_envs, rng,
                                         policy=self.policy)
         elif self.is_recurrent:
             # the env lives in the adapter; the policy's memory is ours
@@ -477,9 +572,24 @@ class TRPOAgent:
         with torch.no_grad():
             values = self.vf.predict(vf_state, vf_in).reshape(T, N)
             next_values = self.vf.predict(vf_state, vf_next_in).reshape(T, N)
+        lam = self.cfg.lam if lam is None else lam
+        if self._seq_group is not None:
+            # sequence-parallel GAE: this rank scans its block of time on
+            # K2, the blocks exchange their summaries, and the window is
+            # gathered back over the seq axis
+            from trpo_torch.parallel.seq import make_seq_gae
+
+            sp, s = self.mesh.shape["seq"], self.mesh.coordinate("seq")
+            k = T // sp
+            blk = lambda x: x[s * k:(s + 1) * k].contiguous()  # noqa: E731
+            adv, vtarg = make_seq_gae(self.mesh, self.cfg.gamma, lam)(
+                blk(traj.rewards), blk(values), blk(next_values),
+                blk(traj.terminated), blk(traj.done))
+            return (all_gather_cat(adv, self._seq_group),
+                    all_gather_cat(vtarg, self._seq_group), values)
         adv, vtarg = gae_from_next_values(
             traj.rewards, values, next_values, traj.terminated, traj.done,
-            self.cfg.gamma, self.cfg.lam if lam is None else lam,
+            self.cfg.gamma, lam,
         )
         return adv, vtarg, values
 
@@ -510,7 +620,8 @@ class TRPOAgent:
             # the statistics the rollout used, so the replayed
             # distributions match old_dist; the raw observations are
             # folded in afterwards, for the next iteration
-            new_obs_norm = update_stats(train_state.obs_norm, flat(traj.obs))
+            new_obs_norm = update_stats(train_state.obs_norm, flat(traj.obs),
+                                        self._group)
             traj = traj._replace(obs=normalize(roll_stats, traj.obs),
                                  next_obs=normalize(roll_stats,
                                                     traj.next_obs))
@@ -521,7 +632,7 @@ class TRPOAgent:
         weight = torch.ones(T * N, device=adv.device)
         adv_flat = flat(adv)
         if cfg.standardize_advantages:
-            adv_flat = standardize_advantages(adv_flat, weight)
+            adv_flat = standardize_advantages(adv_flat, weight, self._group)
         vf_in, _ = self._vf_features(traj)
         if self.is_recurrent:
             # the window keeps its (T, N) axes: the policy replays it
@@ -541,6 +652,14 @@ class TRPOAgent:
                 old_dist=tree_map(flat, traj.old_dist),
                 weight=weight,
             )
+        if self.mesh is not None:
+            # the rows' indices in the one-rank batch (t·N + env), so the
+            # curvature subsample keeps the one-rank run's rows
+            n_all = N * self._dp
+            cols = self._dp_rank * N + torch.arange(N)
+            batch = batch._replace(
+                row_ids=cols if self.is_recurrent
+                else (torch.arange(T)[:, None] * n_all + cols).reshape(-1))
         if stale:
             with torch.no_grad():
                 anchor = self.policy.apply(train_state.policy_params,
@@ -553,7 +672,8 @@ class TRPOAgent:
                 is_weight=torch.exp(logp_anchor - logp_behavior))
 
         done_f = traj.done.float()
-        n_episodes = traj.done.sum()
+        g = self._group
+        n_episodes = all_sum(traj.done.sum(), g)
         ep_denom = torch.clamp(n_episodes, min=1)
         no_eps = n_episodes == 0
         nan = torch.full((), float("nan"), device=adv.device)
@@ -566,10 +686,12 @@ class TRPOAgent:
             "n_episodes": n_episodes,
             "mean_episode_reward": torch.where(
                 no_eps, nan,
-                torch.sum(traj.episode_return * done_f) / ep_denom),
+                all_sum(torch.sum(traj.episode_return * done_f), g)
+                / ep_denom),
             "mean_episode_length": torch.where(
                 no_eps, nan,
-                torch.sum(traj.episode_length.float() * done_f) / ep_denom),
+                all_sum(torch.sum(traj.episode_length.float() * done_f), g)
+                / ep_denom),
         }
         return batch, aux
 
@@ -584,7 +706,7 @@ class TRPOAgent:
             policy_params=new_policy_params,
             iteration=train_state.iteration + 1,
             total_episodes=train_state.total_episodes + aux["n_episodes"],
-            total_timesteps=train_state.total_timesteps + T_N,
+            total_timesteps=train_state.total_timesteps + T_N * self._dp,
             precond=trpo_stats.precond_next
             if trpo_stats.precond_next is not None
             else train_state.precond,
@@ -634,7 +756,7 @@ class TRPOAgent:
         s = fit_pack["trpo_stats"]
         new_vf_state, vf_loss = self.vf.fit(
             vf_state, fit_pack["vf_in"], fit_pack["vtarg"],
-            fit_pack["weight"],
+            fit_pack["weight"], group=self._group,
         )
         self._check_finite("critic fit", new_vf_state)
         stats = {
@@ -642,7 +764,8 @@ class TRPOAgent:
             "mean_episode_reward": fit_pack["mean_episode_reward"],
             "entropy": s.entropy,
             "vf_explained_variance": explained_variance(
-                fit_pack["values"], fit_pack["vtarg"], fit_pack["weight"]
+                fit_pack["values"], fit_pack["vtarg"], fit_pack["weight"],
+                self._group,
             ),
             "kl_old_new": s.kl,
             "surrogate_loss": s.surrogate_after,
@@ -696,7 +819,8 @@ class TRPOAgent:
             train_state, traj = self._host_collect(train_state)
             return self._process_trajectory(train_state, traj, lam)
         new_carry, traj = device_rollout(
-            self.env, self._normed_policy(train_state.obs_norm),
+            self._roll_env,
+            self._sampling_policy(self._normed_policy(train_state.obs_norm)),
             train_state.policy_params, train_state.env_carry,
             train_state.rng, self.n_steps, chunk=self.cfg.rollout_chunk,
         )
@@ -1048,10 +1172,23 @@ class TRPOAgent:
         monitor marked steady after two iterations, the profiler window,
         and the phase summaries at the end (in a ``finally``, so a
         raising run still closes its profiler window). ``learn`` drives
-        its lifecycle; the creator closes it."""
+        its lifecycle; the creator closes it.
+
+        On a mesh every rank calls ``learn``: rank 0 alone logs rows (the
+        others log to nowhere), drives ``telemetry`` and writes through
+        ``checkpointer``, which is given the mesh so that it saves the
+        gathered global state; a preemption signal on any rank stops every
+        rank at the same chunk boundary."""
         cfg = self.cfg
         n_iterations = n_iterations or cfg.n_iterations
         state = self.init_state() if state is None else state
+        quiet = None
+        if self.mesh is not None:
+            if checkpointer is not None and checkpointer.mesh is None:
+                checkpointer.mesh = self.mesh
+            if not self.mesh.is_writer:
+                quiet = open(os.devnull, "w")
+                logger, telemetry = StatsLogger(stream=quiet), None
         own_logger = logger is None
         logger = logger or StatsLogger(jsonl_path=cfg.log_jsonl)
         timer = PhaseTimer(use_profiler=telemetry is not None
@@ -1107,6 +1244,8 @@ class TRPOAgent:
             with guard:
                 done = 0
                 while done < n_iterations:
+                    if self.mesh is not None:
+                        self._agree_preempt(guard)
                     if guard.triggered:
                         # every finished chunk's rows are processed, so
                         # the state is clean to persist
@@ -1180,7 +1319,22 @@ class TRPOAgent:
                 telemetry.finish_run(timer)
             if own_logger:
                 logger.close()
+            if quiet is not None:
+                quiet.close()
         return state
+
+    def _agree_preempt(self, guard) -> None:
+        """One all-reduce MAX over every rank of the preemption flag (and
+        its signal number): a signal to any rank triggers every rank's
+        guard at the same chunk boundary."""
+        import torch.distributed as dist
+
+        flag = all_max(torch.tensor([int(guard.triggered),
+                                     int(guard.signum or 0)],
+                                    device=self.device),
+                       dist.group.WORLD)
+        if flag[0] and not guard.triggered:
+            guard.triggered, guard.signum = True, int(flag[1])
 
     @staticmethod
     def _warn_unfired_faults(injector, bus) -> None:

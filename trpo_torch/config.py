@@ -7,18 +7,19 @@ configuration round-trips, the telemetry fields (``status_port``,
 ``memory_accounting``, ``trace_sample_rate``, ``debug_nans``), the
 supervised worker pool's (``env_step_timeout``, ``max_worker_restarts``,
 ``min_env_workers``, ``worker_backoff``) and ``inject_faults``, parsed at
-construction. ``mesh_axes`` (ROADMAP.md Queue 1 item 16) is left out until
-that layer is ported.
+construction, and the mesh fields ``mesh_shape``/``mesh_axes``: data
+parallelism over a ``"data"`` axis and sequence parallelism over a
+``"seq"`` axis (``parallel/``), one process per rank.
 
 Differences from the reference:
 
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* A path that is not ported yet (``mesh_shape``) raises
-  ``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it
-  (:func:`check_ported`). They are
-  never silently ignored. The check runs where a path would be taken (agent
+* A path that is not ported yet raises ``NotImplementedError`` naming the
+  ``ROADMAP.md`` item that ports it (:func:`check_ported`): a ``"model"``
+  or ``"expert"`` mesh axis (parameter sharding) and a host-simulator env
+  on a mesh, both item 16.2. They are never silently ignored. The check runs where a path would be taken (agent
   and update construction), not in ``__post_init__``, so every preset
   copied from the reference stays constructible.
 * ``debug_nans`` cannot set ``jax_debug_nans``. Its counterpart turns on
@@ -190,7 +191,10 @@ class TRPOConfig:
     #                                the group finishes (value-identical)
     host_inference: str = "device"  # host envs: where the rollout's policy
     #                                runs: "device" (the agent's), or "cpu"
-    mesh_shape: Optional[Tuple[int, ...]] = None  # not ported (item 16)
+    mesh_shape: Optional[Tuple[int, ...]] = None  # None → one rank, no
+    #                                mesh; e.g. (2,) for data parallelism
+    #                                over two ranks (torchrun)
+    mesh_axes: Tuple[str, ...] = ("data",)
     debug_nans: bool = False       # anomaly detection and a finite check of
     #                                every stage's outputs (module
     #                                docstring); a debug mode
@@ -592,8 +596,17 @@ def _not_ported(what: str, item: str):
 def check_ported(cfg: TRPOConfig) -> None:
     """Raise ``NotImplementedError`` for every configured path the port
     does not run yet, naming the ROADMAP item that ports it."""
-    if cfg.mesh_shape is not None:
-        _not_ported("mesh_shape", "item 16")
+    if cfg.mesh_shape is None:
+        return
+    for axis in ("model", "expert"):
+        if axis in tuple(cfg.mesh_axes):
+            _not_ported(f'a "{axis}" mesh axis (parameter sharding)',
+                        "item 16.2")
+    from trpo_torch.envs import HOST_PREFIXES
+
+    if str(cfg.env).startswith(HOST_PREFIXES):
+        _not_ported(f"a host-simulator env ({cfg.env!r}) on a mesh",
+                    "item 16.2")
 
 
 # ---------------------------------------------------------------------------

@@ -49,11 +49,18 @@ class Categorical:
         from ``generator``."""
         logits = params["logits"]
         if noise is None:
-            u = torch.rand(logits.shape, generator=generator,
-                           device=logits.device, dtype=logits.dtype)
-            u = torch.clamp(u, min=torch.finfo(logits.dtype).tiny)
-            noise = -torch.log(-torch.log(u))
+            noise = Categorical.draw_noise(logits.shape, generator,
+                                           logits.device, logits.dtype)
         return torch.argmax(logits + noise, dim=-1)
+
+    @staticmethod
+    def draw_noise(shape, generator, device, dtype):
+        """The standard Gumbel draws :meth:`sample` takes from
+        ``generator`` for logits of ``shape``."""
+        u = torch.rand(shape, generator=generator, device=device,
+                       dtype=dtype)
+        u = torch.clamp(u, min=torch.finfo(dtype).tiny)
+        return -torch.log(-torch.log(u))
 
     @staticmethod
     def mode(params):
@@ -101,11 +108,16 @@ class DiagGaussian:
         from ``generator``."""
         mean, log_std = params["mean"], params["log_std"]
         if noise is None:
-            noise = torch.randn(
-                mean.shape, generator=generator, device=mean.device,
-                dtype=mean.dtype,
-            )
+            noise = DiagGaussian.draw_noise(mean.shape, generator,
+                                            mean.device, mean.dtype)
         return mean + torch.exp(log_std) * noise
+
+    @staticmethod
+    def draw_noise(shape, generator, device, dtype):
+        """The standard normals :meth:`sample` takes from ``generator``
+        for a mean of ``shape``."""
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=dtype)
 
     @staticmethod
     def fisher_weight(params0, tangent):

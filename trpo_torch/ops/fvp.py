@@ -12,7 +12,10 @@ same Fisher as the Hessian of ``KL(stop_grad(π_θ) ‖ π_x)`` at ``x = θ``,
 applied as ``torch.func.jvp`` over ``torch.func.grad`` of that KL (forward
 over reverse), on a flat vector or on a params tree.
 :func:`materialize_fisher` is the dense Hessian, for tests on tiny nets.
-Every operator's output is f32, with the damping added in f32.
+Every operator's output is f32, with the damping added in f32. With a
+``group`` (data parallelism, ``parallel/sharded.py``) the product is this
+rank's share of the global mean, summed over the group before the damping
+is added.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Callable
 import torch
 import torch.func
 
+from trpo_torch.ops.allreduce import all_sum, weight_total
 from trpo_torch.ops.flat import tree_map
 
 __all__ = ["make_fvp", "make_ggn_fvp", "make_tree_fvp", "materialize_fisher"]
@@ -29,16 +33,16 @@ __all__ = ["make_fvp", "make_ggn_fvp", "make_tree_fvp", "materialize_fisher"]
 
 def make_fvp(kl_fn: Callable[[torch.Tensor], torch.Tensor],
              flat_params: torch.Tensor,
-             damping=0.0) -> Callable[[torch.Tensor], torch.Tensor]:
+             damping=0.0, group=None) -> Callable[[torch.Tensor], torch.Tensor]:
     """``v ↦ (F + λI)v`` at ``flat_params``, where ``kl_fn(flat)`` is the
     mean KL(stop_grad(π_θ) ‖ π_flat) over the batch (its Hessian at θ is
-    the Fisher)."""
+    the Fisher); with ``group``, this rank's share of that mean."""
     grad_kl = torch.func.grad(kl_fn)
     x0 = flat_params.detach()
 
     def fvp(v: torch.Tensor) -> torch.Tensor:
         _, hv = torch.func.jvp(grad_kl, (x0,), (v,))
-        return hv.float() + damping * v
+        return all_sum(hv.float(), group) + damping * v
 
     return fvp
 
@@ -69,23 +73,24 @@ def make_ggn_fvp(
     x0: torch.Tensor,
     weight: torch.Tensor,
     damping: float = 0.0,
+    group=None,
 ) -> Callable[[torch.Tensor], torch.Tensor]:
     """``v ↦ (F + λI)v`` at ``x0``.
 
     ``apply_fn(x) -> dist params`` closes over the batch obs; ``weight`` is
-    the per-sample weight column (normalized to a weighted mean here). The
-    primal forward and the pullback are built once; each call runs one
-    tangent forward and one pullback."""
+    the per-sample weight column (normalized to a weighted mean here, over
+    every rank of ``group``). The primal forward and the pullback are built
+    once; each call runs one tangent forward and one pullback."""
     x0 = x0.detach()
     d0, pullback = torch.func.vjp(apply_fn, x0)
     d0 = tree_map(torch.Tensor.detach, d0)
-    w_norm = weight / torch.clamp(weight.sum(), min=1.0)
+    w_norm = weight / weight_total(weight, group)
 
     def fvp(v: torch.Tensor) -> torch.Tensor:
         _, d = torch.func.jvp(apply_fn, (x0,), (v,))
         m = fisher_weight(d0, d)
         m = tree_map(lambda t: t.float() * w_norm.unsqueeze(-1), m)
         (hv,) = pullback(m)
-        return hv.float() + damping * v
+        return all_sum(hv.float(), group) + damping * v
 
     return fvp

@@ -26,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from trpo_torch.ops.allreduce import all_sum, weight_total
 from trpo_torch.ops.flat import tree_leaves, tree_map
 
 __all__ = [
@@ -47,14 +48,16 @@ class PrecondState(NamedTuple):
 
 
 def gaussian_head_gram(torso_apply: Callable, net_params: Any,
-                       obs: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+                       obs: torch.Tensor, weight: torch.Tensor,
+                       group=None) -> torch.Tensor:
     """``S̃ = h̃ᵀ diag(wₙ) h̃`` over ``h̃ = [h, 1]``, (H+1, H+1) f32, where
-    ``torso_apply(net_params, obs)`` returns the last hidden activation."""
+    ``torso_apply(net_params, obs)`` returns the last hidden activation;
+    summed over the ranks of ``group`` (data parallelism)."""
     h = torso_apply(net_params, obs).float()
     w = weight.reshape(-1).float()
-    wn = w / torch.clamp(w.sum(), min=1.0)
+    wn = w / weight_total(w, group)
     h1 = torch.cat([h, torch.ones_like(h[:, :1])], dim=1)
-    return (h1 * wn[:, None]).T @ h1
+    return all_sum((h1 * wn[:, None]).T @ h1, group)
 
 
 def head_gram_eigh(S: torch.Tensor):
@@ -74,11 +77,12 @@ def init_gaussian_head_precond(params) -> PrecondState:
     )
 
 
-def apply_gaussian_head_block_inv(s_eig, U, weight, log_std, damping):
+def apply_gaussian_head_block_inv(s_eig, U, weight, log_std, damping,
+                                  group=None):
     """The tree map ``r ↦ M⁻¹r`` over ``{"net", "log_std"}`` for the
     (possibly stale) factors and the CURRENT log-std and damping."""
     w = weight.reshape(-1).float()
-    wn_sum = (w / torch.clamp(w.sum(), min=1.0)).sum()
+    wn_sum = all_sum((w / weight_total(w, group)).sum(), group)
     m = torch.exp(-2.0 * log_std.float())
     denom = torch.clamp(s_eig[:, None] * m[None, :] + damping, min=1e-12)
     sigma_denom = torch.clamp(2.0 * wn_sum + damping, min=1e-12)

@@ -22,6 +22,18 @@ those of :meth:`Population.run_iterations` on ``(member, n)``.
 
 ``lam`` gives each member its own GAE-λ: the hyperparameter axis of a
 sweep.
+
+``Population(agent, seeds, mesh=m, axis="data")`` splits the member axis
+over the ranks of ``m``'s ``axis`` (one process per rank, ``parallel/``),
+as the reference shards its stacked state: rank r steps members
+``[r·K, (r+1)·K)`` of ``K = N/D``, and every stat is all-gathered, so
+:meth:`member_scores`, :meth:`best_member` and a caller's selection read
+the whole population on every rank. Members on a mesh take the
+Gauss-Newton operator, the reference's rule for population members
+(``trpo_tpu/population.py``); a member's update is its own, with no
+collective, so member *i* is bitwise a solo ``fvp_mode="ggn"`` run of seed
+*i*, and the meshless population of the same agent when the operator is
+the GGN there too.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ from typing import Optional, Sequence
 import torch
 
 from trpo_torch.agent import TRPOAgent, TrainState
+from trpo_torch.ops.allreduce import all_gather_cat
 
 __all__ = ["Population"]
 
@@ -60,19 +73,36 @@ class Population:
                 f"lam must be parallel to seeds: {len(lam)} λ values for "
                 f"{len(seeds)} members"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                f"Population(mesh=..., axis={axis!r}) shards the member "
-                "axis over a mesh, which is not ported to trpo_torch yet "
-                "(ROADMAP.md Queue 1 item 16); drop mesh to step the "
-                "members on one device"
+        if mesh is not None and len(seeds) % mesh.shape[axis] != 0:
+            raise ValueError(
+                f"population size {len(seeds)} must divide evenly over the "
+                f"{axis}={mesh.shape[axis]} mesh axis"
             )
-        self.agent = agent
         self.seeds = tuple(int(s) for s in seeds)
+        self.mesh = mesh
+        self._group = None
+        self._members = range(len(self.seeds))
+        if mesh is not None:
+            import copy
+
+            from trpo_torch.trpo import make_trpo_update
+
+            # a shallow clone with the GGN update: the caller's agent keeps
+            # its own (possibly fused) one
+            agent = copy.copy(agent)
+            agent.trpo_update = make_trpo_update(agent.policy, agent.cfg,
+                                                 allow_fused=False)
+            k = len(self.seeds) // mesh.shape[axis]
+            r = mesh.coordinate(axis)
+            self._members = range(r * k, (r + 1) * k)
+            self._group = mesh.group(axis)
+        self.agent = agent
         # Python floats, as cfg.lam: a member whose λ equals cfg.lam runs
         # the plain iteration bit for bit
         self.lam = None if lam is None else tuple(float(x) for x in lam)
-        self.states = [agent.init_state(s) for s in self.seeds]
+        # this rank's members (every member without a mesh)
+        self.states = {i: agent.init_state(self.seeds[i])
+                       for i in self._members}
 
     @property
     def size(self) -> int:
@@ -80,13 +110,17 @@ class Population:
 
     def run_iteration(self) -> dict:
         """Advance every member one training iteration; returns the stats
-        with a leading member axis."""
+        with a leading member axis (every member's, on every rank)."""
         rows = []
-        for i, state in enumerate(self.states):
+        for i in self._members:
             lam = None if self.lam is None else self.lam[i]
-            self.states[i], stats = self.agent.run_iteration(state, lam=lam)
+            self.states[i], stats = self.agent.run_iteration(self.states[i],
+                                                             lam=lam)
             rows.append(stats)
-        return _stack(rows, self.agent.device)
+        stacked = _stack(rows, self.agent.device)
+        if self._group is None:
+            return stacked
+        return {k: all_gather_cat(v, self._group) for k, v in stacked.items()}
 
     def run(self, n_iterations: int) -> list:
         """``n_iterations`` lockstep iterations; a list of per-iteration
@@ -103,7 +137,12 @@ class Population:
                 for k in steps[0]}
 
     def member_state(self, i: int) -> TrainState:
-        """One member's ``TrainState`` (e.g. the selection winner)."""
+        """One member's ``TrainState`` (e.g. the selection winner); on a
+        mesh, one of this rank's members."""
+        if i not in self.states:
+            raise ValueError(
+                f"member {i} is stepped by another rank (this rank holds "
+                f"members {list(self._members)})")
         return self.states[i]
 
     def member_scores(self, stats) -> torch.Tensor:

@@ -376,7 +376,11 @@ def main(argv=None) -> int:
             f"kept serving step 1; t={mark('corrupted'):.1f} s"
         )
 
-        # every replica still serves the incumbent, healthy
+        # every replica still serves the incumbent, healthy. A replica's
+        # state is its last health poll's (every 0.2 s): one taken during
+        # the canary's failed reload reads "reloading" until the next, so
+        # the check waits a bounded few polls for the current state
+        assert rs.wait_healthy(2, timeout=5.0), rs.snapshot()
         snap = rs.snapshot()
         assert snap["healthy"] == 2, snap
         assert all(

@@ -116,7 +116,7 @@ def _body(obj) -> bytes:
 class _Affinity:
     __slots__ = (
         "replica", "host", "last_used", "seq", "acts", "lock",
-        "pending_resumed_steps", "ep_return", "ep_steps",
+        "pending_resumed_steps", "ep_return", "ep_steps", "ep_t0",
     )
 
     def __init__(self, replica: str, now: float, host: str = "local"):
@@ -138,6 +138,9 @@ class _Affinity:
         # here; `done: true` books the episode against the replica
         self.ep_return = 0.0
         self.ep_steps = 0
+        # perf_counter when the episode's first act was stamped for
+        # dispatch: every action its rewards judge was sent after it
+        self.ep_t0 = None
 
 
 class Router:
@@ -269,8 +272,11 @@ class Router:
         # same period, counting only requests dispatched after its reset
         self._replica_lats: Dict[str, deque] = {}
         self._replica_cut = 0.0  # perf_counter of the last reset
-        # per-replica completed-episode returns (the reward gate's feed)
+        # per-replica completed-episode (first dispatch, return) pairs
+        # (the reward gate's feed), counting only episodes begun after
+        # its reset
         self._replica_eps: Dict[str, deque] = {}
+        self._eps_cut = float("-inf")
         self.episodes_total = 0
         # recent stateless request bodies, mirrored by the canary
         # gate's action-parity sample (real traffic, not synthetic obs)
@@ -1271,16 +1277,22 @@ class Router:
             self._replica_cut = time.perf_counter()
 
     def replica_episode_returns(self, replica_id: str) -> list:
-        """Completed-episode returns booked against one replica since
-        the last reset — the reward gate's window."""
+        """Completed-episode returns booked against one replica whose
+        first act was dispatched after the last reset — the reward gate's
+        window."""
         with self._lat_lock:
             win = self._replica_eps.get(replica_id)
-            return list(win) if win is not None else []
+            cut = self._eps_cut
+            return ([r for t0, r in win if t0 >= cut]
+                    if win is not None else [])
 
     def reset_replica_episodes(self) -> None:
-        """Start a fresh realized-return window (gate start)."""
+        """Start a fresh realized-return window (gate start): an episode
+        begun before it (some of its actions answered by the canary's
+        previous step) is never judged in it."""
         with self._lat_lock:
             self._replica_eps.clear()
+            self._eps_cut = time.perf_counter()
 
     def _unrouted(self, rid, retried: bool, stateless: bool = False,
                   endpoint: str = "act", ctx=None):
@@ -1741,6 +1753,8 @@ class Router:
             with self._lock:
                 aff.seq += 1
                 payload["seq"] = aff.seq
+                if aff.ep_t0 is None:
+                    aff.ep_t0 = time.perf_counter()
             return _body(payload)
         except ValueError:
             return body
@@ -1774,14 +1788,15 @@ class Router:
             if done is not True:
                 return
             ep_return, ep_steps = aff.ep_return, aff.ep_steps
-            aff.ep_return, aff.ep_steps = 0.0, 0
+            ep_t0 = aff.ep_t0 if aff.ep_t0 is not None else float("-inf")
+            aff.ep_return, aff.ep_steps, aff.ep_t0 = 0.0, 0, None
         if ep_steps == 0:
             return  # a bare done with no rewarded step books nothing
         with self._lat_lock:
             win = self._replica_eps.get(rid)
             if win is None:
                 win = self._replica_eps[rid] = deque(maxlen=512)
-            win.append(ep_return)
+            win.append((ep_t0, ep_return))
         with self._lock:
             self.episodes_total += 1
         if self.bus is not None:

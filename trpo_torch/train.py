@@ -16,6 +16,10 @@
         --device cpu --inject-faults "kill_worker@step=3:worker=0"
     python -m trpo_torch.train --preset humanoid-sim --recover-on-nan \
         restore --inject-faults "nan_update@iter=2;sigterm@iter=4"
+    torchrun --nproc_per_node 2 -m trpo_torch.train --preset cartpole \
+        --mesh-shape 2 [--mesh-axes data] [--device cpu]
+    torchrun --nproc_per_node 4 -m trpo_torch.train --preset cartpole-fleet \
+        --mesh-shape 2,2 --mesh-axes data,seq
     python -m trpo_torch.train --preset humanoid-sim --metrics-jsonl ev.jsonl \
         --health-checks --status-port 0 --memory-accounting \
         --run-descriptor run.json --profile-dir prof --profile-iteration 3
@@ -48,8 +52,16 @@ and paths to a ``run.json``, and ``--profile-dir`` writes a
 ``torch.profiler`` Chrome trace of the whole run, or with
 ``--profile-iteration N`` of iteration N's chunk only.
 
+``--mesh-shape``/``--mesh-axes`` run data parallelism (``"data"``) and
+sequence parallelism (``"seq"``) over one process per rank: launch under
+``torchrun`` (a mesh of one rank needs no launcher; more ranks without one
+exit 2 naming ``torchrun``). Rank 0 alone prints rows, writes the JSONL,
+the checkpoints and the telemetry; a SIGTERM to any rank stops every rank
+at the same iteration with the requeue code.
+
 The reference's other flags parse and refuse naming the ROADMAP.md item
-that ports them (:data:`REFUSED`); ``--platform`` is a stated difference
+that ports them (:data:`REFUSED`, empty now); ``--platform`` is a stated
+difference
 (:data:`STATED_DIFFERENCES`).
 """
 
@@ -59,11 +71,13 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
 from trpo_torch.agent import TRPOAgent
 from trpo_torch.config import PRESETS, get_preset
+from trpo_torch.parallel.mesh import UnlaunchedMeshError
 from trpo_torch.resilience import Preempted
 from trpo_torch.utils.checkpoint import Checkpointer
 from trpo_torch.utils.metrics import StatsLogger
@@ -80,10 +94,7 @@ _LADDER_PRINTED = ("solve_cosine", "solve_fallback", "solve_pinned",
 
 # the reference's flags for layers the port does not have yet: parsed, so
 # that they refuse naming their ROADMAP.md item instead of as unknown flags
-REFUSED = {
-    "--mesh-shape": ("item 16", str),
-    "--mesh-axes": ("item 16", str),
-}
+REFUSED: dict = {}
 
 # the reference's flags the port replaces, with what replaces them
 STATED_DIFFERENCES = {
@@ -263,6 +274,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--trace-sample-rate", type=float,
                    help="--overlap: head-sampling rate of the train/* spans "
                    "on the event bus (needs --metrics-jsonl)")
+    p.add_argument("--mesh-shape",
+                   help="comma-separated mesh shape, e.g. 2 or 2,2 (with "
+                   "--mesh-axes); run under torchrun with that many ranks")
+    p.add_argument("--mesh-axes",
+                   help='comma-separated mesh axis names, e.g. data or '
+                   '"data,seq"; the first is the batch/env axis')
     for flag, (_, kind) in REFUSED.items():
         p.add_argument(flag, type=kind, help=argparse.SUPPRESS)
     p.add_argument("--platform", help=argparse.SUPPRESS)
@@ -351,7 +368,48 @@ def build_config(args):
         overrides["cg_precondition"] = (
             False if args.cg_precondition == "off" else args.cg_precondition
         )
-    return cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
+    cfg = cfg.replace(**{k: v for k, v in overrides.items() if v is not None})
+    return _mesh_flags(args, cfg)
+
+
+def _csv_positive_ints(flag: str, raw: str) -> tuple:
+    """Parse a comma-separated positive-int flag value or exit cleanly."""
+    try:
+        vals = tuple(int(s) for s in raw.split(",") if s.strip())
+    except ValueError:
+        vals = ()
+    if not vals or any(v < 1 for v in vals):
+        raise SystemExit(
+            f"{flag} must be comma-separated positive ints, got {raw!r}"
+        )
+    return vals
+
+
+def _mesh_flags(args, cfg):
+    """``--mesh-shape``/``--mesh-axes`` into the config, with the
+    reference's errors (``trpo_tpu/train.py``)."""
+    shape_flag, axes_flag = args.mesh_shape, args.mesh_axes
+    if not (shape_flag or axes_flag):
+        return cfg
+    if shape_flag:
+        shape = _csv_positive_ints("--mesh-shape", shape_flag)
+    elif cfg.mesh_shape:
+        # axes alone may rename a preset-supplied mesh
+        shape = tuple(cfg.mesh_shape)
+    else:
+        raise SystemExit(
+            "--mesh-axes requires --mesh-shape (the preset defines no mesh)")
+    if len(shape) > 1 and not axes_flag:
+        raise SystemExit(
+            f"a multi-dimensional --mesh-shape {shape} requires "
+            '--mesh-axes (e.g. "data,seq")')
+    axes = tuple(s.strip() for s in (axes_flag or "data").split(",")
+                 if s.strip())
+    if len(axes) != len(shape):
+        raise SystemExit(
+            f"--mesh-axes {axes} must name one axis per mesh-shape "
+            f"dimension {shape}")
+    return cfg.replace(mesh_shape=shape, mesh_axes=axes)
 
 
 def _fmt(value) -> str:
@@ -427,7 +485,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = build_config(args)
     if args.resume and not cfg.checkpoint_dir:
         raise SystemExit("--resume requires --checkpoint-dir")
-    agent = TRPOAgent(cfg.env, cfg, device=args.device)
+    try:
+        agent = TRPOAgent(cfg.env, cfg, device=args.device)
+    except UnlaunchedMeshError as e:
+        print(f"trpo_torch.train: {e}", file=sys.stderr)
+        return 2
+    writer = agent.mesh is None or agent.mesh.is_writer
+    with contextlib.ExitStack() as closing:
+        if not writer:
+            # ranks other than 0 print nothing: their rows are rank 0's
+            closing.enter_context(contextlib.redirect_stdout(
+                closing.enter_context(open(os.devnull, "w"))))
+        return _run(args, cfg, agent, writer)
+
+
+def _run(args, cfg, agent, writer: bool) -> int:
     family = (f" {cfg.policy_cell}={cfg.policy_gru}" if agent.is_recurrent
               else f" experts={cfg.policy_experts}"
               if cfg.policy_experts is not None else "")
@@ -436,22 +508,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"policy={tuple(cfg.policy_hidden)}{family}", flush=True)
     # before the checkpointer: a corrupt sidecar found by --resume is a
     # health event on the same bus
-    telemetry = make_telemetry(args, cfg)
+    telemetry = make_telemetry(args, cfg) if writer else None
     bus = telemetry.bus if telemetry is not None else None
     with contextlib.ExitStack() as closing:
         if telemetry is not None:
             closing.callback(telemetry.close)
         checkpointer, state = None, None
         if cfg.checkpoint_dir:
-            checkpointer = Checkpointer(cfg.checkpoint_dir, bus=bus)
+            checkpointer = Checkpointer(cfg.checkpoint_dir, bus=bus,
+                                        mesh=agent.mesh)
             if args.resume and checkpointer.latest_step() is not None:
                 state = checkpointer.restore(agent.init_state())
                 agent.restore_host_env(checkpointer.restore_host_env())
                 print(f"resumed from step {checkpointer.latest_step()}",
                       flush=True)
-        logger = StatsLogger(jsonl_path=cfg.log_jsonl, bus=bus)
+        logger = StatsLogger(jsonl_path=cfg.log_jsonl if writer else None,
+                             bus=bus)
         closing.callback(logger.close)
-        if args.run_descriptor:
+        if args.run_descriptor and writer:
             _write_run_descriptor(args, cfg, telemetry, checkpointer)
         try:
             final = agent.learn(state=state, logger=logger,

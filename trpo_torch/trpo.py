@@ -56,6 +56,7 @@ from trpo_torch.config import TRPOConfig, check_ported
 from trpo_torch.models.mlp import ACTIVATIONS
 from trpo_torch.models.policy import Policy
 from trpo_torch.models.recurrent import SeqObs
+from trpo_torch.ops.allreduce import all_sum, weight_total, wmean, wshare
 from trpo_torch.ops.cg import conjugate_gradient
 from trpo_torch.ops.flat import flatten_params, tree_map
 from trpo_torch.ops.fused_fvp import (
@@ -103,6 +104,10 @@ class TRPOBatch(NamedTuple):
     #   π_behavior(a|s), detached, multiplied into the surrogate's ratio
     #   while old_dist holds the anchor (the current params' dist). None
     #   (every on-policy caller) leaves the surrogate's ops unchanged.
+    row_ids: Any = None       # on a mesh: each local row's index in the
+    #   GLOBAL batch along the axis fvp_subsample thins (rows; env columns
+    #   of a SeqObs window), so the curvature subsample is the one-rank
+    #   run's. None: rank r of D holds rows r·B … (r+1)·B − 1.
 
 
 class TRPOStats(NamedTuple):
@@ -208,24 +213,28 @@ class SolvePack(NamedTuple):
     cg_iterations_cheap: Any
 
 
-def _wmean(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    return torch.sum(x * w) / torch.clamp(torch.sum(w), min=1.0)
-
-
-def surrogate_and_dist(policy: Policy, params, batch: TRPOBatch,
-                       logp_old=None) -> Tuple[torch.Tensor, Any]:
-    """``(surrogate, dist_params)`` from one forward: the surrogate is
-    ``-E[π(a|s)/π_old(a|s) · A]`` as a log-prob difference."""
-    if logp_old is None:
-        logp_old = policy.dist.logp(batch.old_dist, batch.actions)
-    dist_params = policy.apply(params, batch.obs)
+def _ratio_adv(policy: Policy, dist_params, batch: TRPOBatch,
+               logp_old) -> torch.Tensor:
+    """Per-row ``π(a|s)/π_old(a|s) · A``."""
     logp = policy.dist.logp(dist_params, batch.actions)
     ratio = torch.exp(logp - logp_old)
     if batch.is_weight is not None:
         # stale-window correction: the ratio is anchored at the current
         # params, the behavior policy's mismatch a constant weight
         ratio = ratio * batch.is_weight.detach()
-    surr = -_wmean(ratio * batch.advantages, batch.weight)
+    return ratio * batch.advantages
+
+
+def surrogate_and_dist(policy: Policy, params, batch: TRPOBatch,
+                       logp_old=None, group=None) -> Tuple[torch.Tensor, Any]:
+    """``(surrogate, dist_params)`` from one forward: the surrogate is
+    ``-E[π(a|s)/π_old(a|s) · A]`` as a log-prob difference, averaged over
+    every rank of ``group``."""
+    if logp_old is None:
+        logp_old = policy.dist.logp(batch.old_dist, batch.actions)
+    dist_params = policy.apply(params, batch.obs)
+    surr = -wmean(_ratio_adv(policy, dist_params, batch, logp_old),
+                  batch.weight, group)
     return surr, dist_params
 
 
@@ -246,7 +255,25 @@ def _fvp_keep_indices(n: int, fraction: float) -> np.ndarray:
     return keep
 
 
-def _fvp_batch(batch: TRPOBatch, fraction: Optional[float]) -> TRPOBatch:
+def _keep(batch: TRPOBatch, n: int, fraction: float, group) -> torch.Tensor:
+    """The local indices of the curvature subsample along an axis of
+    local length ``n``. On a mesh the keep set is computed over GLOBAL
+    indices (``batch.row_ids``) and intersected with this rank's rows, so
+    it is the one-rank run's set; per-rank strides would pick another."""
+    dev = batch.weight.device
+    if group is None:
+        return torch.as_tensor(_fvp_keep_indices(n, fraction), device=dev)
+    world = torch.distributed.get_world_size(group)
+    ids = batch.row_ids
+    if ids is None:
+        ids = torch.distributed.get_rank(group) * n + torch.arange(n)
+    mask = torch.zeros(n * world, dtype=torch.bool)
+    mask[torch.as_tensor(_fvp_keep_indices(n * world, fraction))] = True
+    return torch.nonzero(mask[ids.cpu()]).flatten().to(dev)
+
+
+def _fvp_batch(batch: TRPOBatch, fraction: Optional[float],
+               group=None) -> TRPOBatch:
     """The deterministic curvature subsample the FVPs run on; gradient,
     line search and rollback stay full-batch. A flat batch thins its rows;
     a recurrent (``SeqObs``) one thins the ENV axis, as the reference
@@ -254,19 +281,14 @@ def _fvp_batch(batch: TRPOBatch, fraction: Optional[float]) -> TRPOBatch:
     if fraction is None or fraction == 1.0:
         return batch
     if isinstance(batch.obs, SeqObs):
-        keep = torch.as_tensor(
-            _fvp_keep_indices(batch.obs.reset.shape[1], fraction),
-            device=batch.weight.device,
-        )
+        keep = _keep(batch, batch.obs.reset.shape[1], fraction, group)
         sub = lambda x: x[:, keep]  # noqa: E731
         obs = SeqObs(obs=sub(batch.obs.obs), reset=sub(batch.obs.reset),
                      h0=batch.obs.h0[keep])
-        return tree_map(sub, batch._replace(obs=None))._replace(obs=obs)
-    keep = torch.as_tensor(
-        _fvp_keep_indices(batch.weight.shape[0], fraction),
-        device=batch.weight.device,
-    )
-    return tree_map(lambda x: x[keep], batch)
+        return tree_map(sub, batch._replace(obs=None, row_ids=None))._replace(
+            obs=obs)
+    keep = _keep(batch, batch.weight.shape[0], fraction, group)
+    return tree_map(lambda x: x[keep], batch._replace(row_ids=None))
 
 
 def _maybe_fused_fvp(policy: Policy, cfg: TRPOConfig, params0,
@@ -327,7 +349,7 @@ def _skewed_operator(op, skew: float, n: int, device):
 
 
 def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
-                    damping: float, to_params, precond):
+                    damping: float, to_params, precond, group=None):
     """Flat ``r ↦ M⁻¹r`` for the head-block preconditioner, and the
     ``PrecondState`` for the next update (None without a state)."""
     spec = policy.mlp_spec
@@ -354,7 +376,7 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
     def fresh():
         with torch.no_grad():
             S = gaussian_head_gram(torso_apply, params0["net"], fb.obs,
-                                   fb.weight)
+                                   fb.weight, group)
             return head_gram_eigh(S)
 
     precond_next = None
@@ -367,7 +389,7 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
             s_eig, U = precond.s_eig, precond.u
         precond_next = PrecondState(u=U, s_eig=s_eig, age=precond.age + 1)
     tree_M = apply_gaussian_head_block_inv(
-        s_eig, U, fb.weight, params0["log_std"], damping
+        s_eig, U, fb.weight, params0["log_std"], damping, group
     )
     return (lambda r: flatten_params(tree_M(to_params(r)))[0]), precond_next
 
@@ -376,19 +398,28 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                  x0: torch.Tensor, batch: TRPOBatch, damping=None,
                  precond: Optional[PrecondState] = None,
                  ladder: Optional[LadderState] = None,
-                 jacobi_probes=None) -> SolvePack:
+                 jacobi_probes=None, group=None,
+                 allow_fused: bool = True) -> SolvePack:
     """Gradient and surrogate in one pass → damped-Fisher operator →
-    (audited / budget-adaptive) CG solve → KL-radius step scaling."""
+    (audited / budget-adaptive) CG solve → KL-radius step scaling. With
+    ``group`` every batch reduction is summed over its ranks: the
+    gradient and the surrogate in one all-reduce, each FVP in one."""
     x0 = x0.detach()
     dev = x0.device
     with torch.no_grad():
         logp_old = policy.dist.logp(batch.old_dist, batch.actions)
     xg = x0.clone().requires_grad_(True)
+    # each rank differentiates its rows' share of the global mean; the
+    # gradient and the surrogate are summed in one collective
+    wtot = weight_total(batch.weight, group)
     with torch.enable_grad():
-        surr_before, dist0 = surrogate_and_dist(
-            policy, to_params(xg), batch, logp_old
-        )
-        (g,) = torch.autograd.grad(surr_before, xg)
+        dist0 = policy.apply(to_params(xg), batch.obs)
+        surr_local = -wshare(_ratio_adv(policy, dist0, batch, logp_old),
+                             batch.weight, wtot)
+        (g,) = torch.autograd.grad(surr_local, xg)
+    red = all_sum(torch.cat([g.float(), surr_local.detach().reshape(1)]),
+                  group)
+    g, surr_before = red[:-1], red[-1]
     surr_before = surr_before.detach()
     dist0 = tree_map(torch.Tensor.detach, dist0)
     grad_norm = torch.linalg.vector_norm(g)
@@ -397,7 +428,14 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     if damping is None:
         damping = torch.full((), float(cfg.cg_damping), device=dev)
     damping = torch.as_tensor(damping, dtype=torch.float32, device=dev)
-    fb = _fvp_batch(batch, cfg.fvp_subsample)
+    if not allow_fused and cfg.fvp_mode == "fused":
+        raise ValueError(
+            'fvp_mode="fused" is unavailable on this path (mesh '
+            "sharding, or population members on a mesh) — use "
+            'fvp_mode="auto" (falls back to "ggn" here) or "ggn". An '
+            'explicit "fused" must never silently time the wrong operator.'
+        )
+    fb = _fvp_batch(batch, cfg.fvp_subsample, group)
     params0 = to_params(x0)
 
     def build_fvp(b: TRPOBatch, dtype, fused_ok: bool, skew: float):
@@ -416,21 +454,24 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             apply_b = lambda x: policy.apply_cast(  # noqa: E731
                 to_params(x), b.obs, dtype)
         op = None
-        if fused_ok:
+        if fused_ok and allow_fused:
             op = _maybe_fused_fvp(policy, cfg, params0, b, damping, dtype)
         if op is None and cfg.fvp_mode == "jvp_grad":
             # the Hessian of KL(stop_grad(π_θ) ‖ π_x) at x = θ, with the
-            # anchor at the policy's own dtype
+            # anchor at the policy's own dtype; on a mesh each rank's share
+            # of the global mean, summed after the product
             with torch.no_grad():
                 anchor = policy.apply(params0, b.obs)
+            wtot_b = weight_total(b.weight, group)
 
             def kl_fixed(x):
-                return _wmean(policy.dist.kl(anchor, apply_b(x)), b.weight)
+                return wshare(policy.dist.kl(anchor, apply_b(x)), b.weight,
+                              wtot_b)
 
-            op = make_fvp(kl_fixed, x0, damping=damping)
+            op = make_fvp(kl_fixed, x0, damping=damping, group=group)
         elif op is None:
             op = make_ggn_fvp(apply_b, policy.dist.fisher_weight, x0,
-                              b.weight, damping=damping)
+                              b.weight, damping=damping, group=group)
         if skew:
             op = _skewed_operator(op, skew, x0.shape[0], dev)
         return op
@@ -441,7 +482,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     M_inv, precond_next = None, None
     if cfg.cg_precondition == "head_block":
         M_inv, precond_next = _head_block_inv(
-            policy, cfg, params0, fb, damping, to_params, precond
+            policy, cfg, params0, fb, damping, to_params, precond, group
         )
     elif cfg.cg_precondition:
         # Jacobi: a Hutchinson diagonal of the operator CG iterates (one
@@ -588,20 +629,23 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
 
 def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                   x0: torch.Tensor, batch: TRPOBatch,
-                  pack: SolvePack) -> Tuple[Any, TRPOStats]:
+                  pack: SolvePack, group=None) -> Tuple[Any, TRPOStats]:
     """Backtracking line search along the scaled step → KL rollback →
-    final params and stats."""
+    final params and stats; every mean over the ranks of ``group``. The
+    accept, the rollback and the NaN guard read reduced values only, so
+    every rank takes the same branch."""
     x0 = x0.detach()
     logp_old = pack.logp_old
 
     def surr_with_dist(x):
-        return surrogate_and_dist(policy, to_params(x), batch, logp_old)
+        return surrogate_and_dist(policy, to_params(x), batch, logp_old,
+                                  group)
 
     ls_constraint = None
     if cfg.linesearch_kl_cap:
         kl_cap = cfg.kl_rollback_factor * cfg.max_kl
         ls_constraint = lambda x, dist: (  # noqa: E731
-            _wmean(policy.dist.kl(batch.old_dist, dist), batch.weight)
+            wmean(policy.dist.kl(batch.old_dist, dist), batch.weight, group)
             <= kl_cap
         )
     with torch.no_grad():
@@ -618,8 +662,8 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             aux0=pack.dist0,
         )
         dist_ls = ls.aux
-        kl_after = _wmean(policy.dist.kl(batch.old_dist, dist_ls),
-                          batch.weight)
+        kl_after = wmean(policy.dist.kl(batch.old_dist, dist_ls),
+                         batch.weight, group)
         rollback = kl_after > cfg.kl_rollback_factor * cfg.max_kl
         x_new = torch.where(rollback, x0, ls.x)
         final_dist = tree_where(rollback, pack.dist0, dist_ls)
@@ -628,8 +672,10 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         if batch.is_weight is not None:
             # the same weighting as the surrogate the search optimized
             ratio_new = ratio_new * batch.is_weight
-        surr_after = -_wmean(ratio_new * batch.advantages, batch.weight)
-        entropy = _wmean(policy.dist.entropy(final_dist), batch.weight)
+        surr_after = -wmean(ratio_new * batch.advantages, batch.weight,
+                            group)
+        entropy = wmean(policy.dist.entropy(final_dist), batch.weight,
+                        group)
         damping_next = (
             _next_damping(cfg, pack.damping, ls.success, rollback)
             if cfg.adaptive_damping else pack.damping
@@ -642,8 +688,8 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         stats = TRPOStats(
             surrogate_before=pack.surr_before,
             surrogate_after=surr_after,
-            kl=_wmean(policy.dist.kl(batch.old_dist, final_dist),
-                      batch.weight),
+            kl=wmean(policy.dist.kl(batch.old_dist, final_dist),
+                     batch.weight, group),
             entropy=entropy,
             grad_norm=pack.grad_norm,
             step_norm=torch.linalg.vector_norm(x_new - x0),
@@ -669,7 +715,8 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
 
 
 def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
-                            jacobi_probes=None):
+                            jacobi_probes=None, *, group=None,
+                            allow_fused: bool = True):
     """:func:`make_trpo_update` split at the solve → line-search seam:
     ``(solve, finish)`` with ``solve(params, batch, damping=None,
     precond=None, ladder=None) -> SolvePack`` (gradient, CG solve, step
@@ -677,7 +724,14 @@ def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
     (line search, KL rollback, stats). ``finish(params, batch,
     solve(params, batch, ...))`` runs the same two stage bodies as the
     fused update, so it is bitwise equal to it. The overlapped loop
-    (``agent._overlap_learner_step``) times the two stages apart."""
+    (``agent._overlap_learner_step``) times the two stages apart.
+
+    ``group`` (a process group over the batch axis) makes it the
+    data-parallel update: ``batch`` is this rank's rows and every batch
+    reduction is summed over the group (``parallel/sharded.py``).
+    ``allow_fused=False`` keeps the fused kernel out, as the reference's
+    mesh and population paths do: ``"auto"`` takes the Gauss-Newton
+    operator and an explicit ``"fused"`` raises."""
     check_ported(cfg)
 
     def solve(params, batch: TRPOBatch, damping=None,
@@ -685,17 +739,19 @@ def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
               ladder: Optional[LadderState] = None) -> SolvePack:
         flat0, unravel = flatten_params(params)
         return _solve_stage(policy, cfg, unravel, flat0.float().detach(),
-                            batch, damping, precond, ladder, jacobi_probes)
+                            batch, damping, precond, ladder, jacobi_probes,
+                            group, allow_fused)
 
     def finish(params, batch: TRPOBatch, pack: SolvePack):
         flat0, unravel = flatten_params(params)
         return _finish_stage(policy, cfg, unravel, flat0.float().detach(),
-                             batch, pack)
+                             batch, pack, group)
 
     return solve, finish
 
 
-def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
+def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None, *,
+                     group=None, allow_fused: bool = True):
     """The update in the flat-vector domain: ``update(params, batch,
     damping=None, precond=None, ladder=None) -> (new_params, stats)``.
     ``damping`` (a device scalar) overrides ``cfg.cg_damping``;
@@ -704,8 +760,11 @@ def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
     adaptive CG budget, and without it the cheap path runs unaudited.
     ``jacobi_probes`` (``cg_precond_probes`` flat ±1 vectors) replaces the
     Jacobi preconditioner's own draws (a test lever). It is the two stages
-    of :func:`make_staged_trpo_update` composed."""
-    solve, finish = make_staged_trpo_update(policy, cfg, jacobi_probes)
+    of :func:`make_staged_trpo_update` composed (``group`` and
+    ``allow_fused`` as there)."""
+    solve, finish = make_staged_trpo_update(policy, cfg, jacobi_probes,
+                                            group=group,
+                                            allow_fused=allow_fused)
 
     def update(params, batch: TRPOBatch, damping=None,
                precond: Optional[PrecondState] = None,
@@ -716,9 +775,10 @@ def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None):
     return update
 
 
-def standardize_advantages(adv: torch.Tensor,
-                           weight: torch.Tensor) -> torch.Tensor:
-    """Zero-mean unit-variance advantages over real (unpadded) steps."""
-    mean = _wmean(adv, weight)
-    var = _wmean((adv - mean) ** 2, weight)
+def standardize_advantages(adv: torch.Tensor, weight: torch.Tensor,
+                           group=None) -> torch.Tensor:
+    """Zero-mean unit-variance advantages over real (unpadded) steps of
+    every rank of ``group``."""
+    mean = wmean(adv, weight, group)
+    var = wmean((adv - mean) ** 2, weight, group)
     return (adv - mean) / (torch.sqrt(var) + 1e-8) * weight

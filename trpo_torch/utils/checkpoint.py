@@ -28,6 +28,16 @@ written before the step's marker, so every marked step of a host-env run
 has its sidecar, and it is pruned with its step. A step without a sidecar
 (a device-env run) restores none; a sidecar that is there but unreadable
 raises.
+
+On a mesh (``Checkpointer(..., mesh=m)``, or ``TRPOAgent.learn`` handing
+its mesh to the checkpointer) every rank calls :meth:`Checkpointer.save`:
+the env carry is all-gathered over the batch axis, rank 0 writes the
+global state in the same ``step_<n>/`` format, and every rank waits at a
+barrier until the marker is on disk. :meth:`Checkpointer.restore` reads the
+global state on every rank and keeps the rank's slice of the carry. A step
+written by a mesh therefore restores on one rank, and a one-rank step on
+a mesh of any width that divides its envs, as the reference's restore
+keeps the template's sharding.
 """
 
 from __future__ import annotations
@@ -161,12 +171,14 @@ def _write_synced(path: str, write) -> None:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, max_to_keep: int = 3, bus=None):
+    def __init__(self, directory: str, max_to_keep: int = 3, bus=None,
+                 mesh=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.bus = bus   # obs.events.EventBus: health findings
+        self.mesh = mesh  # parallel.Mesh: collective save/restore
         os.makedirs(self.directory, exist_ok=True)
-        if not self.all_steps():
+        if not self.all_steps() and (mesh is None or mesh.is_writer):
             _write_synced(self._sentinel_path(), lambda f: None)
 
     def _step_dir(self, step: int) -> str:
@@ -215,7 +227,19 @@ class Checkpointer:
     def save(self, step: int, state: Any, host_env: Any = None) -> None:
         """Write ``state`` as ``step`` (replacing an existing one), with
         ``host_env`` (a host adapter's snapshot, or None) as its sidecar,
-        its marker last, then keep the newest ``max_to_keep`` steps."""
+        its marker last, then keep the newest ``max_to_keep`` steps. On a
+        mesh: a collective, rank 0 writing the gathered state."""
+        if self.mesh is not None:
+            from trpo_torch.parallel.sharded import gather_state
+
+            state = gather_state(self.mesh, state)
+            if self.mesh.is_writer:
+                self._save(step, state, host_env)
+            self.mesh.barrier()
+            return
+        self._save(step, state, host_env)
+
+    def _save(self, step: int, state: Any, host_env: Any) -> None:
         tensors: dict = {}
         structure = _encode(state, "", tensors)
         tmp = os.path.join(self.directory, f".step_{step}.tmp-{os.getpid()}")
@@ -288,9 +312,21 @@ class Checkpointer:
         and the template: a field the template gains keeps the template's
         fresh value, one it lost is dropped (``host_rng`` likewise, with
         ``host_inference``). A step saved without the solver counters
-        (``metrics``) restores them at zero."""
+        (``metrics``) restores them at zero. On a mesh every rank reads
+        the global state and keeps its slice of the env carry."""
+        if self.mesh is not None:
+            from trpo_torch.parallel.sharded import gather_state, local_state
+
+            if prune and self.mesh.is_writer:
+                self.prune_incomplete()
+            self.mesh.barrier()
+            return local_state(self.mesh, self._restore(
+                gather_state(self.mesh, template), step))
         if prune:
             self.prune_incomplete()
+        return self._restore(template, step)
+
+    def _restore(self, template: Any, step: Optional[int]) -> Any:
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

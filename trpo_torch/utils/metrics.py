@@ -21,23 +21,26 @@ from typing import IO, Optional
 
 import torch
 
+from trpo_torch.ops.allreduce import all_sum, weight_total
+
 __all__ = ["StatsLogger", "explained_variance", "quantile_nearest_rank",
            "repair_jsonl_tail"]
 
 
 def explained_variance(ypred: torch.Tensor, y: torch.Tensor,
-                       weight: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``1 − Var(y − ŷ)/Var(y)`` over weighted samples; NaN when
-    ``Var(y) = 0``."""
+                       weight: Optional[torch.Tensor] = None,
+                       group=None) -> torch.Tensor:
+    """``1 − Var(y − ŷ)/Var(y)`` over weighted samples (of every rank of
+    ``group``); NaN when ``Var(y) = 0``."""
     ypred = ypred.float().reshape(-1)
     y = y.float().reshape(-1)
     weight = torch.ones_like(y) if weight is None else \
         weight.float().reshape(-1)
-    wsum = torch.clamp(weight.sum(), min=1.0)
+    wsum = weight_total(weight, group)
 
     def wvar(v):
-        m = torch.sum(v * weight) / wsum
-        return torch.sum((v - m) ** 2 * weight) / wsum
+        m = all_sum(torch.sum(v * weight), group) / wsum
+        return all_sum(torch.sum((v - m) ** 2 * weight), group) / wsum
 
     return 1.0 - wvar(y - ypred) / wvar(y)
 

@@ -5,7 +5,9 @@
 ``TrainState.obs_norm`` and is checkpointed with the rest of the state.
 ``update_stats`` folds a batch in with Chan et al.'s parallel merge in f32;
 ``normalize`` is ``(obs − mean) / std`` clipped to ±``clip``, and the
-identity while no data has been folded in.
+identity while no data has been folded in. ``update_stats(..., group=g)``
+folds in the batch of every rank of ``g`` (its count, mean and squared
+deviations all-reduced), so every rank keeps the same statistics.
 
 The agent normalizes the rollout and the update's replay with the
 statistics as of the start of an iteration (so the acting distribution and
@@ -18,6 +20,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from trpo_torch.ops.allreduce import all_sum
 
 __all__ = ["RunningStats", "init_stats", "normalize", "update_stats"]
 
@@ -36,16 +40,23 @@ def init_stats(shape: Tuple[int, ...], device=None) -> RunningStats:
     )
 
 
-def update_stats(stats: RunningStats, obs: torch.Tensor) -> RunningStats:
-    """Fold a batch (leading axes = batch) into ``stats`` in one pass."""
+def update_stats(stats: RunningStats, obs: torch.Tensor,
+                 group=None) -> RunningStats:
+    """Fold a batch (leading axes = batch) into ``stats`` in one pass; the
+    batch of every rank of ``group`` when one is given."""
     batch_axes = tuple(range(obs.ndim - stats.mean.ndim))
     obs = obs.float()
     n = 1
     for a in batch_axes:
         n *= obs.shape[a]
     n_b = torch.tensor(float(n), device=obs.device)
-    mean_b = obs.mean(dim=batch_axes)
-    m2_b = ((obs - mean_b) ** 2).sum(dim=batch_axes)
+    if group is None:
+        mean_b = obs.mean(dim=batch_axes)
+        m2_b = ((obs - mean_b) ** 2).sum(dim=batch_axes)
+    else:
+        n_b = all_sum(n_b, group)
+        mean_b = all_sum(obs.sum(dim=batch_axes), group) / n_b
+        m2_b = all_sum(((obs - mean_b) ** 2).sum(dim=batch_axes), group)
 
     delta = mean_b - stats.mean
     tot = stats.count + n_b

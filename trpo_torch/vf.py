@@ -6,6 +6,10 @@ weighted MSE. Adam is written out to match ``optax.adam``: moments
 incremented count, then ``−lr · μ̂ / (√ν̂ + ε)``, ε = 1e-8. The
 ``initialized`` flag makes the critic predict zeros before its first fit,
 so iteration 0's advantages are raw returns, as in the reference.
+
+``fit(..., group=g)`` is the data-parallel fit: each rank holds its rows,
+and every Adam step all-reduces the loss gradient's weighted sum with the
+loss, so every rank takes the same step.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from trpo_torch.models.mlp import apply_mlp, init_mlp
+from trpo_torch.ops.allreduce import all_sum, weight_total
 from trpo_torch.ops.flat import flatten_params, tree_map
 
 __all__ = ["AdamState", "VFState", "ValueFunctionDef", "create_value_function"]
@@ -35,7 +40,8 @@ class VFState(NamedTuple):
 class ValueFunctionDef(NamedTuple):
     init: Any       # CPU generator -> VFState (CPU tensors)
     predict: Any    # (VFState, obs) -> (B,) values
-    fit: Any        # (VFState, obs, targets, weight) -> (VFState, loss)
+    fit: Any        # (VFState, obs, targets, weight, group=None)
+    #                 -> (VFState, loss)
 
 
 def create_value_function(
@@ -67,14 +73,14 @@ def create_value_function(
         vals = forward(state.params, obs)
         return vals if state.initialized else torch.zeros_like(vals)
 
-    def fit(state: VFState, obs, targets, weight):
+    def fit(state: VFState, obs, targets, weight, group=None):
         """``train_steps`` full-batch Adam steps on the weighted MSE, on
         the flat parameter vector (elementwise, so the layout does not
-        change a value)."""
+        change a value); the batch is every rank of ``group``."""
         obs = obs.reshape(-1, obs_dim)
         targets = targets.reshape(-1)
         weight = weight.reshape(-1)
-        wsum = torch.clamp(weight.sum(), min=1.0)
+        wsum = weight_total(weight, group)
         flat, unravel = flatten_params(state.params)
         flat = flat.detach()
         count = state.opt_state.count
@@ -87,6 +93,10 @@ def create_value_function(
                 err = forward(unravel(x), obs) - targets
                 loss = torch.sum(err * err * weight) / wsum
                 (g,) = torch.autograd.grad(loss, x)
+            if group is not None:
+                red = all_sum(torch.cat([g, loss.detach().reshape(1)]),
+                              group)
+                g, loss = red[:-1], red[-1]
             count += 1
             mu = b1 * mu + (1.0 - b1) * g
             nu = b2 * nu + (1.0 - b2) * g * g
