@@ -202,7 +202,21 @@ Phases:
      card over gloo: K1 over two halves of leg 2's rows, the seq GAE at
      (392, 128) on K2 per rank, ``cartpole-fleet`` as published on a
      ``data x seq`` mesh against one rank, ``Population(mesh)`` over 4
-     ``humanoid-sim`` members with member 1 bitwise its solo run; logs in
+     ``humanoid-sim`` members with member 1 bitwise its solo run; leg 4,
+     beside legs 1 and 3, ``python -m trpo_torch.train --preset
+     humanoid-sim --mesh-shape 1,2 --mesh-axes data,model`` as published
+     on two gloo ranks sharing the card (2 iterations, a checkpoint each;
+     K2 once an iteration on each rank, K1 never), its step 1 against the
+     meshless GGN run (rtol 1e-4, atol 1e-5), rank 0 holding its blocks of
+     layers 0-1 and layer 2 whole, its checkpoint restored on one rank
+     bitwise the gathered params; leg 5 ``pendulum`` on
+     ``native:pendulum`` over two data ranks against one rank, 2
+     iterations (the first at rtol 2e-4/atol 2e-5, the second within
+     ``LEG5_ITER2_ATOL``), beside its witness: the one-rank run with its
+     update's rows reordered (the same sums, reassociated), leg
+     6 ``cartpole`` with 4 experts on ``data x expert`` and the
+     ``cartpole-po`` GRU on ``data x model`` against one rank, with the
+     model-axis all-reduce's µs a call; logs in
      ``build/chip_smoke/mesh/``;
  27. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
 Each path (5-8, 10-17, 19-26) is driven with the launch counts set to 0
@@ -6085,6 +6099,15 @@ def phase_compat(torch, dev):
 MESH_ROWS = 37_536         # the flagship's ¾ curvature subsample of 50,048
 MESH_DIMS = (376, 256, 256, 17)
 MESH_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_agent_mesh.py:52-54
+TREE_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_tree_update.py:53-55
+# pendulum's second iteration on two data ranks against one rank: the
+# first update's reassociated all-reduce sums (1.06e-5 after it) grow
+# through the critic fit and the next solve, to 6.888e-4 on the H100;
+# the one-rank run with its update's rows reordered alone grows alike
+# (1.42e-6, then 6.0e-5 in this child on the CPU, where leg 5 reads
+# 1.03e-5, then 3.55e-4; 1.333e-5, then 1.219e-3 on the H100). The limit
+# is about 3x leg 5's reading on the card
+LEG5_ITER2_ATOL = 2e-3
 MESH_GAE = (392, 128)      # 391 steps are odd: seq=2 needs an even T
 MESH_COLLECTIVE_S = 300    # every collective's timeout in the children
 
@@ -6165,7 +6188,8 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _mesh_nccl_child(out: str, ck1: str, ck2: str, device: str) -> int:
+def _mesh_nccl_child(out: str, ck1: str, ck2: str, ck4: str,
+                     device: str) -> int:
     """Leg 1's resume and comparison, and leg 2, in one rank of an NCCL
     world of one (torchrun). ``device`` is ``cuda``; ``cpu`` rehearses the
     child's control flow on gloo with the plain versions."""
@@ -6209,10 +6233,18 @@ def _mesh_nccl_child(out: str, ck1: str, ck2: str, device: str) -> int:
     counts.skip()
     # the same seed without a mesh, on the mesh's operator (the meshless
     # run on K1 differs from it by about 1e-8 on an H100: PERF.md)
-    st, _ = tmpl_agent.run_iterations(tmpl_agent.init_state(), 2)
+    st1, _ = tmpl_agent.run_iterations(tmpl_agent.init_state(), 1)
+    st, _ = tmpl_agent.run_iterations(st1, 1)
     got = flatten_params(st.policy_params)[0]
     res["meshless_close"] = bool(torch.allclose(want, got, **MESH_TOL))
     res["meshless_maxdiff"] = float((want - got).abs().max())
+    # leg 4's step 1 (data x model, gathered into its checkpoint) against
+    # the same meshless run's step 1
+    tp1 = flatten_params(Checkpointer(ck4).restore(
+        tmpl_agent.init_state(), step=1, prune=False).policy_params)[0]
+    one1 = flatten_params(st1.policy_params)[0]
+    res["leg4_close"] = bool(torch.allclose(tp1, one1, **MESH_TOL))
+    res["leg4_maxdiff"] = float((tp1 - one1).abs().max())
     counts.skip()
     # leg 2: the sharded fused FVP at the flagship shape, inside CG
     mesh = make_mesh((1,), ("data",), device=dev)
@@ -6344,13 +6376,179 @@ def _mesh_gloo_child(out_prefix: str, device: str) -> int:
     return 0
 
 
+def _mesh_tp_child(out_prefix: str, ck4: str, device: str) -> int:
+    """In one of two ranks sharing the one card over gloo: leg 4's layout
+    and checkpoint (``ck4`` a directory), or legs 5 and 6 (``ck4`` is
+    ``-``)."""
+    import torch
+    import torch.distributed as dist
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.ops.flat import flatten_params
+    from trpo_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(backend="gloo", timeout=MESH_COLLECTIVE_S)
+    rank = dist.get_rank()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    res, counts = {"backend": dist.get_backend()}, _PathCounts()
+    flat = lambda p: flatten_params(p)[0]  # noqa: E731
+
+    def iterate(agent, n):
+        """``n`` iterations one at a time: every iteration's params
+        (whole) and the stacked stats."""
+        st, flats, rows = agent.init_state(), [], []
+        for _ in range(n):
+            st, stats = agent.run_iteration(st)
+            flats.append(flat(agent.gather_params(st.policy_params)))
+            rows.append(stats)
+        return flats, {k: [float(r[k]) for r in rows] for k in rows[0]}
+
+    def one_rank(cfg, n, reorder=False):
+        """The same config without a mesh, on the mesh's operator (the
+        GGN: a mesh agent never takes K1), on rank 0 (its launches are
+        not the path's); with ``reorder`` each update takes its batch's
+        rows in a seeded other order."""
+        counts.skip()
+        solo = TRPOAgent(cfg.env, cfg.replace(fvp_mode="ggn"), device=dev)
+        if reorder:
+            solo.trpo_update = _reordered(solo.trpo_update)
+        got = iterate(solo, n)
+        counts.skip()
+        return got
+
+    if ck4 == "-":
+        _mesh_legs56(res, counts, iterate, one_rank, dev, rank)
+    else:
+        _mesh_leg4_layout(res, ck4, dev, rank, flat)
+    res["path_launches"] = counts.total
+    Path(f"{out_prefix}.{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+    return 0
+
+
+def _reordered(update):
+    """``update`` on its batch's rows in a seeded other order: the same
+    sums, reassociated."""
+    from trpo_torch.ops.flat import tree_map
+    from trpo_torch.trpo import TRPOBatch
+
+    def reordered(params, batch, *args, **kwargs):
+        import torch
+
+        p = torch.randperm(batch.obs.shape[0],
+                           generator=torch.Generator().manual_seed(1)).to(
+            batch.obs.device)
+        return update(params, TRPOBatch(*tree_map(lambda t: t[p],
+                                                  tuple(batch))),
+                      *args, **kwargs)
+
+    return reordered
+
+
+def _mesh_leg4_layout(res, ck4, dev, rank, flat) -> None:
+    """Leg 4: rank 0's blocks, the checkpoint restored on the mesh and on
+    one rank, the model-axis all-reduce's µs a call."""
+    import torch
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.parallel.tp import reduce_from_model
+    from trpo_torch.utils.checkpoint import Checkpointer
+
+    hcfg = get_preset("humanoid-sim")
+    tcfg = hcfg.replace(mesh_shape=(1, 2), mesh_axes=("data", "model"))
+    agent = TRPOAgent(tcfg.env, tcfg, device=dev)
+    layers = agent.init_state().policy_params["net"]["layers"]
+    res["leg4_shapes"] = [list(layer["w"].shape) for layer in layers]
+    restored = Checkpointer(ck4, mesh=agent.mesh,
+                            param_layout=agent.param_layout).restore(
+        agent.init_state(), step=2, prune=False)
+    gathered = flat(agent.gather_params(restored.policy_params))
+    if rank == 0:
+        solo = TRPOAgent(hcfg.env, hcfg, device=dev)
+        one = Checkpointer(ck4).restore(solo.init_state(), step=2,
+                                        prune=False)
+        res["leg4_restore_equal"] = bool(torch.equal(
+            gathered, flat(one.policy_params)))
+    # the model-axis all-reduce at the act's and the update's widths
+    tp = agent.policy.tp
+    for rows, key in ((128, "act"), (50_048, "update")):
+        x = torch.ones(rows, 256, device=dev)
+        res[f"allreduce_{key}_us"] = 1e3 * _wall_ms(
+            torch, dev, lambda: reduce_from_model(x, tp), 10)
+
+
+def _mesh_legs56(res, counts, iterate, one_rank, dev, rank) -> None:
+    """Leg 5 (pendulum on native: over two data ranks, and its witness,
+    the device pendulum on the same mesh) and leg 6 (the MoE on data x
+    expert, the GRU on data x model), each against one rank."""
+    import torch
+
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+
+    for key, cfg, n in (
+            ("leg5", get_preset("pendulum").replace(env="native:pendulum"),
+             2),
+            ("leg6_expert", get_preset("cartpole").replace(
+                policy_experts=4), 1),
+            ("leg6_gru", get_preset("cartpole-po"), 1)):
+        axes = {"leg5": ("data",), "leg6_expert": ("data", "expert"),
+                "leg6_gru": ("data", "model")}[key]
+        mesh_cfg = cfg.replace(mesh_shape=(2,) if len(axes) == 1 else (1, 2),
+                               mesh_axes=axes)
+        t0 = time.perf_counter()
+        agent = TRPOAgent(mesh_cfg.env, mesh_cfg, device=dev)
+        got, stats = iterate(agent, n)
+        _sync(torch, dev)
+        res[f"{key}_s"] = time.perf_counter() - t0
+        res[f"{key}_launches"] = counts.path()
+        res[f"{key}_kl"] = stats["kl_old_new"]
+        del agent
+        if rank == 0:
+            want, wstats = one_rank(cfg, n)
+            # after each iteration; the first is the one held to the
+            # reference's tree-update tolerance (a later one compounds the
+            # reassociated sums through the critic and the next solve)
+            res[f"{key}_maxdiff"] = [float((g - w).abs().max())
+                                     for g, w in zip(got, want)]
+            res[f"{key}_close"] = bool(torch.allclose(got[0], want[0],
+                                                      **TREE_TOL))
+            res[f"{key}_reward"] = [stats["mean_episode_reward"][0],
+                                    wstats["mean_episode_reward"][0]]
+            if key == "leg5":
+                # the witness: only the order of the update's sums moved
+                order, _ = one_rank(cfg, n, reorder=True)
+                res["leg5_order_maxdiff"] = [float((g - w).abs().max())
+                                             for g, w in zip(order, want)]
+
+
+def _wall_ms(torch, dev, fn, reps: int) -> float:
+    """Milliseconds a call on the host clock, synchronized, after one
+    warm-up call (a gloo collective waits on the host)."""
+    fn()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    _sync(torch, dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
 def _mesh_child(mode: str, argv: list) -> int:
     """A ``[mesh]`` child, started by torchrun with this script."""
     if mode == "train":
         sys.argv = [sys.argv[0]] + argv[1:]
-        return _counted_child(argv[0])
+        return _counted_child(argv[0].format(
+            rank=os.environ.get("RANK", "0")))
     if mode == "nccl":
         return _mesh_nccl_child(*argv)
+    if mode == "tp":
+        return _mesh_tp_child(*argv)
     return _mesh_gloo_child(*argv)
 
 
@@ -6370,7 +6568,7 @@ def phase_mesh(torch, dev):
     work = WORK / "mesh"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True, exist_ok=True)
-    ck1, ck2 = work / "ck1", work / "ck2"
+    ck1, ck2, ck4 = work / "ck1", work / "ck2", work / "ck4"
     ck2.mkdir()
     total, secs = {}, {}
 
@@ -6399,6 +6597,15 @@ def phase_mesh(torch, dev):
     prefix = work / "gloo"
     leg3 = start("leg3_gloo", _torchrun(2, "--mesh-child=gloo", prefix,
                                         dev.type))
+    # legs 5-6 (two gloo ranks) beside them
+    legs56 = start("legs56_gloo", _torchrun(2, "--mesh-child=tp",
+                                            work / "legs56", "-", dev.type))
+    # leg 4: the train CLI on data x model, two gloo ranks on the card
+    leg4 = start("leg4_train", _torchrun(
+        2, "--mesh-child=train", work / "tp_counts.{rank}.json", "--preset",
+        "humanoid-sim", "--device", dev.type, "--mesh-shape", "1,2",
+        "--mesh-axes", "data,model", "--iterations", "2",
+        "--checkpoint-dir", ck4, "--checkpoint-every", "1"))
     # leg 1: python -m trpo_torch.train under torchrun, NCCL world of one
     counts_path = work / "train_counts.json"
     try:
@@ -6407,7 +6614,13 @@ def phase_mesh(torch, dev):
             "--device", dev.type, "--mesh-shape", "1", "--iterations", "3",
             "--checkpoint-dir", ck1, "--checkpoint-every", "1")), 300)
     finally:
-        finish(leg3, 300)
+        try:
+            finish(leg3, 300)
+        finally:
+            try:
+                leg4_out = finish(leg4, 400)
+            finally:
+                finish(legs56, 400)
     rows = [ln for ln in train_out.splitlines() if ln.startswith("iter ")]
     _check(len(rows) == 3, f"[mesh] leg 1: {len(rows)} rows")
     train = {k: v for k, v in json.loads(counts_path.read_text())[
@@ -6415,9 +6628,20 @@ def phase_mesh(torch, dev):
     _check(train == {"reverse_scan": 3}, f"[mesh] leg 1 launches {train} "
            "(K2 once an iteration, K1 never: the GGN operator on a mesh)")
     total = _add(total, train)
+    rows4 = [ln for ln in leg4_out.splitlines() if ln.startswith("iter ")]
+    _check(len(rows4) == 2, f"[mesh] leg 4: {len(rows4)} rows (rank 0 "
+           "alone writes them)")
+    leg4 = [json.loads((work / f"tp_counts.{i}.json").read_text())
+            for i in (0, 1)]
+    leg4 = [{k: v for k, v in c["launches"].items() if v} for c in leg4]
+    _check(all(c == {"reverse_scan": 2} for c in leg4), f"[mesh] leg 4 "
+           f"launches per rank {leg4} (K2 once an iteration, K1 never: the "
+           "tree update on a parameter axis)")
+    for c in leg4:
+        total = _add(total, c)
     out = work / "nccl.json"
     finish(start("leg1_resume_leg2", _torchrun(
-        1, "--mesh-child=nccl", out, ck1, ck2, dev.type)), 300)
+        1, "--mesh-child=nccl", out, ck1, ck2, ck4, dev.type)), 300)
     r = json.loads(out.read_text())
     _check(r["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
            and r["resume_code"] == 0,
@@ -6439,6 +6663,41 @@ def phase_mesh(torch, dev):
            f"[mesh] leg 2 launches {r['leg2_f32_launches']} "
            f"{r['leg2_bf16_launches']}")
     total = _add(total, r["path_launches"])
+    _check(r["leg4_close"], "[mesh] leg 4 step 1 on data x model against "
+           f"the meshless GGN run: max|diff| {r['leg4_maxdiff']:.3e}")
+    # leg 4's layout and checkpoint: two gloo ranks on the card
+    finish(start("leg4_layout", _torchrun(2, "--mesh-child=tp",
+                                          work / "leg4", ck4, dev.type)), 300)
+    tpr = [{**json.loads((work / f"leg4.{i}.json").read_text()),
+            **json.loads((work / f"legs56.{i}.json").read_text()),
+            "path_launches": _add(*(json.loads((work / f"{p}.{i}.json")
+                                               .read_text())["path_launches"]
+                                    for p in ("leg4", "legs56")))}
+           for i in (0, 1)]
+    d_in, h1, h2, d_out = MESH_DIMS   # a head of odd width stays whole
+    _check(tpr[0]["leg4_shapes"] == [[d_in, h1 // 2], [h1 // 2, h2],
+                                     [h2, d_out // (2 - d_out % 2)]],
+           f"[mesh] leg 4 rank 0's blocks {tpr[0]['leg4_shapes']}")
+    _check(tpr[0]["leg4_restore_equal"], "[mesh] leg 4's checkpoint "
+           "restored on one rank differs from the gathered params")
+    for key in ("leg5", "leg6_expert", "leg6_gru"):
+        _check(tpr[0][f"{key}_close"], f"[mesh] {key} against one rank "
+               f"after its first iteration: max|diff| "
+               f"{tpr[0][f'{key}_maxdiff']}")
+    _check(tpr[0]["leg5_maxdiff"][1] <= LEG5_ITER2_ATOL,
+           "[mesh] leg5 against one rank after its second iteration: "
+           f"max|diff| {tpr[0]['leg5_maxdiff'][1]:.3e} > {LEG5_ITER2_ATOL}")
+    # the first window's episodes: the env slices seeded by global index,
+    # the noise drawn globally
+    mesh_r, one_r = tpr[0]["leg5_reward"]
+    _check(abs(mesh_r - one_r) <= 1e-5 * abs(one_r), "[mesh] leg 5's "
+           f"first window: mean episode reward {mesh_r} against {one_r}")
+    for x in tpr:
+        _check(x["leg5_launches"] == {"reverse_scan": 2}
+               and x["leg6_expert_launches"] == {"reverse_scan": 1}
+               and x["leg6_gru_launches"] == {"reverse_scan": 1},
+               f"[mesh] legs 5-6 launches {x}")
+        total = _add(total, x["path_launches"])
     # leg 3's results
     g = [json.loads((work / f"gloo.{i}.json").read_text()) for i in (0, 1)]
     _check(all(x["backend"] == "gloo" for x in g), "[mesh] leg 3 backend")
@@ -6484,6 +6743,37 @@ def phase_mesh(torch, dev):
           f"one rank max|diff| {g[0]['fleet_maxdiff']:.3e}, KL "
           f"{g[0]['fleet_kl']}; Population(mesh) member 1 bitwise its solo "
           f"run, rewards {g[0]['pop_reward']} ({card})", flush=True)
+    print(f"[mesh] leg 4: torchrun --nproc_per_node 2 -m trpo_torch.train "
+          f"--preset humanoid-sim --mesh-shape 1,2 --mesh-axes data,model "
+          f"(two gloo ranks on the card, 2 iterations, beside legs 1 and 3, "
+          f"{secs['leg4_train']:.1f} s): K2 per rank {leg4}, K1 0 (the tree "
+          f"update); rank 0 holds w {tpr[0]['leg4_shapes']}; step 1 against "
+          f"the meshless GGN run max|diff| {r['leg4_maxdiff']:.3e} (rtol "
+          f"1e-4/atol 1e-5); its checkpoint restored on one rank bitwise the "
+          f"gathered params; model-axis all-reduce (gloo, staged through "
+          f"host memory) {tpr[0]['allreduce_act_us']:.1f} us a call at "
+          f"128 x 256 f32, {tpr[0]['allreduce_update_us']:.1f} us at "
+          f"50,048 x 256 ({card})", flush=True)
+    print(f"[mesh] leg 5: pendulum on native:pendulum over two data ranks "
+          f"(2 iterations, {tpr[0]['leg5_s']:.1f} s) against one rank on "
+          f"the GGN: first window's mean episode reward "
+          f"{tpr[0]['leg5_reward'][0]!r} against "
+          f"{tpr[0]['leg5_reward'][1]!r}; max|diff| after each iteration "
+          f"{tpr[0]['leg5_maxdiff']} (the first within rtol 2e-4/atol "
+          f"2e-5, the second within {LEG5_ITER2_ATOL}), KL "
+          f"{tpr[0]['leg5_kl']}, K2 per rank "
+          f"{[x['leg5_launches'] for x in tpr]}; witness: the one-rank run "
+          f"with its update's rows reordered max|diff| "
+          f"{tpr[0]['leg5_order_maxdiff']} ({card})", flush=True)
+    print(f"[mesh] leg 6: cartpole, 4 experts, on data x expert "
+          f"({tpr[0]['leg6_expert_s']:.1f} s) max|diff| "
+          f"{tpr[0]['leg6_expert_maxdiff']}; cartpole-po GRU on data x "
+          f"model ({tpr[0]['leg6_gru_s']:.1f} s) max|diff| "
+          f"{tpr[0]['leg6_gru_maxdiff']}, against one rank; K2 per rank "
+          f"{[x['leg6_expert_launches'] for x in tpr]}, "
+          f"{[x['leg6_gru_launches'] for x in tpr]}; legs 5-6's child "
+          f"{secs['legs56_gloo']:.1f} s beside legs 1, 3 and 4, leg 4's "
+          f"layout child {secs['leg4_layout']:.1f} s ({card})", flush=True)
     print(f"[mesh] child seconds {json.dumps(secs)}; path launches {total}",
           flush=True)
     return total

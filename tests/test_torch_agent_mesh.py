@@ -3,7 +3,9 @@ rank on the CPU: a mesh run must equal the one-rank run (placement changes
 execution, not math: ``tests/test_agent_mesh.py``, at its tolerances), on
 ``("data",)`` and on ``("data", "seq")`` — the case the reference xfails
 on jax drift runs here. Also the reference's validation errors, the
-refusals that name item 16.2, the composed kitchen-sink runs through a
+parameter axes and host envs on a mesh that pass them and ask for their
+ranks (``tests/test_torch_tp.py`` runs them), the composed kitchen-sink
+runs through a
 checkpoint, a mesh checkpoint restored on one rank, ``Population(mesh)``,
 and the train CLI under ``torch.distributed.run`` (rank 0 alone writes
 rows; a SIGTERM to rank 1 stops both ranks with the requeue code).
@@ -205,16 +207,20 @@ def test_population_validates_divisibility(group):
               mesh_axes=("data", "seq")), ValueError, "seq"),
     (cfg_with(mesh_shape=(2, 4), mesh_axes=("seq", "data")), ValueError,
      "batch/env axis"),
+    # parameter axes and host envs on a mesh run now: a valid config passes
+    # the validation and asks for its ranks (UnlaunchedMeshError, a
+    # RuntimeError naming torchrun); an invalid one raises the reference's
+    # ValueError
     (cfg_with(mesh_shape=(2, 2), mesh_axes=("data", "model")),
-     NotImplementedError, "item 16.2"),
+     RuntimeError, "torchrun"),
     (cfg_with(mesh_shape=(2, 2), mesh_axes=("data", "expert")),
-     NotImplementedError, "item 16.2"),
+     ValueError, "needs an MoE policy"),
     (cfg_with(mesh_shape=(2, 2, 2), mesh_axes=("data", "model", "expert")),
-     NotImplementedError, "item 16.2"),
-    (cfg_with(env="native:cartpole", mesh_shape=(2,)), NotImplementedError,
-     "item 16.2"),
-    (cfg_with(env="gym:CartPole-v1", mesh_shape=(2,)), NotImplementedError,
-     "item 16.2"),
+     ValueError, "do not compose"),
+    (cfg_with(env="native:cartpole", mesh_shape=(2,)), RuntimeError,
+     "torchrun"),
+    (cfg_with(env="gym:CartPole-v1", mesh_shape=(2,)), RuntimeError,
+     "torchrun"),
 ])
 def test_mesh_validation_errors(kw, error, match):
     # each is raised before any process group exists

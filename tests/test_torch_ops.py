@@ -169,10 +169,10 @@ def test_unported_paths_raise(override):
         return
     cfg = port_config.TRPOConfig(**override)
     if "env" in override:
-        # the gymproc: worker pool runs now (item 18.3): check_ported
-        # accepts it, its fields match the reference's, and the env builds
-        # a pool that steps
-        port_config.check_ported(cfg)
+        # the gymproc: worker pool runs now (item 18.3): nothing refuses
+        # it, its fields match the reference's, and the env builds a pool
+        # that steps
+        assert not hasattr(port_config, "check_ported")
         ref = tpu_config.TRPOConfig(**override)
         for name in ("env_step_timeout", "max_worker_restarts",
                      "min_env_workers", "worker_backoff", "inject_faults"):
@@ -186,20 +186,32 @@ def test_unported_paths_raise(override):
         finally:
             pool.close()
         return
-    # data and sequence parallelism run now (item 16.1): a "data" or
-    # ("data", "seq") mesh passes, and what is still refused — parameter
-    # axes and host-simulator envs on a mesh — names item 16.2
-    port_config.check_ported(cfg)
-    port_config.check_ported(port_config.TRPOConfig(
-        mesh_shape=(2, 2), mesh_axes=("data", "seq")))
-    for refused in ({"mesh_axes": ("data", "model")},
-                    {"mesh_axes": ("data", "expert")},
-                    {"mesh_axes": ("data",), "mesh_shape": (2,),
-                     "env": "gym:CartPole-v1"}):
-        kw = dict({"mesh_shape": (2, 2)}, **refused)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
-            port_config.check_ported(port_config.TRPOConfig(**kw))
-        assert "item 16.2" in str(e.value)
+    # every mesh runs now (items 16.1 and 16.2): the refusal helper is
+    # gone; a valid mesh passes the agent's validation and asks for its
+    # ranks (a RuntimeError naming torchrun, before any process group),
+    # and an invalid one raises the reference's ValueError
+    from trpo_torch.agent import TRPOAgent
+
+    assert not hasattr(port_config, "check_ported")
+    for kw, error, match in (
+            ({"mesh_shape": (2,)}, RuntimeError, "torchrun"),
+            ({"mesh_shape": (2, 2), "mesh_axes": ("data", "seq"),
+              "batch_timesteps": 256}, RuntimeError, "torchrun"),
+            ({"mesh_shape": (2, 2), "mesh_axes": ("data", "model")},
+             RuntimeError, "torchrun"),
+            ({"mesh_shape": (2, 2), "mesh_axes": ("data", "expert")},
+             ValueError, "needs an MoE policy"),
+            ({"mesh_shape": (2,), "env": "gym:CartPole-v1"},
+             RuntimeError, "torchrun")):
+        port_cfg = port_config.TRPOConfig(**kw)
+        with pytest.raises(error, match=match):
+            TRPOAgent(port_cfg.env, port_cfg, device="cpu")
+        if error is ValueError:   # the reference's own error
+            from trpo_tpu.agent import TRPOAgent as TpuAgent
+
+            with pytest.raises(error, match=match):
+                TpuAgent("cartpole", tpu_config.TRPOConfig(**kw))
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize(
@@ -216,10 +228,10 @@ def test_unported_paths_raise(override):
     ],
 )
 def test_control_plane_fields_are_ported(override):
-    # the serving control plane runs now: check_ported accepts its fields,
-    # and the port's config validates them as the reference's does
+    # the serving control plane runs now: nothing refuses its fields, and
+    # the port's config validates them as the reference's does
     cfg = port_config.TRPOConfig(**override)
-    port_config.check_ported(cfg)
+    assert not hasattr(port_config, "check_ported")
     ref = tpu_config.TRPOConfig(**override)
     for name in override:
         assert getattr(cfg, name) == getattr(ref, name)
@@ -245,7 +257,8 @@ def test_control_plane_fields_are_ported(override):
 def test_overlap_paths_are_ported(preset, override):
     cfg = (port_config.TRPOConfig(**override) if preset is None
            else port_config.get_preset(preset).replace(**override))
-    port_config.check_ported(cfg)
+    assert cfg.train_overlap == 1
+    assert not hasattr(port_config, "check_ported")
 
 
 @pytest.mark.parametrize(
@@ -274,7 +287,9 @@ def test_overlap_paths_are_ported(preset, override):
     ],
 )
 def test_ladder_and_fleet_paths_are_ported(override):
-    port_config.check_ported(port_config.TRPOConfig(**override))
+    cfg = port_config.TRPOConfig(**override)
+    assert all(getattr(cfg, k) == v for k, v in override.items())
+    assert not hasattr(port_config, "check_ported")
 
 
 def _spd(n, seed):

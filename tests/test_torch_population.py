@@ -206,13 +206,20 @@ class _FakeMesh:
         self.shape = {"data": n}
 
 
+def _on_a_mesh(agent):
+    """``agent`` as an agent on a data×model mesh looks to Population."""
+    agent.mesh = _FakeMesh(2)
+    return agent
+
+
 @pytest.mark.parametrize("make, kw, error, match", [
     (lambda: _agent(), dict(seeds=[]), ValueError, "at least one seed"),
     (lambda: _agent(), dict(seeds=[0, 1], lam=[0.9]), ValueError,
      "parallel to seeds"),
     # Population(mesh) runs now (item 16.1: tests/test_torch_agent_mesh.py
-    # steps one over two ranks); what it still refuses is the reference's
-    # divisibility error, and a mesh agent's parameter axes name item 16.2
+    # steps one over two ranks); what it refuses is the reference's:
+    # members that do not divide over the mesh, and an agent that is on a
+    # mesh itself (its population axis is the one to shard)
     (lambda: _agent(), dict(seeds=[0, 1, 2], mesh=_FakeMesh(2)),
      ValueError, "must divide evenly over the data=2 mesh axis"),
     (lambda: _agent(n_envs=8, batch_timesteps=128, rollout_chunk=4,
@@ -221,8 +228,8 @@ class _FakeMesh:
     (lambda: TRPOAgent("native:cartpole", TRPOConfig(
         env="native:cartpole", n_envs=2, batch_timesteps=16), device="cpu"),
      dict(seeds=[0]), ValueError, "device env"),
-    (lambda: _agent(mesh_shape=(2, 2), mesh_axes=("data", "model")),
-     dict(seeds=[0, 1]), NotImplementedError, "item 16.2"),
+    (lambda: _on_a_mesh(_agent()), dict(seeds=[0, 1]), ValueError,
+     "meshless agent"),
 ])
 def test_population_validates_inputs(make, kw, error, match):
     with pytest.raises(error, match=match):

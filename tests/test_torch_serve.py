@@ -886,6 +886,42 @@ def test_cli_serves_a_checkpoint_and_exits_on_sigterm(tmp_path):
             child.wait(timeout=30)
 
 
+def test_cli_exits_on_a_sigterm_delivered_to_another_thread(tmp_path):
+    """The kernel may deliver a process's SIGTERM to any thread; CPython
+    then runs the handler only when the main thread next runs bytecode. A
+    main thread parked in a lock wait without a timeout never does, and
+    the CLI outlived SIGTERM (seen under load): here a helper thread
+    directs the signal at itself once the server is up."""
+    agent = TRPOAgent("cartpole", get_preset("cartpole").replace(
+        policy_hidden=(8,), vf_hidden=(8,), n_envs=4), device="cpu")
+    Checkpointer(str(tmp_path / "ck")).save(3, agent.init_state(seed=0))
+    run_json = tmp_path / "run.json"
+    code = (
+        "import os, signal, sys, threading, time\n"
+        "from trpo_torch.serve.__main__ import main\n"
+        "def poke():\n"
+        f"    while not os.path.exists({str(run_json)!r}):\n"
+        "        time.sleep(0.05)\n"
+        "    signal.pthread_kill(threading.get_ident(), signal.SIGTERM)\n"
+        "threading.Thread(target=poke, daemon=True).start()\n"
+        "sys.exit(main(['--device', 'cpu', '--checkpoint-dir', "
+        f"{str(tmp_path / 'ck')!r}, '--port', '0', '--policy-hidden', '8', "
+        "'--vf-hidden', '8', '--n-envs', '4', '--run-descriptor', "
+        f"{str(run_json)!r}]))\n")
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    child = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        out_text, _ = child.communicate(timeout=90)
+        assert child.returncode == 0, out_text
+        assert "served 0 requests" in out_text
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+
+
 def test_background_httpd_post_limits_and_handler_errors():
     from trpo_torch.utils.httpd import BackgroundHTTPServer
 

@@ -78,12 +78,28 @@ def outputs(work, name: str, world: int) -> list:
     return out
 
 
-def _policy(spec):
+def _policy(spec, tp=None):
+    from trpo_torch.models.moe import make_moe_policy
     from trpo_torch.models.policy import BoxSpec, DiscreteSpec, make_policy
 
     kind, n = spec["act"]
     act = DiscreteSpec(n) if kind == "discrete" else BoxSpec(n)
-    return make_policy((spec["obs_dim"],), act, hidden=tuple(spec["hidden"]))
+    if spec.get("experts"):
+        return make_moe_policy((spec["obs_dim"],), act,
+                               hidden=tuple(spec["hidden"]),
+                               n_experts=spec["experts"], tp=tp)
+    return make_policy((spec["obs_dim"],), act, hidden=tuple(spec["hidden"]),
+                       tp=tp)
+
+
+def _tp_policy(spec, mesh, axis):
+    """The spec's policy with its forward over this rank's blocks of
+    ``axis``, and the layout: ``(policy, specs)``."""
+    from trpo_torch.parallel.tp import model_axis, policy_param_shardings
+
+    full = _policy(spec).init(torch.Generator().manual_seed(0))
+    specs = policy_param_shardings(full, mesh, axis)
+    return _policy(spec, model_axis(mesh, axis, specs)), specs
 
 
 def _params(policy, flat):
@@ -178,6 +194,59 @@ def job_sharded_update(args, inp):
     return out
 
 
+def job_tp_update(args, inp):
+    """The tree update of a policy sharded over ``args["axis"]`` on a
+    data×axis mesh: the gathered new params and the stats."""
+    from trpo_torch.config import TRPOConfig
+    from trpo_torch.ops.flat import tree_leaves
+    from trpo_torch.parallel import shard_batch
+    from trpo_torch.parallel.tp import (
+        gather_policy_params, shard_policy_params)
+    from trpo_torch.trpo import make_tree_trpo_update
+
+    mesh, axis = _mesh(args), args["axis"]
+    policy, specs = _tp_policy(args["policy"], mesh, axis)
+    full = _params(_policy(args["policy"]), inp["flat"])
+    local = shard_policy_params(full, mesh, axis, specs)
+    update = make_tree_trpo_update(policy, TRPOConfig(**args.get("cfg", {})),
+                                   group=mesh.group("data"))
+    new, stats = update(local, shard_batch(mesh, _batch(inp)))
+    first = [t for t in tree_leaves(local) if t.ndim >= 2][0]
+    return {"flat": _flat(gather_policy_params(new, mesh, specs, axis)),
+            "kl": stats.kl.numpy(), "grad_norm": stats.grad_norm.numpy(),
+            "step_norm": stats.step_norm.numpy(),
+            "success": stats.linesearch_success.numpy(),
+            "step_fraction": stats.step_fraction.numpy(),
+            "local_flat": _flat(new),
+            "first_shape": np.asarray(first.shape)}
+
+
+def job_tp_cg(args, inp):
+    """CG over this rank's entries of a vector laid out as the tree
+    ``{"a": (8, 4) split on dim 1, "b": (6,) replicated}``, with the
+    axis's inner product; the matvec gathers the whole vector."""
+    from trpo_torch.ops.allreduce import all_gather_cat
+    from trpo_torch.ops.cg import conjugate_gradient
+    from trpo_torch.parallel.tp import make_flat_space, model_axis
+
+    mesh = _mesh(args)
+    tp = model_axis(mesh, "model", {"a": 1, "b": None})
+    A = torch.from_numpy(inp["A"])
+    b = torch.from_numpy(inp["b"])
+    space = make_flat_space({"a": torch.zeros(8, 4 // tp.size),
+                             "b": torch.zeros(6)}, tp)
+    n_a = 8 * (4 // tp.size)
+
+    def whole(v):
+        a = all_gather_cat(v[:n_a].reshape(8, -1), tp.group, dim=1)
+        return torch.cat([a.reshape(-1), v[n_a:]])
+
+    x = conjugate_gradient(lambda v: (A @ whole(v))[space.index], b[space.index],
+                           cg_iters=args["iters"], dot=space.dot).x
+    return {"x": whole(x).numpy(),
+            "dot": space.dot(b[space.index], b[space.index]).numpy()}
+
+
 def job_mesh_validate(args, inp):
     from trpo_torch.parallel import make_mesh
 
@@ -252,25 +321,53 @@ def job_agent_iterations(args, inp):
     from trpo_torch.utils.checkpoint import Checkpointer
 
     agent = _agent(args)
-    state, stats = agent.run_iterations(agent.init_state(args.get("seed", 0)),
-                                        args["n"])
-    out = {"flat": _flat(state.policy_params),
+    if args.get("restore"):
+        # a checkpoint written elsewhere (one rank, or another layout)
+        ck = Checkpointer(args["restore"], mesh=agent.mesh,
+                          param_layout=agent.param_layout)
+        state = ck.restore(agent.init_state(args.get("seed", 0)))
+        return {"flat": _flat(agent.gather_params(state.policy_params)),
+                "local_flat": _flat(state.policy_params)}
+    try:
+        state = agent.init_state(args.get("seed", 0))
+    except ValueError as e:
+        return {"error": np.asarray(str(e))}
+    local_flat = _flat(state.policy_params)
+    state, stats = agent.run_iterations(state, args["n"])
+    out = {"flat": _flat(agent.gather_params(state.policy_params)),
+           "init_local_flat": local_flat,
            "kl": stats["kl_old_new"].numpy(),
            "entropy": stats["entropy"].numpy(),
            "episodes": stats["episodes_in_batch"].numpy(),
-           "total_timesteps": np.asarray(state.total_timesteps),
-           "carry_obs": state.env_carry[1].numpy()}
+           "total_timesteps": np.asarray(state.total_timesteps)}
+    if state.env_carry is not None:
+        out["carry_obs"] = state.env_carry[1].numpy()
     if state.obs_norm is not None:
         out["obs_norm_count"] = state.obs_norm.count.numpy()
     if state.cg_damping is not None:
         out["cg_damping"] = state.cg_damping.numpy()
     if args.get("ckpt"):
-        ck = Checkpointer(args["ckpt"], mesh=agent.mesh)
-        ck.save(args["n"], state)
+        if agent.param_layout is not None:
+            # blocks this checkpointer could not place: refused
+            try:
+                Checkpointer(args["ckpt"] + "_no_layout",
+                             mesh=agent.mesh).save(args["n"], state)
+                out["no_layout_error"] = np.asarray("")
+            except ValueError as e:
+                out["no_layout_error"] = np.asarray(str(e))
+        ck = Checkpointer(args["ckpt"], mesh=agent.mesh,
+                          param_layout=agent.param_layout)
+        ck.save(args["n"], state, host_env=agent.snapshot_host_env())
         restored = ck.restore(agent.init_state(args.get("seed", 0)))
+        out["restored_flat"] = _flat(agent.gather_params(
+            restored.policy_params))
+        out["restored_local_equal"] = np.asarray(np.array_equal(
+            _flat(restored.policy_params), _flat(state.policy_params)))
         out["restored_damping"] = (np.asarray(float("nan"))
                                    if restored.cg_damping is None
                                    else restored.cg_damping.numpy())
+        if not args.get("more"):
+            return out
         s1, st1 = agent.run_iterations(state, args["more"])
         s2, st2 = agent.run_iterations(restored, args["more"])
         out.update(entropy_cont=st1["entropy"].numpy(),
@@ -279,6 +376,55 @@ def job_agent_iterations(args, inp):
                    damping_resumed=(np.asarray(float("nan"))
                                     if s2.cg_damping is None
                                     else s2.cg_damping.numpy()))
+    return out
+
+
+def job_peer_desync(args, inp):
+    """A host env on a data×model mesh whose model peers' envs part (one
+    rank's env state moved, as a worker restart there alone would):
+    ``n`` iterations, the move on ``part_ranks``, one more."""
+    agent = _agent(args)
+    state, _ = agent.run_iterations(agent.init_state(0), args["n"])
+    if dist.get_rank() in args["part_ranks"]:
+        agent.env._state[0] += 0.5
+    try:
+        agent.run_iterations(state, 1)
+    except RuntimeError as e:
+        return {"error": np.asarray(str(e))}
+    return {"error": np.asarray("")}
+
+
+def job_host_learn(args, inp):
+    """``learn`` over ``n`` iterations on a host-env mesh; then, when
+    ``more`` is given, one of rank ``fault_rank``'s env workers killed (a
+    fault of that rank alone, revived by its supervisor) and ``more``
+    iterations on. The gathered params and the observation statistics
+    after each part, and the worker restarts."""
+    import io
+
+    from trpo_torch.utils.metrics import StatsLogger
+
+    agent = _agent(args)
+    quiet = lambda: StatsLogger(stream=io.StringIO())  # noqa: E731
+    out = {}
+    try:
+        state = agent.learn(n_iterations=args["n"], logger=quiet())
+        parts = [("", state)]
+        if args.get("more"):
+            if dist.get_rank() == args["fault_rank"]:
+                agent.env.env._procs[0].kill()
+            state = agent.learn(n_iterations=args["more"], state=state,
+                                logger=quiet())
+            parts.append(("fault_", state))
+            out["restarts"] = np.asarray(sum(agent.env.restarts.values()))
+        for tag, s in parts:
+            out[tag + "flat"] = _flat(agent.gather_params(s.policy_params))
+            out[tag + "iteration"] = np.asarray(s.iteration)
+            for field in ("count", "mean", "m2"):
+                out[f"{tag}obs_norm_{field}"] = getattr(
+                    s.obs_norm, field).numpy()
+    finally:
+        agent.env.close()
     return out
 
 

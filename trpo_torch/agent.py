@@ -83,10 +83,20 @@ observation statistics, the episode stats) is an all-reduce over that
 axis, and the update takes the Gauss-Newton operator, as on the
 reference's mesh. A ``"seq"`` axis runs GAE sequence-parallel
 (``parallel/seq.py``): the ranks of one ``data`` coordinate roll out the
-same envs and each scans its block of time on K2. Only rank 0 writes rows,
-checkpoints (``utils/checkpoint.py`` gathers the carry) and telemetry;
-a preemption signal to any rank stops every rank at the same iteration
-boundary.
+same envs and each scans its block of time on K2. A ``"model"`` or
+``"expert"`` axis shards the policy (``parallel/tp.py``): each rank
+holds its blocks, runs the sharded forward in the rollout and the
+update, and the update solves over the blocks with the axis's inner
+product (``trpo.make_trpo_update`` on a sharded policy), as the
+reference's agent switches to its tree update there. Host envs run on a
+mesh too: each data rank steps its slice of the envs, seeded by global
+env index, folds every rank's observations into the statistics, and
+checkpoints gather the sidecar; the ranks of one data coordinate step
+copies of the same envs, compared once a window (a worker restart on one
+of them alone raises). Only rank 0 writes rows, checkpoints
+(``utils/checkpoint.py`` gathers the carry and the params) and
+telemetry; a preemption signal to any rank stops every rank at the same
+iteration boundary.
 """
 
 from __future__ import annotations
@@ -102,7 +112,7 @@ import numpy as np
 import torch
 
 from trpo_torch import envs as envs_lib
-from trpo_torch.config import TRPOConfig, check_ported
+from trpo_torch.config import TRPOConfig
 from trpo_torch.envs.episode_stats import RunningEpisodeMean
 from trpo_torch.models.conv import exact_convolutions
 from trpo_torch.models.moe import make_moe_policy
@@ -210,7 +220,6 @@ class TRPOAgent:
     def __init__(self, env, config: Optional[TRPOConfig] = None,
                  device=None):
         cfg = config or TRPOConfig()
-        check_ported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         if cfg.debug_nans:
@@ -222,6 +231,7 @@ class TRPOAgent:
         self.mesh = None
         self._group = self._seq_group = None
         self._dp, self._dp_rank = 1, 0
+        self._tp_axis = self._tp_specs = None
         if cfg.mesh_shape is not None:
             self._setup_mesh()
         if isinstance(env, str):
@@ -246,6 +256,10 @@ class TRPOAgent:
                     # a dead or hung worker raises WorkerDiedError instead
                     # of hanging host_step (0/None = wait forever)
                     kwargs["step_timeout"] = cfg.env_step_timeout
+                if self.mesh is not None:
+                    # this data rank's slice of the envs, seeded as the
+                    # one-rank run seeds those global indices
+                    kwargs["env_offset"] = self._dp_rank * self.n_envs
             else:
                 kwargs["device"] = self.device
             env = envs_lib.make(env, max_episode_steps=cfg.max_pathlength,
@@ -262,14 +276,12 @@ class TRPOAgent:
                 backoff_base=cfg.worker_backoff))
         self.env = env
         self.is_device_env = envs_lib.is_device_env(env)
-        if self.mesh is not None and not self.is_device_env:
-            raise NotImplementedError(
-                "a host-simulator env on a mesh is not ported to trpo_torch "
-                "yet (ROADMAP.md Queue 1 item 16.2); drop mesh_shape")
         # the rollout's env: on a mesh, resets draw every rank's envs from
         # the shared generator and keep this rank's slice
         self._roll_env = env
-        if self.mesh is not None:
+        if self.mesh is not None and not self.is_device_env:
+            self._setup_host_mesh()
+        elif self.mesh is not None:
             from trpo_torch.parallel.sharded import LocalSliceEnv
 
             self._roll_env = LocalSliceEnv(env, self._dp_rank, self._dp)
@@ -298,24 +310,18 @@ class TRPOAgent:
                       activation=cfg.policy_activation,
                       init_log_std=cfg.init_log_std,
                       compute_dtype=compute_dtype)
-        if cfg.policy_gru is not None:
-            if cfg.policy_experts is not None:
-                raise ValueError(
-                    "policy_gru and policy_experts are mutually exclusive "
-                    "(no recurrent-MoE model family)"
-                )
-            self.policy = make_recurrent_policy(
-                self.obs_shape, action_spec, gru_size=cfg.policy_gru,
-                cell=cfg.policy_cell, **family)
-        elif cfg.policy_experts is not None:
-            self.policy = make_moe_policy(
-                self.obs_shape, action_spec,
-                n_experts=cfg.policy_experts, **family)
-        else:
-            self.policy = make_policy(self.obs_shape, action_spec,
-                                      **family)
-            if len(self.obs_shape) == 3:
-                exact_convolutions()
+        if cfg.policy_gru is not None and cfg.policy_experts is not None:
+            raise ValueError(
+                "policy_gru and policy_experts are mutually exclusive "
+                "(no recurrent-MoE model family)"
+            )
+        make = self._policy_family(action_spec, family)
+        self.policy = make()
+        if cfg.policy_gru is None and cfg.policy_experts is None \
+                and len(self.obs_shape) == 3:
+            exact_convolutions()
+        if self._tp_axis is not None:
+            self._setup_param_axis(make)
         self.is_recurrent = cfg.policy_gru is not None
         vf_dim = int(math.prod(self.obs_shape))
         if self.is_recurrent:
@@ -336,10 +342,13 @@ class TRPOAgent:
         # the fused kernel). A mesh run therefore launches no K1:
         # parallel/sharded.py's make_sharded_fused_fvp, which runs K1 on
         # each rank's rows, is not on the training path
-        self.trpo_update = (
-            make_trpo_update(self.policy, cfg) if self.mesh is None
-            else make_trpo_update(self.policy, cfg, group=self._group,
-                                  allow_fused=False))
+        # (on a parameter axis the update solves over this rank's blocks
+        # with the axis's inner products: the reference's tree update)
+        if self.mesh is None:
+            self.trpo_update = make_trpo_update(self.policy, cfg)
+        else:
+            self.trpo_update = make_trpo_update(
+                self.policy, cfg, group=self._group, allow_fused=False)
         if self._overlap:
             # the update split at the solve → line-search seam, so the
             # learner's stage times are real
@@ -379,9 +388,14 @@ class TRPOAgent:
                 'mesh axes "model" and "expert" do not compose in one '
                 "mesh — pick one parameter-sharding axis")
         if param_axes:
-            raise NotImplementedError(
-                f'a "{param_axes[0]}" mesh axis (parameter sharding) is not '
-                "ported to trpo_torch yet (ROADMAP.md Queue 1 item 16.2)")
+            # "model": Megatron col/row tensor parallelism; "expert": whole
+            # experts per rank (models/moe.py). Either way the update is
+            # the tree update over this rank's blocks (parallel/tp.py)
+            self._tp_axis = param_axes[0]
+            if self._tp_axis == "expert" and cfg.policy_experts is None:
+                raise ValueError(
+                    'an "expert" mesh axis needs an MoE policy — set '
+                    "policy_experts")
         if "seq" in axes[1:]:
             sp = shape[axes.index("seq")]
             if self.n_steps % sp != 0:
@@ -396,6 +410,58 @@ class TRPOAgent:
         if "seq" in axes[1:]:
             self._seq_group = self.mesh.group("seq")
         self.n_envs //= dp
+
+    def _policy_family(self, action_spec, family):
+        """``make(tp=None)``: the config's policy family (recurrent with
+        ``policy_gru``, MoE with ``policy_experts``, else MLP or conv) over
+        this env's spaces, its forward on this rank's blocks with ``tp``."""
+        cfg = self.cfg
+        if cfg.policy_gru is not None:
+            return lambda tp=None: make_recurrent_policy(
+                self.obs_shape, action_spec, gru_size=cfg.policy_gru,
+                cell=cfg.policy_cell, tp=tp, **family)
+        if cfg.policy_experts is not None:
+            return lambda tp=None: make_moe_policy(
+                self.obs_shape, action_spec, n_experts=cfg.policy_experts,
+                tp=tp, **family)
+        return lambda tp=None: make_policy(self.obs_shape, action_spec,
+                                           tp=tp, **family)
+
+    def _setup_param_axis(self, make) -> None:
+        """The split of every policy leaf over the parameter axis (from a
+        throwaway init: the layout depends on the shapes only), and the
+        policy rebuilt to run its forward on this rank's blocks."""
+        from trpo_torch.parallel.tp import model_axis, policy_param_shardings
+
+        full = self.policy.init(torch.Generator().manual_seed(0))
+        self._tp_specs = policy_param_shardings(full, self.mesh,
+                                                self._tp_axis)
+        self.policy = make(model_axis(self.mesh, self._tp_axis,
+                                      self._tp_specs))
+
+    def _setup_host_mesh(self) -> None:
+        """Host envs on a mesh: this data rank steps its slice of the
+        envs (built with the slice's global offset), the observation
+        statistics fold every data rank's rows of a step in global row
+        order, and the host pipeline's groups are this rank's share of
+        the one-rank run's groups."""
+        from trpo_torch.ops.allreduce import all_gather_cat
+
+        if self.cfg.host_pipeline_groups > 1 and (
+                self.cfg.host_pipeline_groups % self._dp):
+            raise ValueError(
+                f"host_pipeline_groups={self.cfg.host_pipeline_groups} "
+                f"must divide evenly over the {self.mesh.axis_names[0]}="
+                f"{self._dp} mesh axis (each data rank steps its share of "
+                "the groups)")
+        group, dev = self._group, self.device
+
+        def gather(batch: np.ndarray) -> np.ndarray:
+            t = torch.from_numpy(np.ascontiguousarray(batch)).to(dev)
+            return all_gather_cat(t, group).cpu().numpy()
+
+        if getattr(self.env, "has_obs_norm", False):
+            self.env.fold_across(gather)
 
     def _sampling_policy(self, policy):
         """``policy`` for the rollout: on a mesh its samples draw the noise
@@ -441,7 +507,8 @@ class TRPOAgent:
                 raise ValueError(
                     f"{type(self.env).__name__} has no host_step_slice — "
                     "group stepping is unavailable for this adapter")
-            env_count = getattr(self.env, "n_envs", self.n_envs)
+            # on a mesh the adapter holds this data rank's slice
+            env_count = getattr(self.env, "n_envs", self.n_envs) * self._dp
             if cfg.host_pipeline_groups > env_count:
                 raise ValueError(
                     f"host_pipeline_groups={cfg.host_pipeline_groups} "
@@ -461,6 +528,8 @@ class TRPOAgent:
         g_vf = torch.Generator().manual_seed(seed + 1)
         rng = torch.Generator(device=self.device).manual_seed(seed + 2)
         policy_params = _to(self.policy.init(g_policy), self.device)
+        if self._tp_axis is not None:
+            policy_params = self._shard_params(policy_params)
         if self.is_device_env:
             env_carry = init_env_states(self._roll_env, self.n_envs, rng,
                                         policy=self.policy)
@@ -496,6 +565,45 @@ class TRPOAgent:
             if self._host_inference_cpu else None,
             metrics=init_device_metrics(self.device),
         )
+
+    def _shard_params(self, params):
+        """This rank's blocks of full policy params; a layout that splits
+        no leaf raises the reference's error."""
+        from trpo_torch.parallel.tp import shard_policy_params, shards_anything
+
+        if not shards_anything(self._tp_specs):
+            mp = self.mesh.shape[self._tp_axis]
+            if self._tp_axis == "expert":
+                dims = f"n_experts={self.cfg.policy_experts}"
+            else:
+                dims = f"hidden={tuple(self.cfg.policy_hidden)}"
+                if self.is_recurrent:
+                    dims += f", gru_size={self.cfg.policy_gru}"
+            raise ValueError(
+                f"parameter sharding over {self._tp_axis}={mp} shards "
+                f"nothing: no policy dimension ({dims}) divides the axis — "
+                "resize the model or the mesh")
+        return shard_policy_params(params, self.mesh, self._tp_axis,
+                                   self._tp_specs)
+
+    @property
+    def param_layout(self):
+        """``(axis, split dims of the policy's leaves)`` on a parameter
+        axis, else None: what ``Checkpointer(mesh=, param_layout=)``
+        gathers and cuts the params by."""
+        if self._tp_axis is None:
+            return None
+        return self._tp_axis, self._tp_specs
+
+    def gather_params(self, params):
+        """Full policy params from this rank's blocks (a collective over
+        the parameter axis); ``params`` itself without one."""
+        if self._tp_axis is None:
+            return params
+        from trpo_torch.parallel.tp import gather_policy_params
+
+        return gather_policy_params(params, self.mesh, self._tp_specs,
+                                    self._tp_axis)
 
     def _check_finite(self, stage: str, tree) -> None:
         """``cfg.debug_nans``: raise ``FloatingPointError`` naming
@@ -833,10 +941,14 @@ class TRPOAgent:
 
     def _make_host_act(self):
         """The cached act function of the training rollouts; CPU inference
-        has no device round trip to save, so it fetches unpacked."""
+        has no device round trip to save, so it fetches unpacked. On a
+        mesh the serial rollout samples the global noise; the pipeline's
+        groups each draw from their own generator already."""
         if self._host_act_fn is None:
+            policy = (self.policy if self.cfg.host_pipeline_groups > 1
+                      else self._sampling_policy(self.policy))
             self._host_act_fn = make_host_act_fn(
-                self.policy, pack=not self._host_inference_cpu)
+                policy, pack=not self._host_inference_cpu)
         return self._host_act_fn
 
     def _rollout_inputs(self, train_state: TrainState):
@@ -858,11 +970,14 @@ class TRPOAgent:
         params, gen = self._rollout_inputs(train_state)
         act_fn = self._make_host_act()
         if cfg.host_pipeline_groups > 1:
+            n_groups = cfg.host_pipeline_groups // self._dp
             traj = pipelined_host_rollout(
                 self.env, self.policy, params, gen, self.n_steps,
-                n_groups=cfg.host_pipeline_groups, act_fn=act_fn,
+                n_groups=n_groups, act_fn=act_fn,
                 stage_to_device=cfg.host_staged_transfers,
-                device=self.device, timer=timer)
+                device=self.device, timer=timer,
+                group_offset=self._dp_rank * n_groups,
+                total_groups=cfg.host_pipeline_groups)
         elif self.is_recurrent:
             policy_state = train_state.env_carry
             if self._host_env_reset_pending:
@@ -883,24 +998,61 @@ class TRPOAgent:
         if self._obs_norm_host:
             train_state = train_state._replace(
                 obs_norm=self._host_obs_norm())
+        if self._tp_axis is not None:
+            self._check_model_peers(traj)
         return train_state, traj
+
+    def _check_model_peers(self, traj) -> None:
+        """The ranks of one data coordinate step copies of the same host
+        envs, which stay equal by determinism alone: a worker restart on
+        one of them (a fault its peers do not share) parts the copies, and
+        the sharded forward would then mix their rows. One all-gather a
+        window over every rank compares the window's observations within
+        each data coordinate, and every rank raises when any differ (so no
+        rank is left waiting in a collective)."""
+        import torch.distributed as dist
+
+        x = torch.cat([leaf.reshape(-1).double()
+                       for leaf in tree_leaves(traj.obs)])
+        sig = all_gather_cat(torch.stack([
+            torch.tensor(float(self._dp_rank), dtype=torch.float64,
+                         device=x.device), x.sum(), (x * x).sum()])[None],
+            dist.group.WORLD).cpu()
+        if any(len({tuple(r[1:].tolist()) for r in sig if r[0] == d}) > 1
+               for d in range(self._dp)):
+            raise RuntimeError(
+                f'the host envs of this data rank\'s "{self._tp_axis}" '
+                "peers no longer agree (a worker restarted on one of them "
+                "alone): a host env on a parameter axis cannot go on from "
+                "such a fault — resume from the last checkpoint")
 
     def snapshot_host_env(self):
         """The host simulator's resume state, or None (device envs keep
-        theirs in ``TrainState.env_carry``)."""
+        theirs in ``TrainState.env_carry``). On a mesh every rank calls
+        it: the per-env entries of every data rank's snapshot are gathered
+        in rank order, into the snapshot a one-rank run takes."""
         if self.is_device_env or not hasattr(self.env,
                                              "env_state_snapshot"):
             return None
-        return self.env.env_state_snapshot()
+        snap = self.env.env_state_snapshot()
+        if self.mesh is None:
+            return snap
+        return _map_env_axis(snap, self.n_envs,
+                             lambda x: _gather_objects(x, self._group))
 
     def restore_host_env(self, snapshot) -> None:
-        """Install a :meth:`snapshot_host_env` snapshot (None: nothing)."""
+        """Install a :meth:`snapshot_host_env` snapshot (None: nothing);
+        on a mesh, this data rank's slice of it."""
         if snapshot is None:
             return
         if self.is_device_env or not hasattr(self.env, "env_state_restore"):
             raise ValueError(
                 "this agent's env has no host snapshot surface — the "
                 "sidecar belongs to a gym:/native: adapter run")
+        if self.mesh is not None:
+            lo = self._dp_rank * self.n_envs
+            snapshot = _map_env_axis(snapshot, self.n_envs * self._dp,
+                                     lambda x: x[lo:lo + self.n_envs])
         self.env.env_state_restore(snapshot)
 
     def run_iterations(self, train_state: TrainState, n: int):
@@ -990,6 +1142,16 @@ class TRPOAgent:
             return np.dtype(obs_dtype)
         return np.uint8 if len(self.obs_shape) == 3 else np.float32
 
+    def _check_whole_params(self) -> None:
+        """Serving runs one process over whole params: a policy sharded
+        over a parameter axis serves from its gathered checkpoint."""
+        if self._tp_axis is not None:
+            raise ValueError(
+                f'this agent shards its policy over a "{self._tp_axis}" mesh '
+                "axis; a serving engine runs whole params in one process — "
+                "build it on a meshless agent and load the checkpoint this "
+                "run writes (gathered, as a one-rank run writes it)")
+
     def serve_engine(self, batch_shapes=None, obs_dtype=None):
         """The policy-inference engine over this agent's policy
         (``serve/engine.InferenceEngine``): eval-mode ``act`` at a fixed
@@ -1002,6 +1164,7 @@ class TRPOAgent:
         Feedforward policies only."""
         from trpo_torch.serve.engine import InferenceEngine
 
+        self._check_whole_params()
         if self.is_recurrent:
             raise ValueError(
                 "serve_engine supports feedforward policies only — a "
@@ -1027,6 +1190,7 @@ class TRPOAgent:
         /session`` protocol. Recurrent policies only."""
         from trpo_torch.serve.session import RecurrentServeEngine
 
+        self._check_whole_params()
         if not self.is_recurrent:
             raise ValueError(
                 "serve_session_engine supports recurrent policies only — "
@@ -1186,6 +1350,7 @@ class TRPOAgent:
         if self.mesh is not None:
             if checkpointer is not None and checkpointer.mesh is None:
                 checkpointer.mesh = self.mesh
+                checkpointer.param_layout = self.param_layout
             if not self.mesh.is_writer:
                 quiet = open(os.devnull, "w")
                 logger, telemetry = StatsLogger(stream=quiet), None
@@ -1769,6 +1934,23 @@ class TRPOAgent:
 
         cur, pending = state, None
         prev_t = time.perf_counter()
+        stop = False
+
+        def agreed_flags():
+            """``(stop, recover)``: the drain's stop request and a pending
+            NaN recovery. On a mesh, as any rank sees them (one all-reduce
+            MAX): the drain thread reaches a row at a different moment on
+            each rank, and every rank must take the same branch (after a
+            ``drain.drain()`` each has the flag itself)."""
+            flags = (drain.stop_requested,
+                     recovery is not None and recovery.pending is not None)
+            if self.mesh is None:
+                return flags
+            import torch.distributed as dist
+
+            got = all_max(torch.tensor([int(f) for f in flags],
+                                       device=self.device), dist.group.WORLD)
+            return bool(got[0]), bool(got[1])
 
         def land_b() -> None:
             """Make the pending phase B's critic the state's (the main
@@ -1787,7 +1969,11 @@ class TRPOAgent:
         try:
             j = 0
             while True:
-                if j >= n_iterations or drain.stop_requested:
+                if self.mesh is not None:
+                    self._agree_preempt(guard)
+                if j >= n_iterations or (
+                        stop if self.mesh is not None
+                        else drain.stop_requested):
                     land_b()
                     drain.drain()
                     if recovery is not None and recovery.pending is not None:
@@ -1832,7 +2018,8 @@ class TRPOAgent:
                         checkpointer.save(i + 1, cur,
                                           host_env=self.snapshot_host_env())
                 drain.raise_if_failed()
-                if recovery is not None and recovery.pending is not None:
+                stop, recover = agreed_flags()
+                if recover:
                     land_b()
                     drain.drain()
                     restored_at, cur = recovery.recover()
@@ -1842,7 +2029,7 @@ class TRPOAgent:
                     # host-side gauges only, never a device read
                     telemetry.observe_drain(drain.depth, drain.high_water,
                                             drain.maxsize)
-                if drain.stop_requested:
+                if stop:
                     continue  # the epilogue above lands phase B first
                 j += 1
             if injector is not None:
@@ -1850,6 +2037,28 @@ class TRPOAgent:
         finally:
             drain.close()
         return cur
+
+
+def _map_env_axis(snap: dict, n: int, fn) -> dict:
+    """``snap`` with ``fn`` applied to every entry whose leading axis is
+    the ``n`` envs (arrays, and per-env lists such as simulator states)."""
+    def per_env(x):
+        return (isinstance(x, list) and len(x) == n) or (
+            isinstance(x, np.ndarray) and x.ndim >= 1 and x.shape[0] == n)
+
+    return {k: fn(v) if per_env(v) else v for k, v in snap.items()}
+
+
+def _gather_objects(items, group):
+    """Every rank's list or array joined in rank order along its first
+    axis (pickled: a checkpoint-time collective, any dtype)."""
+    import torch.distributed as dist
+
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, items, group=group)
+    if isinstance(items, list):
+        return [x for part in parts for x in part]
+    return np.concatenate(parts)
 
 
 def _host_row(stats: dict) -> dict:

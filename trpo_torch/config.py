@@ -8,20 +8,15 @@ configuration round-trips, the telemetry fields (``status_port``,
 supervised worker pool's (``env_step_timeout``, ``max_worker_restarts``,
 ``min_env_workers``, ``worker_backoff``) and ``inject_faults``, parsed at
 construction, and the mesh fields ``mesh_shape``/``mesh_axes``: data
-parallelism over a ``"data"`` axis and sequence parallelism over a
-``"seq"`` axis (``parallel/``), one process per rank.
+parallelism over a ``"data"`` axis, sequence parallelism over a
+``"seq"`` axis and parameter sharding over a ``"model"`` or ``"expert"``
+axis (``parallel/``), one process per rank, with device or host envs.
 
 Differences from the reference:
 
 * ``scan_backend`` is gone. The port has one reverse affine scan
   (``ops/reverse_scan.py``): the CUDA kernel on a CUDA tensor and the plain
   loop on a CPU tensor.
-* A path that is not ported yet raises ``NotImplementedError`` naming the
-  ``ROADMAP.md`` item that ports it (:func:`check_ported`): a ``"model"``
-  or ``"expert"`` mesh axis (parameter sharding) and a host-simulator env
-  on a mesh, both item 16.2. They are never silently ignored. The check runs where a path would be taken (agent
-  and update construction), not in ``__post_init__``, so every preset
-  copied from the reference stays constructible.
 * ``debug_nans`` cannot set ``jax_debug_nans``. Its counterpart turns on
   ``torch.autograd.set_detect_anomaly`` (process-wide, as the reference's
   flag is) and checks every stage's outputs for nonfinite values — the
@@ -41,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-__all__ = ["TRPOConfig", "PRESETS", "get_preset", "check_ported"]
+__all__ = ["TRPOConfig", "PRESETS", "get_preset"]
 
 
 @dataclasses.dataclass
@@ -584,29 +579,6 @@ class TRPOConfig:
 
     def replace(self, **kw) -> "TRPOConfig":
         return dataclasses.replace(self, **kw)
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to trpo_torch yet (ROADMAP.md Queue 1 "
-        f"{item}); use trpo_tpu for it, or turn it off"
-    )
-
-
-def check_ported(cfg: TRPOConfig) -> None:
-    """Raise ``NotImplementedError`` for every configured path the port
-    does not run yet, naming the ROADMAP item that ports it."""
-    if cfg.mesh_shape is None:
-        return
-    for axis in ("model", "expert"):
-        if axis in tuple(cfg.mesh_axes):
-            _not_ported(f'a "{axis}" mesh axis (parameter sharding)',
-                        "item 16.2")
-    from trpo_torch.envs import HOST_PREFIXES
-
-    if str(cfg.env).startswith(HOST_PREFIXES):
-        _not_ported(f"a host-simulator env ({cfg.env!r}) on a mesh",
-                    "item 16.2")
 
 
 # ---------------------------------------------------------------------------

@@ -33,7 +33,11 @@ class GymVecEnv(EpisodeStatsMixin, ObsNormMixin):
     """N synchronous gymnasium envs with explicit pre-reset final obs."""
 
     def __init__(self, env_id: str, n_envs: int = 8, seed: int = 0,
-                 normalize_obs: bool = False, **kwargs):
+                 normalize_obs: bool = False, env_offset: int = 0,
+                 **kwargs):
+        """``env_offset``: these envs are ``[env_offset, env_offset +
+        n_envs)`` of a wider fleet (a data rank's slice on a mesh), so env
+        ``i`` is seeded as that fleet's env ``env_offset + i``."""
         try:
             import gymnasium
         except ImportError as e:
@@ -43,6 +47,8 @@ class GymVecEnv(EpisodeStatsMixin, ObsNormMixin):
             ) from e
         self.env_id = env_id
         self.n_envs = n_envs
+        self.env_offset = env_offset
+        seed = seed + env_offset
         self.envs = []
         try:
             for _ in range(n_envs):
@@ -121,7 +127,10 @@ class GymVecEnv(EpisodeStatsMixin, ObsNormMixin):
 
     def reset_all(self, seed=None) -> np.ndarray:
         """Hard-reset every env (``seed`` reseeds env ``i`` with
-        ``seed + i``); returns a copy of the new observations."""
+        ``seed + env_offset + i``); returns a copy of the new
+        observations."""
+        if seed is not None:
+            seed = seed + self.env_offset
         self._obs = self._fold_and_normalize(np.stack(
             [env.reset(seed=None if seed is None else seed + i)[0]
              for i, env in enumerate(self.envs)]))

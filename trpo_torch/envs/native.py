@@ -92,7 +92,11 @@ class NativeVecEnv(EpisodeStatsMixin, ObsNormMixin):
 
     def __init__(self, kind: str = "cartpole", n_envs: int = 8,
                  seed: int = 0, max_episode_steps: Optional[int] = None,
-                 normalize_obs: bool = False):
+                 normalize_obs: bool = False, env_offset: int = 0):
+        """``env_offset``: these envs are ``[env_offset, env_offset +
+        n_envs)`` of a wider fleet (a data rank's slice on a mesh): their
+        RNG streams are that fleet's, which the C++ seeds by global env
+        index, so the slice starts where the one-rank run's envs do."""
         if kind not in _KINDS:
             raise KeyError(
                 f"unknown native env {kind!r}; have {sorted(_KINDS)}")
@@ -110,14 +114,22 @@ class NativeVecEnv(EpisodeStatsMixin, ObsNormMixin):
         self._discrete = discrete
         self._state = np.zeros((n_envs, state_w), np.float32)
         self._t = np.zeros(n_envs, np.int32)
-        self._rng = np.zeros(n_envs, np.uint64)
-        self._lib.trpo_native_seed(self._rng, n_envs, np.uint64(seed))
+        self.env_offset = env_offset
+        self._rng = self._seeded(seed)
         self._reset = getattr(self._lib, f"trpo_native_{kind}_reset")
         self._step = getattr(self._lib, f"trpo_native_{kind}_step")
         self._reset(self._state, self._t, self._rng, n_envs)
         self._init_obs_norm(self.obs_shape, normalize_obs)
         self._obs = self._fold_and_normalize(self._observe())
         self._init_episode_stats(n_envs)
+
+    def _seeded(self, seed: int) -> np.ndarray:
+        """The RNG streams of envs ``[env_offset, env_offset + n_envs)``
+        of a fleet seeded with ``seed``."""
+        n = self.env_offset + self.n_envs
+        rng = np.zeros(n, np.uint64)
+        self._lib.trpo_native_seed(rng, n, np.uint64(seed))
+        return np.ascontiguousarray(rng[self.env_offset:])
 
     def _observe(self) -> np.ndarray:
         if self.kind == "cartpole":
@@ -160,8 +172,7 @@ class NativeVecEnv(EpisodeStatsMixin, ObsNormMixin):
         """Hard-reset every env (``seed`` reseeds the per-env streams);
         returns a copy of the new observations."""
         if seed is not None:
-            self._lib.trpo_native_seed(self._rng, self.n_envs,
-                                       np.uint64(seed))
+            self._rng[:] = self._seeded(seed)
         self._reset(self._state, self._t, self._rng, self.n_envs)
         self._obs = self._fold_and_normalize(self._observe())
         self._running_returns[:] = 0.0

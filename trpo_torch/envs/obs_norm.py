@@ -15,6 +15,14 @@ deferred mode (:meth:`ObsNormMixin.begin_deferred_fold`) a window
 normalizes under the statistics of its start and the raw batches are
 merged afterwards in group order: the result does not depend on how the
 threads interleaved.
+
+On a mesh each data rank's adapter holds a slice of the envs, and
+:meth:`ObsNormMixin.fold_across` makes every fold take the batch of all
+ranks (an all-gather, in global row order), so the statistics are the
+one-rank run's; a deferred window's batches are gathered once at its end
+and merged rank by rank, the one-rank run's group order. Each fold is a
+collective, so every rank folds at the same points: the reset rows of a
+restarted worker (one rank's fault) are normalized and not folded there.
 """
 
 from __future__ import annotations
@@ -36,14 +44,22 @@ class ObsNormMixin:
         self._norm_frozen = False
         self._norm_lock = threading.Lock()
         self._deferred = None
+        self._fold_gather = None
         if self.has_obs_norm:
             self._n_count = 0.0
             self._n_mean = np.zeros(obs_shape, np.float64)
             self._n_m2 = np.zeros(obs_shape, np.float64)
 
     def _fold(self, obs_batch: np.ndarray) -> None:
-        """Chan/Welford-merge a raw batch into the statistics; the caller
-        holds the lock."""
+        """Fold a raw batch into the statistics (every mesh rank's rows
+        with :meth:`fold_across`); the caller holds the lock."""
+        if self._fold_gather is not None:
+            obs_batch = self._fold_gather(obs_batch)
+        self._merge(obs_batch)
+
+    def _merge(self, obs_batch: np.ndarray) -> None:
+        """Chan/Welford-merge the rows of ``obs_batch``, this process's
+        alone."""
         b = np.asarray(obs_batch, np.float64)
         n_b = float(b.shape[0])
         mean_b = b.mean(axis=0)
@@ -79,16 +95,20 @@ class ObsNormMixin:
             return self._apply_norm(obs_batch)
 
     def _fold_and_normalize_slice(self, obs_batch: np.ndarray, lo: int,
-                                  hi: int, extra=None):
+                                  hi: int, extra=None, restart: bool = False):
         """Rows ``[lo, hi)``: replace their raw cache, fold them (or buffer
         them in deferred mode), and return them normalized; ``extra`` (the
         pre-reset ``final_obs``) is normalized under the same statistics
-        in the same lock hold, and not folded."""
+        in the same lock hold, and not folded. ``restart=True``: the reset
+        rows of a restarted worker, which on a mesh are normalized and not
+        folded (one rank's fault: the others make no matching fold)."""
         if not self.has_obs_norm:
             return obs_batch if extra is None else (obs_batch, extra)
         self._raw_obs[lo:hi] = obs_batch
         with self._norm_lock:
-            if self._deferred is not None:
+            if restart and self._fold_gather is not None:
+                pass
+            elif self._deferred is not None:
                 self._deferred.setdefault(lo, []).append(obs_batch)
             elif not self._norm_frozen:
                 self._fold(obs_batch)
@@ -96,6 +116,23 @@ class ObsNormMixin:
             if extra is None:
                 return normed
             return normed, self._apply_norm(extra)
+
+    def fold_across(self, gather) -> None:
+        """Fold every batch from now on as ``gather(batch)`` (on a mesh:
+        every data rank's rows, in global order; a collective, so every
+        rank folds at the same points), and refold the current
+        observations so: call it right after construction, whose one fold
+        covered this adapter's rows alone."""
+        if not self.has_obs_norm:
+            return
+        with self._norm_lock:
+            self._fold_gather = gather
+            self._n_count = 0.0
+            self._n_mean = np.zeros_like(self._n_mean)
+            self._n_m2 = np.zeros_like(self._n_m2)
+            if not self._norm_frozen:
+                self._fold(self._raw_obs)
+            self._obs = self._apply_norm(self._raw_obs)
 
     def begin_deferred_fold(self) -> None:
         """Buffer every slice fold from now on; the window normalizes under
@@ -107,15 +144,23 @@ class ObsNormMixin:
 
     def end_deferred_fold(self) -> None:
         """Merge the buffered batches in (group, arrival) order, then
-        re-normalize the cached current observations."""
+        re-normalize the cached current observations. On a mesh every
+        rank's batches are gathered (two collectives: the rows, then their
+        batch sizes) and merged rank by rank, as the one-rank run merges
+        its groups."""
         if not self.has_obs_norm:
             return
         with self._norm_lock:
             deferred, self._deferred = self._deferred, None
             if deferred and not self._norm_frozen:
-                for lo in sorted(deferred):
-                    for batch in deferred[lo]:
-                        self._fold(batch)
+                batches = [b for lo in sorted(deferred) for b in deferred[lo]]
+                if self._fold_gather is not None:
+                    rows = self._fold_gather(np.concatenate(batches))
+                    sizes = self._fold_gather(np.asarray(
+                        [len(b) for b in batches], np.int64))
+                    batches = np.split(rows, np.cumsum(sizes)[:-1])
+                for batch in batches:
+                    self._merge(batch)
                 if getattr(self, "_raw_obs", None) is not None:
                     self._obs = self._apply_norm(self._raw_obs)
 

@@ -248,10 +248,12 @@ class ProcVecEnv(EpisodeStatsMixin, ObsNormMixin):
 
     def __init__(self, env_id: str, n_envs: int = 8, seed: int = 0,
                  normalize_obs: bool = False, n_workers=None,
-                 step_timeout=None, **kwargs):
+                 step_timeout=None, env_offset: int = 0, **kwargs):
         """``n_workers`` defaults to ``min(n_envs, cpu count)``;
         ``step_timeout`` (seconds, None = wait forever) bounds every reply
-        gather (:class:`WorkerDiedError` past it)."""
+        gather (:class:`WorkerDiedError` past it); ``env_offset`` seeds
+        env ``i`` as env ``env_offset + i`` of a wider fleet (a data
+        rank's slice on a mesh)."""
         if importlib.util.find_spec("gymnasium") is None:
             raise RuntimeError(
                 "ProcVecEnv worker failed to start: gymnasium is required "
@@ -260,6 +262,8 @@ class ProcVecEnv(EpisodeStatsMixin, ObsNormMixin):
                 "'pendulum', the -sim stand-ins) or the native: envs")
         self.env_id = env_id
         self.n_envs = n_envs
+        self.env_offset = env_offset
+        seed = seed + env_offset
         self.step_timeout = step_timeout
         if n_workers is None:
             n_workers = max(1, min(n_envs, os.cpu_count() or 1))
@@ -367,8 +371,9 @@ class ProcVecEnv(EpisodeStatsMixin, ObsNormMixin):
 
         The slice's envs are rebuilt and reseeded as at construction
         (``seed + lo``), their reset observations fold into the shared
-        normalization statistics, and the slice's running episode sums
-        zero: the episodes in flight are lost, the fault model's
+        normalization statistics (on a mesh they are normalized without a
+        fold: no other rank restarts), and the slice's running episode
+        sums zero: the episodes in flight are lost, the fault model's
         semantics (a ``gym:`` resume without a usable sidecar)."""
         lo, hi = self._slices[w]
         p = self._procs[w]
@@ -393,7 +398,8 @@ class ProcVecEnv(EpisodeStatsMixin, ObsNormMixin):
             msg = self._recv_ready(conn, w)
         self._conns[w] = conn
         self._procs[w] = proc
-        self._obs[lo:hi] = self._fold_and_normalize_slice(msg[3], lo, hi)
+        self._obs[lo:hi] = self._fold_and_normalize_slice(msg[3], lo, hi,
+                                                          restart=True)
         self._running_returns[lo:hi] = 0.0
         self._running_lengths[lo:hi] = 0
 
@@ -533,7 +539,10 @@ class ProcVecEnv(EpisodeStatsMixin, ObsNormMixin):
 
     def reset_all(self, seed=None) -> np.ndarray:
         """Hard-reset every env (``seed`` reseeds env ``i`` with
-        ``seed + i``); returns a copy of the new observations."""
+        ``seed + env_offset + i``); returns a copy of the new
+        observations."""
+        if seed is not None:
+            seed = seed + self.env_offset
         replies = self._scatter_gather({
             w: ("reset_all", None if seed is None else seed + wlo)
             for w, (wlo, _) in enumerate(self._slices)})

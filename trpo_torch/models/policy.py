@@ -54,6 +54,9 @@ class Policy(NamedTuple):
     # (cfg.fvp_dtype) for policies the fused kernel does not cover; None
     # for the families without a castable forward (recurrent, MoE)
     apply_cast: Any = None
+    # parallel.tp.ModelAxis when ``apply`` runs on this rank's blocks of a
+    # parameter axis (the layout the tree update's solve reads), else None
+    tp: Any = None
 
 
 def make_policy(
@@ -64,6 +67,7 @@ def make_policy(
     init_log_std: float = 0.0,
     compute_dtype=torch.float32,
     conv_torso: Optional[bool] = None,
+    tp=None,
 ) -> Policy:
     """Build a policy for ``obs_shape``: an MLP on 1-D observations, the
     Atari conv torso and a dense head on ``(H, W, C)`` ones (by default,
@@ -71,7 +75,10 @@ def make_policy(
     a diagonal Gaussian for a ``BoxSpec``.
 
     ``init(generator)`` draws the params on the CPU generator it is given
-    (callers move them to their device)."""
+    (callers move them to their device). ``tp`` (a
+    ``parallel.tp.ModelAxis``) makes ``apply`` the sharded forward over
+    this rank's blocks of the params (``parallel.tp.shard_policy_params``);
+    the conv torso stays replicated."""
     if conv_torso is None:
         conv_torso = len(obs_shape) == 3
     if isinstance(action_spec, DiscreteSpec):
@@ -94,7 +101,8 @@ def make_policy(
         def head_forward(params, obs, dtype):
             feats = apply_atari_torso(params["torso"], obs,
                                       compute_dtype=dtype)
-            return apply_mlp(params["head"], feats, activation, dtype)
+            return apply_mlp(params["head"], feats, activation, dtype,
+                             None if tp is None else tp.sub("head"))
     else:
         obs_dim = math.prod(obs_shape)
 
@@ -103,7 +111,8 @@ def make_policy(
 
         def head_forward(params, obs, dtype):
             obs = obs.reshape(obs.shape[0], -1)
-            return apply_mlp(params["net"], obs, activation, dtype)
+            return apply_mlp(params["net"], obs, activation, dtype,
+                             None if tp is None else tp.sub("net"))
 
     def init(generator: torch.Generator):
         params = init_net(generator)
@@ -134,6 +143,7 @@ def make_policy(
         action_spec=action_spec,
         mlp_spec=mlp_spec,
         apply_cast=apply_cast,
+        tp=tp,
     )
 
 

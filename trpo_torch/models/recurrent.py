@@ -16,6 +16,11 @@ input projection run once over all ``T·N`` rows, then a loop over time
 runs the ``(N, H)·(H, gates·H)`` recurrence. ``reset[t]`` zeroes the state
 before step ``t`` consumes ``obs[t]``, so one ``(T, N)`` window holds many
 episodes. ``h0`` is detached: truncated backpropagation at the window.
+
+With a ``tp`` (``parallel.tp.ModelAxis``) the torso runs sharded
+(``models/mlp.py``) and both gate projections are row-parallel on their
+input dimension: the partial sums of ``xw`` (once per window) and of
+``hw`` (every step) are all-reduced, and the state stays replicated.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from trpo_torch.models.mlp import (
     apply_mlp,
     init_linear,
     init_mlp,
+    mlp_forward_tp,
 )
 from trpo_torch.models.policy import BoxSpec, DiscreteSpec
 
@@ -71,6 +77,7 @@ class RecurrentPolicy(NamedTuple):
     # (params, state (..., S)) -> dist params: the state→dist head alone,
     # which the session engine recomputes per row (serve/session.py)
     head: Any = None
+    tp: Any = None           # parallel.tp.ModelAxis of a sharded forward
 
 
 def _fused_gates(generator: torch.Generator, rows: int, hidden: int,
@@ -99,27 +106,48 @@ def init_lstm(generator: torch.Generator, in_dim: int, hidden: int):
     return {"wx": wx, "wh": wh, "b": b}
 
 
-def _input_proj(params, x, cd=torch.float32):
-    """``x @ wx + b``: the gates' input half, over any leading axes."""
-    return x.to(cd) @ params["wx"].to(cd) + params["b"].to(cd)
+def _input_proj(params, x, cd=torch.float32, tp=None, split=False):
+    """``x @ wx + b``: the gates' input half, over any leading axes.
+    ``tp``: ``wx`` may be this rank's row block; ``x`` is whole, or with
+    ``split`` already the matching block of the features (a torso ending
+    column-parallel on the same width)."""
+    if tp is None or tp.specs["wx"] is None:
+        return x.to(cd) @ params["wx"].to(cd) + params["b"].to(cd)
+    from trpo_torch.parallel.tp import reduce_from_model, scatter_to_model
+
+    if not split:
+        x = scatter_to_model(x, tp)
+    return (reduce_from_model(x.to(cd) @ params["wx"].to(cd), tp)
+            + params["b"].to(cd))
 
 
-def _gru_from_xw(params, h, xw, cd=torch.float32):
+def _hidden_proj(params, h, cd, tp):
+    """``h @ wh``; with ``tp`` and a row-split ``wh``, this rank's block
+    of ``h`` against it, summed over the axis."""
+    if tp is None or tp.specs["wh"] is None:
+        return h.to(cd) @ params["wh"].to(cd)
+    from trpo_torch.parallel.tp import reduce_from_model, scatter_to_model
+
+    return reduce_from_model(
+        scatter_to_model(h.to(cd), tp) @ params["wh"].to(cd), tp)
+
+
+def _gru_from_xw(params, h, xw, cd=torch.float32, tp=None):
     """The GRU update given the input projection ``xw``."""
-    H = params["wh"].shape[0]
-    hw = h.to(cd) @ params["wh"].to(cd)
+    H = params["wh"].shape[1] // 3
+    hw = _hidden_proj(params, h, cd, tp)
     r = torch.sigmoid(xw[..., :H] + hw[..., :H])
     z = torch.sigmoid(xw[..., H:2 * H] + hw[..., H:2 * H])
     n = torch.tanh(xw[..., 2 * H:] + r * hw[..., 2 * H:])
     return ((1.0 - z) * n + z * h.to(cd)).float()
 
 
-def _lstm_from_xw(params, state, xw, cd=torch.float32):
+def _lstm_from_xw(params, state, xw, cd=torch.float32, tp=None):
     """The LSTM update given the input projection, on the packed ``[h |
     c]`` state."""
-    H = params["wh"].shape[0]
+    H = params["wh"].shape[1] // 4
     h, c = state[..., :H], state[..., H:]
-    hw = h.to(cd) @ params["wh"].to(cd)
+    hw = _hidden_proj(params, h, cd, tp)
     i = torch.sigmoid(xw[..., :H] + hw[..., :H])
     f = torch.sigmoid(xw[..., H:2 * H] + hw[..., H:2 * H])
     g = torch.tanh(xw[..., 2 * H:3 * H] + hw[..., 2 * H:3 * H])
@@ -158,10 +186,12 @@ def make_recurrent_policy(
     init_log_std: float = 0.0,
     compute_dtype=torch.float32,
     cell: str = "gru",
+    tp=None,
 ) -> RecurrentPolicy:
     """MLP torso (activation after every layer, the last included) →
     ``cell`` (``"gru"`` or ``"lstm"``) of ``gru_size`` → linear head. 1-D
-    observations only."""
+    observations only. ``tp`` (a ``parallel.tp.ModelAxis``): the forward
+    over this rank's blocks of the params; the head stays replicated."""
     if activation not in ACTIVATIONS:
         raise KeyError(
             f"unknown activation {activation!r}; have {sorted(ACTIVATIONS)}"
@@ -193,11 +223,23 @@ def make_recurrent_policy(
             params["log_std"] = torch.full((out_dim,), float(init_log_std))
         return params
 
+    ttp = None if tp is None or not hidden else tp.sub("torso")
+    ctp = None if tp is None else tp.sub(cell)
+
     def _features(params, obs):
+        """``(features, split)``: ``split`` when they are this rank's
+        block (a sharded torso that ends column-parallel)."""
         x = obs.reshape(obs.shape[:obs.ndim - len(obs_shape)] + (obs_dim,))
+        if ttp is not None:
+            h, split = mlp_forward_tp(params["torso"], x, act, cd, ttp)
+            return act(h.float()), split
         if hidden:
             x = act(apply_mlp(params["torso"], x, activation, cd))
-        return x
+        return x, False
+
+    def _xw(params, obs):
+        x, split = _features(params, obs)
+        return _input_proj(params[cell], x, cd, ctp, split)
 
     def _head(params, state):
         # the LSTM's head reads the h half of [h | c]
@@ -214,19 +256,17 @@ def make_recurrent_policy(
 
     def step(params, h, obs):
         """``(params, state (N, S), obs (N, *o)) -> (state', dist)``."""
-        h_new = cell_from_xw(params[cell], h,
-                             _input_proj(params[cell],
-                                         _features(params, obs), cd), cd)
+        h_new = cell_from_xw(params[cell], h, _xw(params, obs), cd, ctp)
         return h_new, _head(params, h_new)
 
     def apply(params, seq: SeqObs):
         """Replay a window: dist params with leading ``(T, N)``."""
         h = seq.h0.detach()
-        xw = _input_proj(params[cell], _features(params, seq.obs), cd)
+        xw = _xw(params, seq.obs)
         hs = []
         for t in range(xw.shape[0]):
             h = torch.where(seq.reset[t][:, None], torch.zeros_like(h), h)
-            h = cell_from_xw(params[cell], h, xw[t], cd)
+            h = cell_from_xw(params[cell], h, xw[t], cd, ctp)
             hs.append(h)
         return _head(params, torch.stack(hs))
 
@@ -239,4 +279,5 @@ def make_recurrent_policy(
         step=step,
         state_size=gru_size * state_mult,
         head=_head,
+        tp=tp,
     )

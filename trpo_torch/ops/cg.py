@@ -23,7 +23,8 @@ budget (``cfg.cg_budget_adaptive``): it is read once per solve (one sync)
 and bounds the loop, so iterations past the budget cost nothing either.
 
 Everything this module owns — ``x``, ``r``, ``p``, the dot products and
-the residual test — is f32.
+the residual test — is f32. ``dot`` replaces ``torch.dot`` where the
+vectors are this rank's blocks of a sharded one (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ def conjugate_gradient(
     M_inv: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     residual_rtol: float = 0.0,
     max_iters: Optional[int] = None,
+    dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.dot,
 ) -> CGResult:
     """Solve ``A x = b`` for SPD ``A`` given the matvec ``f_Ax``: x₀ = 0,
     r₀ = b, exit when ``rᵀr ≤ max(residual_tol, residual_rtol²·bᵀb)``.
@@ -73,10 +75,10 @@ def conjugate_gradient(
     b = b.float()
     x = torch.zeros_like(b)
     r = b
-    rdotr = torch.dot(b, b)
+    rdotr = dot(b, b)
     z = b if M_inv is None else M_inv(b).float()
     p = z
-    rdotz = rdotr if M_inv is None else torch.dot(b, z)
+    rdotz = rdotr if M_inv is None else dot(b, z)
     stop = torch.clamp(
         float(residual_rtol) ** 2 * rdotr, min=float(residual_tol)
     )
@@ -86,12 +88,12 @@ def conjugate_gradient(
         if every and i % every == 0 and not bool(active):
             break  # converged: no later iteration takes effect
         w = f_Ax(p).float()
-        alpha = rdotz / torch.dot(p, w)
+        alpha = rdotz / dot(p, w)
         x_new = x + alpha * p
         r_new = r - alpha * w
         z = r_new if M_inv is None else M_inv(r_new).float()
-        rdotr_new = torch.dot(r_new, r_new)
-        rdotz_new = rdotr_new if M_inv is None else torch.dot(r_new, z)
+        rdotr_new = dot(r_new, r_new)
+        rdotz_new = rdotr_new if M_inv is None else dot(r_new, z)
         mu = rdotz_new / rdotz
         p_new = z + mu * p
         x = torch.where(active, x_new, x)

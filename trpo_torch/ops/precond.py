@@ -38,6 +38,7 @@ __all__ = [
     "hutchinson_diag_inv",
     "init_gaussian_head_precond",
     "make_gaussian_head_block_inv",
+    "rademacher_probes",
 ]
 
 
@@ -117,6 +118,14 @@ def _rademacher_like(like: Any, generator: torch.Generator) -> Any:
     return tree_map(
         lambda x: torch.randint(0, 2, x.shape, generator=generator,
                                 device=x.device).float() * 2.0 - 1.0, like)
+
+
+def rademacher_probes(n: int, n_probes: int, device) -> list:
+    """The ``n_probes`` probes :func:`hutchinson_diag` draws for a flat
+    vector of ``n`` entries on ``device`` from its default generator."""
+    generator = torch.Generator(device=device).manual_seed(0)
+    like = torch.empty(n, device=device)
+    return [_rademacher_like(like, generator) for _ in range(n_probes)]
 
 
 def hutchinson_diag(f_Av: Callable[[Any], Any], like: Any, n_probes: int,

@@ -1,5 +1,5 @@
-"""Data and sequence parallelism on ``torch.distributed`` (counterpart:
-``trpo_tpu/parallel/``).
+"""Data, sequence and parameter parallelism on ``torch.distributed``
+(counterpart: ``trpo_tpu/parallel/``).
 
 One process per rank; a named mesh (``mesh.py``) gives each axis its
 process group, and every batch reduction is an explicit collective
@@ -10,9 +10,9 @@ process group, and every batch reduction is an explicit collective
   K1-bf16 per rank in :func:`make_sharded_fused_fvp`)
 - ``seq.py``     — sequence (time-axis) parallelism: block-parallel
   returns and GAE on K2 per rank
-
-The reference's ``tp.py`` (parameter sharding over a ``"model"`` or
-``"expert"`` axis) is not ported yet (ROADMAP.md Queue 1 item 16.2).
+- ``tp.py``      — parameter sharding over a ``"model"`` (Megatron
+  column/row) or ``"expert"`` axis, the differentiable collectives of
+  the sharded forward, and the inner product of the tree update's solve
 """
 
 from trpo_torch.parallel.mesh import (  # noqa: F401
@@ -35,4 +35,9 @@ from trpo_torch.parallel.seq import (  # noqa: F401
     seq_sharded_gae,
     seq_sharded_returns,
     sharded_reverse_affine_scan,
+)
+from trpo_torch.parallel.tp import (  # noqa: F401
+    gather_policy_params,
+    policy_param_shardings,
+    shard_policy_params,
 )

@@ -7,7 +7,8 @@ port follows PyTorch's idiom instead: one process per rank, a named
 ``torch.distributed.device_mesh.DeviceMesh`` with one process group per
 axis, and an explicit collective at every batch reduction
 (``ops/allreduce.py``). The backend is NCCL for CUDA and gloo for the
-CPU.
+CPU, and gloo for CUDA ranks that share a card (more local ranks than
+cards: NCCL refuses a second rank on a device).
 
 Where the process group comes from:
 
@@ -119,6 +120,12 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None,
     if not dist.is_initialized():
         total = math.prod(shape) if shape is not None else None
         backend = "nccl" if device.type == "cuda" else "gloo"
+        if backend == "nccl" and int(os.environ.get(
+                "LOCAL_WORLD_SIZE", 1)) > torch.cuda.device_count():
+            # NCCL takes one rank per card: ranks sharing a card (two on
+            # a one-card machine) reduce over gloo, staged through host
+            # memory (ops/allreduce.py)
+            backend = "gloo"
         if _launched():
             _local_device(device)
             dist.init_process_group(backend)

@@ -84,19 +84,33 @@ def gather_leading_axis(mesh, tree, axis: str = "data", dim: int = 0):
         if isinstance(x, torch.Tensor) and x.ndim > dim else x, tree)
 
 
-def gather_state(mesh, state):
-    """A ``TrainState`` with its env carry gathered over the batch axis:
-    the global state, as a one-rank run holds it (a collective: every rank
+def gather_state(mesh, state, param_layout=None):
+    """A ``TrainState`` with its env carry gathered over the batch axis
+    and, with ``param_layout`` (``(axis, split dims)``, the agent's
+    ``param_layout``), its policy params over that parameter axis: the
+    global state, as a one-rank run holds it (a collective: every rank
     calls it). Everything else in the state is replicated."""
+    if param_layout is not None:
+        from trpo_torch.parallel.tp import gather_policy_params
+
+        axis, specs = param_layout
+        state = state._replace(policy_params=gather_policy_params(
+            state.policy_params, mesh, specs, axis))
     if getattr(state, "env_carry", None) is None:
         return state
     return state._replace(env_carry=gather_leading_axis(
         mesh, state.env_carry, mesh.axis_names[0]))
 
 
-def local_state(mesh, state):
+def local_state(mesh, state, param_layout=None):
     """The inverse of :func:`gather_state`: this rank's slice of the env
-    carry."""
+    carry and, with ``param_layout``, its blocks of the policy params."""
+    if param_layout is not None:
+        from trpo_torch.parallel.tp import shard_policy_params
+
+        axis, specs = param_layout
+        state = state._replace(policy_params=shard_policy_params(
+            state.policy_params, mesh, axis, specs))
     if getattr(state, "env_carry", None) is None:
         return state
     return state._replace(env_carry=shard_leading_axis(

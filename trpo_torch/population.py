@@ -58,6 +58,11 @@ class Population:
                 "Population needs a device env (a host simulator is one "
                 "shared adapter whose envs the members cannot share)"
             )
+        if agent.mesh is not None:
+            raise ValueError(
+                "pass a meshless agent; the population axis is the thing "
+                "being sharded (mesh=... here)"
+            )
         if agent.cfg.train_overlap:
             raise ValueError(
                 "Population cannot drive the overlapped training "

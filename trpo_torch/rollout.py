@@ -507,14 +507,18 @@ def pipelined_host_rollout(vec_env, policy: Policy, params, generator,
                            n_steps: int, n_groups: int = 2, act_fn=None,
                            deterministic: bool = False,
                            stage_to_device: bool = False, device=None,
-                           timer=None):
+                           timer=None, group_offset: int = 0,
+                           total_groups: Optional[int] = None):
     """:func:`host_rollout` with the envs split into ``n_groups``
     contiguous groups whose env steps run on worker threads, so one
     group's host stepping overlaps the next group's inference (see the
     module docstring). Feedforward policies only. ``timer`` (a
     ``utils.timers.PhaseTimer``) records each group's window as a span
     under the calling thread's open phase, ended on the worker thread
-    that finishes it."""
+    that finishes it. ``group_offset``/``total_groups``: these groups are
+    ``[group_offset, group_offset + n_groups)`` of a window of
+    ``total_groups`` (a data rank's share on a mesh), so each samples from
+    the generator that group draws in the one-rank run."""
     if _recurrent(policy):
         raise NotImplementedError(
             "pipelined_host_rollout supports feedforward policies; "
@@ -532,9 +536,15 @@ def pipelined_host_rollout(vec_env, policy: Policy, params, generator,
         act_fn = make_host_act_fn(policy, deterministic=deterministic)
     pdev = params_device(params)
     device = pdev if device is None else torch.device(device)
-    cuts = np.linspace(0, N, n_groups + 1).round().astype(int)
+    total = total_groups or n_groups
+    # the one-rank window's cuts (its N·total/n_groups envs), then this
+    # share's: a rank's share starts at a cut of the whole window
+    cuts = np.linspace(0, N * total // n_groups, total + 1).round().astype(
+        int)[group_offset:group_offset + n_groups + 1]
+    cuts = cuts - cuts[0]
     groups = [(int(cuts[g]), int(cuts[g + 1])) for g in range(n_groups)]
-    gens = _group_generators(generator, n_groups, pdev)
+    gens = _group_generators(generator, total, pdev)[
+        group_offset:group_offset + n_groups]
     obs0 = vec_env.current_obs()
     bufs = [_Buffers(n_steps, device) for _ in range(n_groups)]
     context = timer.current_context() if timer is not None else ()

@@ -73,6 +73,7 @@ import os
 import signal
 import sys
 import threading
+import time
 from typing import Optional, Sequence
 
 __all__ = ["build_parser", "main"]
@@ -309,6 +310,26 @@ def _arming_error(args, cfg, recurrent: bool) -> Optional[str]:
     return None
 
 
+def _wait_for_stop(seconds: Optional[float]) -> None:
+    """Return after ``seconds`` (None: never), or at SIGTERM/SIGINT when
+    called on the main thread. The handler only sets a flag, and this
+    thread sleeps in short slices: the kernel may deliver the signal to
+    any of the server's threads, and CPython runs the handler on the main
+    thread at its next bytecode, which a lock wait without a timeout never
+    reaches (the serve CLI then outlived SIGTERM); an ``Event.set`` inside
+    the handler could also run while this thread holds that event's lock."""
+    stop: list = []
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, lambda *_: stop.append(True))
+    end = None if seconds is None else time.monotonic() + seconds
+    while not stop:
+        left = 0.1 if end is None else min(0.1, end - time.monotonic())
+        if left <= 0:
+            return
+        time.sleep(left)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     from trpo_torch.agent import TRPOAgent
@@ -527,11 +548,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
               + (", GET /status" if replicated else "")
               + f") on {agent.device}, {cfg.serve_replicas} replica(s)"
               + step, flush=True)
-        done = threading.Event()
-        if threading.current_thread() is threading.main_thread():
-            for sig in (signal.SIGTERM, signal.SIGINT):
-                signal.signal(sig, lambda *_: done.set())
-        done.wait(args.serve_seconds)
+        _wait_for_stop(args.serve_seconds)
     finally:
         # teardown in the reverse order of the build
         for part in (autoscaler, controller, router, replicaset, server):

@@ -516,7 +516,8 @@ def _run(args, cfg, agent, writer: bool) -> int:
         checkpointer, state = None, None
         if cfg.checkpoint_dir:
             checkpointer = Checkpointer(cfg.checkpoint_dir, bus=bus,
-                                        mesh=agent.mesh)
+                                        mesh=agent.mesh,
+                                        param_layout=agent.param_layout)
             if args.resume and checkpointer.latest_step() is not None:
                 state = checkpointer.restore(agent.init_state())
                 agent.restore_host_env(checkpointer.restore_host_env())

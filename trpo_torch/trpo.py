@@ -8,6 +8,16 @@ search → KL rollback. It works in the flat-vector domain in
 ``ravel_pytree`` order (``ops/flat.py``), so iterates and step norms
 compare one-for-one with the reference.
 
+For a policy whose params are this rank's blocks of a parameter axis
+(``policy.tp``, ``parallel/tp.py``) the same two stage bodies run without
+the fused kernel over the concatenation of the local leaves, with every
+inner product (CG's, the step scale's, the norms, the audit's cosine)
+all-reducing its split part over the axis and counting the replicated
+part once. The reference's tree-domain update (``make_tree_trpo_update``,
+here a name for it) keeps its leaves sharded the same way; where it
+applies pytree arithmetic the port applies the flat ops to the local
+blocks.
+
 As in the reference, nothing in the update waits on the host: the CG exit
 and the line-search acceptance are device-side predicates
 (``ops/cg.py``, ``ops/linesearch.py``), the damping λ is a device scalar
@@ -52,7 +62,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from trpo_torch.config import TRPOConfig, check_ported
+from trpo_torch.config import TRPOConfig
 from trpo_torch.models.mlp import ACTIVATIONS
 from trpo_torch.models.policy import Policy
 from trpo_torch.models.recurrent import SeqObs
@@ -71,6 +81,7 @@ from trpo_torch.ops.precond import (
     gaussian_head_gram,
     head_gram_eigh,
     hutchinson_diag_inv,
+    rademacher_probes,
 )
 from trpo_torch.ops.treemath import tree_where
 
@@ -83,6 +94,7 @@ __all__ = [
     "ladder_enabled",
     "ladder_stateful",
     "make_staged_trpo_update",
+    "make_tree_trpo_update",
     "make_trpo_update",
     "standardize_advantages",
     "surrogate_and_dist",
@@ -337,13 +349,16 @@ def _next_damping(cfg: TRPOConfig, damping, ls_success, rollback):
     return torch.clamp(damping * factor, cfg.damping_min, cfg.damping_max)
 
 
-def _skewed_operator(op, skew: float, n: int, device):
+def _skewed_operator(op, skew: float, n: int, device, space=None):
     """Test lever (``cfg.solve_fault_skew``): ``v ↦ D·op(D·v)`` with ``D``
-    the alternating diagonal (1 on even coordinates, 1 + skew on odd). The
-    operator stays symmetric positive definite, so CG converges, but to a
-    wrong system, which the audit's full-precision re-solve sees as a low
-    solution cosine."""
-    idx = torch.arange(n, dtype=torch.float32, device=device)
+    the alternating diagonal (1 on even coordinates, 1 + skew on odd, of
+    the one-rank flat vector). The operator stays symmetric positive
+    definite, so CG converges, but to a wrong system, which the audit's
+    full-precision re-solve sees as a low solution cosine."""
+    if space is None:
+        idx = torch.arange(n, dtype=torch.float32, device=device)
+    else:
+        idx = space.index.to(device=device, dtype=torch.float32)
     d = 1.0 + float(skew) * (idx % 2.0)
     return lambda v: d * op(d * v)
 
@@ -373,6 +388,32 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
             h = act(h @ layer["w"] + layer["b"])
         return h
 
+    log_std_m = params0["log_std"]
+    if policy.tp is not None:
+        # the head block inverts each output column's block on its own:
+        # a whole or column-parallel head applies it to this rank's
+        # columns (their log-stds); the torso's features come out of the
+        # sharded forward, whole
+        from trpo_torch.models.mlp import apply_mlp
+
+        tp = policy.tp
+        if tp.specs["net"]["layers"][-1]["w"] == 0:
+            raise ValueError(
+                'cg_precondition="head_block" needs the head whole or split '
+                "by its output columns; this layout splits its input rows "
+                "over the parameter axis (a torso of one hidden layer): pass "
+                "cg_precondition=False or add a hidden layer")
+        if tp.specs["net"]["layers"][-1]["w"] == 1:
+            k = log_std_m.shape[0] // tp.size
+            log_std_m = log_std_m.narrow(0, tp.rank * k, k)
+        ttp = tp.sub("net")
+        ttp = ttp._replace(specs={"layers": ttp.specs["layers"][:-1]})
+
+        def torso_apply(net, obs):  # noqa: F811
+            return act(apply_mlp({"layers": net["layers"][:-1]},
+                                 obs.reshape(obs.shape[0], -1),
+                                 spec["activation"], tp=ttp))
+
     def fresh():
         with torch.no_grad():
             S = gaussian_head_gram(torso_apply, params0["net"], fb.obs,
@@ -389,7 +430,7 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
             s_eig, U = precond.s_eig, precond.u
         precond_next = PrecondState(u=U, s_eig=s_eig, age=precond.age + 1)
     tree_M = apply_gaussian_head_block_inv(
-        s_eig, U, fb.weight, params0["log_std"], damping, group
+        s_eig, U, fb.weight, log_std_m, damping, group
     )
     return (lambda r: flatten_params(tree_M(to_params(r)))[0]), precond_next
 
@@ -399,11 +440,15 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                  precond: Optional[PrecondState] = None,
                  ladder: Optional[LadderState] = None,
                  jacobi_probes=None, group=None,
-                 allow_fused: bool = True) -> SolvePack:
+                 allow_fused: bool = True, space=None) -> SolvePack:
     """Gradient and surrogate in one pass → damped-Fisher operator →
     (audited / budget-adaptive) CG solve → KL-radius step scaling. With
     ``group`` every batch reduction is summed over its ranks: the
-    gradient and the surrogate in one all-reduce, each FVP in one."""
+    gradient and the surrogate in one all-reduce, each FVP in one.
+    ``space`` (a ``parallel.tp.FlatSpace``): ``x0`` holds this rank's
+    blocks of a parameter axis, and every inner product is the space's."""
+    dot, norm = ((torch.dot, torch.linalg.vector_norm) if space is None
+                 else (space.dot, space.norm))
     x0 = x0.detach()
     dev = x0.device
     with torch.no_grad():
@@ -422,7 +467,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     g, surr_before = red[:-1], red[-1]
     surr_before = surr_before.detach()
     dist0 = tree_map(torch.Tensor.detach, dist0)
-    grad_norm = torch.linalg.vector_norm(g)
+    grad_norm = norm(g)
     neg_g = -1.0 * g
 
     if damping is None:
@@ -473,7 +518,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             op = make_ggn_fvp(apply_b, policy.dist.fisher_weight, x0,
                               b.weight, damping=damping, group=group)
         if skew:
-            op = _skewed_operator(op, skew, x0.shape[0], dev)
+            op = _skewed_operator(op, skew, x0.shape[0], dev, space)
         return op
 
     fvp = build_fvp(fb, torch.bfloat16 if cfg.fvp_dtype == "bf16" else None,
@@ -487,9 +532,17 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     elif cfg.cg_precondition:
         # Jacobi: a Hutchinson diagonal of the operator CG iterates (one
         # more run of it per probe), floored at λ; fixed-seed probes
+        probes = jacobi_probes
+        if space is not None:
+            # the one-rank run's probes, cut to this rank's entries
+            from trpo_torch.parallel.tp import local_entries
+
+            probes = [local_entries(space, p) for p in (
+                probes if probes is not None else rademacher_probes(
+                    space.n_global, cfg.cg_precond_probes, dev))]
         with torch.no_grad():
             d_inv = hutchinson_diag_inv(fvp, neg_g, cfg.cg_precond_probes,
-                                        damping, probes=jacobi_probes)
+                                        damping, probes=probes)
         M_inv = lambda r: d_inv * r  # noqa: E731
 
     audit_on = (ladder is not None and cfg.solve_audit_every > 0
@@ -503,9 +556,9 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         cg = conjugate_gradient(
             op, neg_g, cg_iters=iters, residual_tol=cfg.cg_residual_tol,
             M_inv=M_inv, residual_rtol=cfg.cg_residual_rtol,
-            max_iters=max(ceiling, cfg.cg_iters),
+            max_iters=max(ceiling, cfg.cg_iters), dot=dot,
         )
-        shs = 0.5 * torch.dot(cg.x, op(cg.x))
+        shs = 0.5 * dot(cg.x, op(cg.x))
         return cg.x, shs, cg.iterations, cg.residual_norm_sq
 
     with torch.no_grad():
@@ -546,9 +599,8 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                     full = cheap
                 x_f, shs_f, it_f, res_f = full
                 if do_audit:
-                    cos_raw = torch.dot(x_c, x_f) / torch.clamp(
-                        torch.linalg.vector_norm(x_c)
-                        * torch.linalg.vector_norm(x_f), min=1e-30)
+                    cos_raw = dot(x_c, x_f) / torch.clamp(
+                        norm(x_c) * norm(x_f), min=1e-30)
                     solve_cosine = cos_raw
                     fallback = cos_raw < cfg.solve_cosine_floor
                 else:
@@ -605,7 +657,7 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
         shs = torch.clamp(shs, min=1e-12)
         lm = torch.sqrt(shs / cfg.max_kl)
         fullstep = (1.0 / lm) * stepdir
-        expected_improve_rate = torch.dot(neg_g, stepdir) / lm
+        expected_improve_rate = dot(neg_g, stepdir) / lm
     return SolvePack(
         fullstep=fullstep,
         expected_improve_rate=expected_improve_rate,
@@ -629,11 +681,14 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
 
 def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                   x0: torch.Tensor, batch: TRPOBatch,
-                  pack: SolvePack, group=None) -> Tuple[Any, TRPOStats]:
+                  pack: SolvePack, group=None,
+                  space=None) -> Tuple[Any, TRPOStats]:
     """Backtracking line search along the scaled step → KL rollback →
     final params and stats; every mean over the ranks of ``group``. The
     accept, the rollback and the NaN guard read reduced values only, so
-    every rank takes the same branch."""
+    every rank takes the same branch. ``space`` as in
+    :func:`_solve_stage`."""
+    norm = torch.linalg.vector_norm if space is None else space.norm
     x0 = x0.detach()
     logp_old = pack.logp_old
 
@@ -692,7 +747,7 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                      batch.weight, group),
             entropy=entropy,
             grad_norm=pack.grad_norm,
-            step_norm=torch.linalg.vector_norm(x_new - x0),
+            step_norm=norm(x_new - x0),
             cg_iterations=pack.cg_iterations,
             cg_residual=pack.cg_residual,
             linesearch_success=ls.success,
@@ -731,8 +786,26 @@ def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
     reduction is summed over the group (``parallel/sharded.py``).
     ``allow_fused=False`` keeps the fused kernel out, as the reference's
     mesh and population paths do: ``"auto"`` takes the Gauss-Newton
-    operator and an explicit ``"fused"`` raises."""
-    check_ported(cfg)
+    operator and an explicit ``"fused"`` raises.
+
+    A policy sharded over a parameter axis (``policy.tp``, a
+    ``parallel.tp.ModelAxis``) takes this rank's blocks as ``params``: the
+    solve runs over their concatenation with the axis's inner product
+    (``parallel.tp.make_flat_space``), and never with the fused kernel,
+    as the reference's tree update (the kernel does not partition a
+    sharded torso)."""
+    spaces = []   # the axis's inner product, from the first call's blocks
+    if policy.tp is not None:
+        allow_fused = False
+
+    def space_of(params):
+        if policy.tp is None:
+            return None
+        if not spaces:
+            from trpo_torch.parallel.tp import make_flat_space
+
+            spaces.append(make_flat_space(params, policy.tp))
+        return spaces[0]
 
     def solve(params, batch: TRPOBatch, damping=None,
               precond: Optional[PrecondState] = None,
@@ -740,12 +813,12 @@ def make_staged_trpo_update(policy: Policy, cfg: TRPOConfig,
         flat0, unravel = flatten_params(params)
         return _solve_stage(policy, cfg, unravel, flat0.float().detach(),
                             batch, damping, precond, ladder, jacobi_probes,
-                            group, allow_fused)
+                            group, allow_fused, space_of(params))
 
     def finish(params, batch: TRPOBatch, pack: SolvePack):
         flat0, unravel = flatten_params(params)
         return _finish_stage(policy, cfg, unravel, flat0.float().detach(),
-                             batch, pack, group)
+                             batch, pack, group, space_of(params))
 
     return solve, finish
 
@@ -773,6 +846,12 @@ def make_trpo_update(policy: Policy, cfg: TRPOConfig, jacobi_probes=None, *,
                       solve(params, batch, damping, precond, ladder))
 
     return update
+
+
+def make_tree_trpo_update(policy: Policy, cfg: TRPOConfig, *, group=None):
+    """The reference's name for the update without the fused kernel, the
+    one a parameter axis takes (:func:`make_trpo_update`)."""
+    return make_trpo_update(policy, cfg, group=group, allow_fused=False)
 
 
 def standardize_advantages(adv: torch.Tensor, weight: torch.Tensor,

@@ -31,13 +31,18 @@ raises.
 
 On a mesh (``Checkpointer(..., mesh=m)``, or ``TRPOAgent.learn`` handing
 its mesh to the checkpointer) every rank calls :meth:`Checkpointer.save`:
-the env carry is all-gathered over the batch axis, rank 0 writes the
-global state in the same ``step_<n>/`` format, and every rank waits at a
-barrier until the marker is on disk. :meth:`Checkpointer.restore` reads the
-global state on every rank and keeps the rank's slice of the carry. A step
+the env carry is all-gathered over the batch axis and, on a parameter
+axis, the policy's blocks over that axis (``param_layout=``, the agent's
+``param_layout``, which a mesh with a ``"model"`` or ``"expert"`` axis
+requires; ``learn`` hands it over with the mesh); rank 0 writes the global state in the same ``step_<n>/``
+format, and every rank waits at a barrier until the marker is on disk.
+:meth:`Checkpointer.restore` reads the global state on every rank and
+keeps the rank's slice of the carry and its blocks of the params. A step
 written by a mesh therefore restores on one rank, and a one-rank step on
-a mesh of any width that divides its envs, as the reference's restore
-keeps the template's sharding.
+a mesh of any width that divides its envs and layers, as the reference's
+restore keeps the template's sharding. A host env's sidecar arrives
+gathered (``TRPOAgent.snapshot_host_env``) and is cut to each data
+rank's envs on restore.
 """
 
 from __future__ import annotations
@@ -172,11 +177,13 @@ def _write_synced(path: str, write) -> None:
 
 class Checkpointer:
     def __init__(self, directory: str, max_to_keep: int = 3, bus=None,
-                 mesh=None):
+                 mesh=None, param_layout=None):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.bus = bus   # obs.events.EventBus: health findings
         self.mesh = mesh  # parallel.Mesh: collective save/restore
+        # (axis, split dims): the policy's blocks on a parameter axis
+        self.param_layout = param_layout
         os.makedirs(self.directory, exist_ok=True)
         if not self.all_steps() and (mesh is None or mesh.is_writer):
             _write_synced(self._sentinel_path(), lambda f: None)
@@ -232,12 +239,24 @@ class Checkpointer:
         if self.mesh is not None:
             from trpo_torch.parallel.sharded import gather_state
 
-            state = gather_state(self.mesh, state)
+            state = gather_state(self.mesh, state, self._layout())
             if self.mesh.is_writer:
                 self._save(step, state, host_env)
             self.mesh.barrier()
             return
         self._save(step, state, host_env)
+
+    def _layout(self):
+        """``param_layout``; a mesh with a parameter axis and no layout
+        raises (its params are blocks this checkpointer cannot place)."""
+        param_axes = [ax for ax in ("model", "expert")
+                      if ax in self.mesh.axis_names]
+        if param_axes and self.param_layout is None:
+            raise ValueError(
+                f'this mesh has a "{param_axes[0]}" axis, over which the '
+                "policy's params are blocks: pass "
+                "Checkpointer(..., param_layout=agent.param_layout)")
+        return self.param_layout
 
     def _save(self, step: int, state: Any, host_env: Any) -> None:
         tensors: dict = {}
@@ -320,8 +339,9 @@ class Checkpointer:
             if prune and self.mesh.is_writer:
                 self.prune_incomplete()
             self.mesh.barrier()
+            layout = self._layout()
             return local_state(self.mesh, self._restore(
-                gather_state(self.mesh, template), step))
+                gather_state(self.mesh, template, layout), step), layout)
         if prune:
             self.prune_incomplete()
         return self._restore(template, step)
