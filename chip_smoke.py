@@ -8,6 +8,10 @@ result.
     python3 chip_smoke.py --kernels-only  # phases 1-4 only
     python3 chip_smoke.py --phases=flywheel,compat  # named path phases
                                           # alone, no result lines
+    python3 chip_smoke.py --evidence=all  # the learning runs: every rung
+                                          # of learning_evidence at its
+                                          # published length (or
+                                          # --evidence=cartpole,pendulum)
 
 Phases:
   1. build ``trpo_torch/csrc`` (nvcc, sm_90a) and name the card;
@@ -182,13 +186,22 @@ Phases:
      (kill_promoter and its restart, the reward gate rejecting a
      regressed step, a torn step rejected by its reload, 0 client
      errors); logs in ``build/chip_smoke/flywheel/``;
- 25. ``[compat]`` ``python -m trpo_torch.scripts.reference_style`` (the
-     reference's hand-written loop on ``trpo_torch.compat``, 5
-     iterations) in a child: per-iteration ms, host CG iterations and
-     line-search probes, K2 once per path from ``compat.discount``; and
-     ``compat.discount`` on a CUDA tensor against the plain scan at K2's
-     2e-5;
- 26. ``[mesh]`` data and sequence parallelism (``trpo_torch/parallel``)
+ 25. ``[compat]`` ``compat.discount`` on a CUDA tensor against the plain
+     scan at K2's 2e-5 (the reference-style loop on ``trpo_torch.compat``
+     runs in ``[examples]``);
+ 26. ``[examples]`` the user examples (``trpo_torch/scripts``), each in
+     a counted child, all side by side: ``quickstart`` as published,
+     ``pomdp_recurrent`` (2 iterations), ``mujoco_host`` on
+     ``native:pendulum`` (2 iterations: K1 exactly Σ(cheap + 1), K2 2) and
+     on its default ``gym:`` env (refused, naming gymnasium),
+     ``population_sweep`` (4 cartpole members, 1 chunk of 2 iterations;
+     the reference's ``--out`` keys), ``reference_style`` (the reference's
+     hand-written loop on ``trpo_torch.compat``, 5 iterations: per
+     iteration ms, host CG iterations and line-search probes, K2 once per
+     path from ``compat.discount``), and ``learning_evidence``'s cartpole
+     rung as published (300 iterations in chunks of 50) held to a best
+     reading ≥ 400; each script's wall and launches;
+ 27. ``[mesh]`` data and sequence parallelism (``trpo_torch/parallel``)
      in children under ``torchrun`` (the parent holds no process group):
      leg 1 ``python -m trpo_torch.train --preset humanoid-sim
      --mesh-shape 1`` as published on an NCCL world of one (3
@@ -218,10 +231,13 @@ Phases:
      ``cartpole-po`` GRU on ``data x model`` against one rank, with the
      model-axis all-reduce's µs a call; logs in
      ``build/chip_smoke/mesh/``;
- 27. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
-Each path (5-8, 10-17, 19-26) is driven with the launch counts set to 0
+ 28. ``[bench]`` ``trpo_torch.bench``'s JSON line at the 50k shape.
+Phases 18 and 26 run beside phase 27's first wave of children: their
+children and those of [mesh]'s legs 1, 3-6 run side by side (their
+checks are functional), and [mesh]'s timed leg 2 starts once all are done.
+Each path (5-8, 10-17, 19-27) is driven with the launch counts set to 0
 just before it and read just after ([chaos]'s, [replay]'s, [flywheel]'s,
-[compat]'s and [mesh]'s children in their own processes, fresh ones). The fused kernel's launches on each path
+[examples]' and [mesh]'s children in their own processes, fresh ones). The fused kernel's launches on each path
 are checked exactly: Σ(cg_iterations + 1) over its updates (see
 ``_exact_fvp_launches``); the pixel, recurrent and MoE paths launch
 neither fused kernel nor any plain version, and K2 once per iteration.
@@ -246,6 +262,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -4050,8 +4067,7 @@ OBS_TRACE_RATES = (0.0, 0.01, 1.0)
 def _obs_train_cli(torch, dev, work: Path, card: str) -> str:
     """Leg 1: ``python -m trpo_torch.train`` on ``humanoid-sim`` as
     published, 4 iterations with every telemetry flag, ``/status`` and
-    ``/metrics`` scraped by a thread while it runs. Returns its checkpoint
-    directory (step 4), which leg 3 serves."""
+    ``/metrics`` scraped by a thread while it runs."""
     import threading
     import urllib.request
 
@@ -4144,13 +4160,12 @@ def _obs_train_cli(torch, dev, work: Path, card: str) -> str:
           f"{[round(r['iteration_ms'], 1) for r in rows]}; "
           f"cg_iters_total {[r['cg_iters_total'] for r in rows]} ({card})",
           flush=True)
-    return str(ck)
 
 
 def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
     """Leg 2, in this process on the flagship state: ``learn`` with
     telemetry off and on (bus + JSONL + health + status server), runs of 3
-    iterations in the order off, on, on, off, twice, after an audited
+    iterations in the order off, on, on, off, after an audited
     warm-up update, and the telemetry's own host time timed directly; the
     solver counter against K1's launches on these unaudited updates,
     exactly."""
@@ -4167,7 +4182,7 @@ def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
     rows = {"off": [], "on": []}
     torch.cuda.synchronize()
     _build.reset_launches()
-    # off, on, on, off, twice: the host clock drifts over a process. The
+    # off, on, on, off: the host clock drifts over a process. The
     # telemetry's own host time is also read directly: every bus emit and
     # every on_iteration of the "on" runs, timed
     spent = []
@@ -4181,7 +4196,7 @@ def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
                 spent.append(time.perf_counter() - t)
         return call
 
-    for mode in ("off", "on", "on", "off") * 2:
+    for mode in ("off", "on", "on", "off"):
         tel = None
         if mode == "on":
             tel = Telemetry(events_jsonl=str(work / "overhead.jsonl"),
@@ -4213,8 +4228,8 @@ def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
     print(f"[obs] in process, humanoid-sim: cg_iters_total + updates = "
           f"{cg} + {updates} = {cg + updates} == K1 launches "
           f"{counts.get('fused_fvp', 0)} (exact; no cg_precond_probes), K2 "
-          f"{counts.get('reverse_scan', 0)}; iteration ms, median of 12 "
-          f"(runs of 3: off, on, on, off, twice), telemetry off "
+          f"{counts.get('reverse_scan', 0)}; iteration ms, median of 6 "
+          f"(runs of 3: off, on, on, off), telemetry off "
           f"{med['off']:.2f} "
           f"{[round(r['iteration_ms'], 2) for r in rows['off']]}, on (bus, "
           f"JSONL, health, status server) {med['on']:.2f} "
@@ -4227,18 +4242,12 @@ def _obs_overhead(torch, dev, work: Path, card: str) -> dict:
     return counts
 
 
-def _obs_serving(torch, dev, ck_dir: str, work: Path, card: str) -> None:
-    """Leg 3: ``python -m trpo_torch.serve --replicas 2`` over two
-    ``--replica-cmd`` children (each with its own event log), with
-    ``--metrics-jsonl`` and ``--trace-sample-rate`` at each rate. The three
-    sets start together (one startup wait), then take the load in turn:
-    /act at 64 clients x 20; every record valid, every sampled trace with
-    its root; at rate 0 a child killed under requests must still be traced
-    (the retry is forced)."""
-    from trpo_torch.obs.events import validate_event
-
+def _obs_serving_start(dev, ck_dir: str, work: Path) -> dict:
+    """Leg 3's servers: ``python -m trpo_torch.serve --replicas 2`` over
+    two ``--replica-cmd`` children (each with its own event log), with
+    ``--metrics-jsonl`` and ``--trace-sample-rate`` at each rate, the three
+    sets started together (one startup wait). Returns rate -> run."""
     runs = {}
-    t0 = time.perf_counter()
     try:
         for rate in OBS_TRACE_RATES:
             run = work / f"serve_{rate}"
@@ -4262,6 +4271,35 @@ def _obs_serving(torch, dev, ck_dir: str, work: Path, card: str) -> None:
                 cwd=str(ROOT), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)
             runs[rate] = {"dir": run, "child": child}
+    except BaseException:
+        _obs_serving_stop(runs)
+        raise
+    return runs
+
+
+def _obs_serving_stop(runs: dict) -> None:
+    """Stop every serve CLI still running: SIGTERM first, so each stops
+    its replica children, then SIGKILL what is left after 30 s."""
+    live = [r["child"] for r in runs.values() if r["child"].poll() is None]
+    for child in live:
+        child.send_signal(signal.SIGTERM)
+    for child in live:
+        try:
+            child.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.communicate(timeout=60)
+
+
+def _obs_serving(runs: dict, work: Path, card: str) -> None:
+    """Leg 3: the servers of ``_obs_serving_start``, once all are up, take
+    the load in turn: /act at 64 clients x 20; every record valid, every
+    sampled trace with its root; at rate 0 a child killed under requests
+    must still be traced (the retry is forced)."""
+    from trpo_torch.obs.events import validate_event
+
+    t0 = time.perf_counter()
+    try:
         deadline = time.monotonic() + 300
         for rate, r in runs.items():
             desc = r["dir"] / "run.json"
@@ -4297,10 +4335,7 @@ def _obs_serving(torch, dev, ck_dir: str, work: Path, card: str) -> None:
                    f"[obs] serve CLI at rate {rate} exit "
                    f"{r['child'].returncode}: {text[-2000:]}")
     finally:
-        for r in runs.values():
-            if r["child"].poll() is None:
-                r["child"].kill()
-                r["child"].wait(timeout=60)
+        _obs_serving_stop(runs)
     for rate, r in runs.items():
         logs = {p.stem: [json.loads(x) for x in p.read_text().splitlines()]
                 for p in sorted(r["dir"].glob("*.jsonl"))}
@@ -4336,23 +4371,38 @@ def _obs_serving(torch, dev, ck_dir: str, work: Path, card: str) -> None:
                  "router.retry span(s) traced at rate 0"
                  if "killed" in r else "")
               + f" ({card})", flush=True)
-    print(f"[obs] the three serving sets (6 children) up together in "
-          f"{up_s:.2f} s; each took its load while the other two idled "
-          f"({card})", flush=True)
+    print(f"[obs] the three serving sets (6 children), started beside the "
+          f"train CLI, all up {up_s:.2f} s after the overhead leg; each took "
+          f"its load while the other two idled ({card})", flush=True)
 
 
 def phase_obs(torch, dev):
     """The run-event bus, the tracer and live training telemetry: the
     train CLI with every telemetry flag (a subprocess, as users run it),
     the solver counter against K1 and the telemetry overhead in process,
-    and the replicated server's traces at three rates."""
+    and the replicated server's traces at three rates. The servers start
+    beside the train CLI, on a checkpoint of the flagship's initial
+    weights, so their startup costs no leg; the overhead leg runs while
+    they idle up."""
+    from trpo_torch.agent import TRPOAgent
+    from trpo_torch.config import get_preset
+    from trpo_torch.utils.checkpoint import Checkpointer
+
     card = _card_line()
     work = WORK / "obs"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    ck_dir = _obs_train_cli(torch, dev, work, card)
-    counts = _obs_overhead(torch, dev, work, card)
-    _obs_serving(torch, dev, ck_dir, work, card)
+    serve_ck = work / "serve_ck"
+    agent = TRPOAgent("humanoid-sim", get_preset("humanoid-sim"), device=dev)
+    Checkpointer(str(serve_ck)).save(1, agent.init_state(seed=0))
+    del agent
+    runs = _obs_serving_start(dev, str(serve_ck), work)
+    try:
+        _obs_train_cli(torch, dev, work, card)
+        counts = _obs_overhead(torch, dev, work, card)
+        _obs_serving(runs, work, card)
+    finally:
+        _obs_serving_stop(runs)
     return counts
 
 
@@ -4376,26 +4426,33 @@ CHAOS_RETRY_BUDGET = 128  # the router leg's retry tokens: a kill and a
 CHAOS_CLEAN_S = 3.0       # the clean window's length
 
 
+def _update_records(log) -> list:
+    """The recorder's updates (``_updates``) as JSON records."""
+    return [{"launched": launched, "cheap": int(cheap), "used": int(used),
+             "fallback": bool(fallback)}
+            for launched, cheap, used, fallback in log]
+
+
 def _counted_child(counts_path: str, module: str = "trpo_torch.train") -> int:
     """Run in a child process: ``python -m <module>`` (by runpy, with this
     process's argv) under the update recorder, then write the process's
-    launch counts and each update's record to ``counts_path``. A fresh
-    process starts every count at 0."""
+    launch counts, each update's record and the module's wall seconds to
+    ``counts_path``. A fresh process starts every count at 0."""
     import runpy
 
     from trpo_torch.ops import _build
 
     code = 1
+    t0 = time.perf_counter()
     with _updates() as log:
         try:
             runpy.run_module(module, run_name="__main__", alter_sys=True)
         except SystemExit as e:
             code = e.code if isinstance(e.code, int) else 1
-        updates = [{"launched": launched, "cheap": int(cheap),
-                    "used": int(used), "fallback": bool(fallback)}
-                   for launched, cheap, used, fallback in log]
+        updates = _update_records(log)
     Path(counts_path).write_text(json.dumps({
-        "launches": dict(_build.LAUNCHES), "updates": updates}))
+        "launches": dict(_build.LAUNCHES), "updates": updates,
+        "wall_s": time.perf_counter() - t0}))
     return code
 
 
@@ -6025,71 +6082,342 @@ def phase_flywheel(torch, dev):
 
 
 def phase_compat(torch, dev):
-    """The reference's ``utils.py`` surface (``trpo_torch.compat``):
-    ``python -m trpo_torch.scripts.reference_style`` in a child for its
-    ``COMPAT_ITERS`` iterations on the card (K2 once per path from
-    ``compat.discount``, read from the child's counts), and
-    ``compat.discount`` on a CUDA tensor held against the plain scan.
-    Returns the child's launches."""
+    """The reference's ``utils.py`` surface (``trpo_torch.compat``) in
+    this process: ``compat.discount`` on a CUDA tensor held against the
+    plain scan, one K2 launch (a comparison, not a driven path: it adds
+    nothing to the path counts). The reference-style loop on it
+    (``trpo_torch.scripts.reference_style``) runs in ``[examples]``."""
     from trpo_torch import compat
     from trpo_torch.ops import _build
     from trpo_torch.ops.reverse_scan import reverse_affine_scan_plain
 
     card = _card_line()
-    work = WORK / "compat"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True, exist_ok=True)
-    counts_path, log = work / "counts.json", work / "reference_style.log"
-    t0 = time.perf_counter()
-    child = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke as cs; "
-         "sys.exit(cs._counted_child(sys.argv.pop(1), "
-         "'trpo_torch.scripts.reference_style'))", str(counts_path),
-         "--device", dev.type, "--iterations", str(COMPAT_ITERS)],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    log.write_text(child.stdout + child.stderr)
-    _check(child.returncode == 0, f"[compat] reference_style exit "
-           f"{child.returncode}:\n{log.read_text()[-3000:]}")
-    rows = [dict(kv.split("=") for kv in ln.split()[2:])
-            for ln in child.stdout.splitlines() if ln.startswith("iter ")]
-    _check(len(rows) == COMPAT_ITERS, f"[compat] {len(rows)} iterations:\n"
-           f"{child.stdout[-2000:]}")
-    for r in rows:
-        _check(all(_finite(torch, float(r[k])) for k in
-                   ("mean_reward", "ms")) and int(r["cg_iters"]) >= 1,
-               f"[compat] iteration {r}")
-    launches = json.loads(counts_path.read_text())["launches"]
-    paths = sum(int(r["paths"]) for r in rows)
-    _check(launches.get("reverse_scan", 0) == paths,
-           f"[compat] K2 launched {launches.get('reverse_scan', 0)} for "
-           f"{paths} paths' discount")
-    other = {k: v for k, v in launches.items()
-             if v and k != "reverse_scan"}
-    _check(not other, f"[compat] other launches in the child: {other}")
-    # compat.discount on the card against the plain scan, same input
     x = torch.randn(200, generator=torch.Generator().manual_seed(0)).to(dev)
     _build.reset_launches()
     got = compat.discount(x, 0.95)
-    _check(_build.LAUNCHES["reverse_scan"] == 1,
-           f"[compat] compat.discount on {dev}: {dict(_build.LAUNCHES)}")
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    _check(launches == {"reverse_scan": 1},
+           f"[compat] compat.discount on {dev}: {launches}")
     plain = reverse_affine_scan_plain(
         torch.full((200, 1), 0.95, device=dev), x[:, None])[:, 0]
     err = float(np.max(np.abs(got - plain.cpu().numpy())))
     _check(err <= K2_TOL * max(1.0, float(plain.abs().max())),
            f"[compat] compat.discount against plain: max err {err}")
     _build.reset_launches()
-    print(f"[compat] reference_style ({COMPAT_ITERS} iterations, cartpole "
-          f"on the native stepper one env at a time, host CG and line "
-          f"search): exit 0 in {wall:.1f} s; per iteration ms "
+    print(f"[compat] compat.discount on a (200,) input on {dev}: K2 once, "
+          f"against the plain scan max err {err:.2e} (K2's {K2_TOL}) "
+          f"({card})", flush=True)
+
+
+def _reference_style_result(code: int, out: str, counts_path: Path,
+                            card: str) -> dict:
+    """Check ``[examples]``' reference-style child (``COMPAT_ITERS``
+    iterations of the reference's hand-written loop on ``compat``): a row
+    an iteration with a finite reward and ms and a host CG of at least one
+    iteration, and K2 exactly once per path (``compat.discount``), no
+    other launch. Prints its line; returns its launches."""
+    _check(code == 0, f"[examples] reference_style exit {code}:\n"
+           f"{out[-3000:]}")
+    rows = [dict(kv.split("=") for kv in ln.split()[2:])
+            for ln in out.splitlines() if ln.startswith("iter ")]
+    _check(len(rows) == COMPAT_ITERS, f"[examples] reference_style "
+           f"{len(rows)} iterations:\n{out[-2000:]}")
+    for r in rows:
+        _check(all(math.isfinite(float(r[k])) for k in ("mean_reward", "ms"))
+               and int(r["cg_iters"]) >= 1,
+               f"[examples] reference_style iteration {r}")
+    res = json.loads(counts_path.read_text())
+    launches = {k: v for k, v in res["launches"].items() if v}
+    paths = sum(int(r["paths"]) for r in rows)
+    _check(launches == {"reverse_scan": paths},
+           f"[examples] reference_style launches {launches} for {paths} "
+           "paths' discount (K2 once a path, no other kernel)")
+    print(f"[examples] reference_style --iterations {COMPAT_ITERS} "
+          f"(cartpole on the native stepper one env at a time, host CG and "
+          f"line search): exit 0 in {res['wall_s']:.1f} s; per iteration ms "
           f"{[float(r['ms']) for r in rows]}, CG host-loop iterations "
           f"{[int(r['cg_iters']) for r in rows]}, line-search probes "
           f"{[int(r['ls_probes']) for r in rows]}, mean reward "
-          f"{[float(r['mean_reward']) for r in rows]}; K2 {paths} = one "
-          f"per path's compat.discount, no other kernel; compat.discount "
-          f"on a CUDA (200,) input against the plain scan: max err "
-          f"{err:.2e} (K2's {K2_TOL}) ({card})", flush=True)
-    return {k: v for k, v in launches.items() if v}
+          f"{[float(r['mean_reward']) for r in rows]}; K2 {paths} = one per "
+          f"path's compat.discount ({card})", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# [examples] the user examples (trpo_torch/scripts), and the learning runs
+# ---------------------------------------------------------------------------
+
+# learning_evidence's Gaussian-MLP rungs: their cheap CG solve runs on K1
+K1_RUNGS = ("pendulum", "halfcheetah-sim", "humanoid-sim")
+EVIDENCE_BAR = 400.0      # cartpole's best reading (tests/test_agent.py:148)
+EXAMPLES_S = 600          # [examples]'s children's deadline
+EVIDENCE_S = (300, 4.0)   # a learning run's deadline: s + s per iteration
+SWEEP_KEYS = {"env", "members", "labels", "iterations", "wall_s",
+              "member_updates_per_sec", "final_chunk_scores"}
+
+
+def _evidence_child(out_path: str, rung: str, device: str) -> int:
+    """Run in a child process: ``learning_evidence.train`` on ``rung`` as
+    published (seed 0, its iterations and chunk from ``RUNGS``) on
+    ``device`` under the update recorder, its table header and row printed
+    as the script's ``main`` prints them; then write the launch counts,
+    each update's record and the run's stats rows to ``out_path``."""
+    from trpo_torch.ops import _build
+    from trpo_torch.scripts import learning_evidence
+
+    iters, chunk = learning_evidence.RUNGS[rung]
+    print("| rung | iterations | wall | mean episode reward |")
+    print("|---|---|---|---|", flush=True)
+    with _updates() as log:
+        rows = learning_evidence.train(rung, iters, chunk, device=device)
+        updates = _update_records(log)
+    Path(out_path).write_text(json.dumps({
+        "launches": dict(_build.LAUNCHES), "updates": updates,
+        "rows": rows}))
+    return 0
+
+
+def _evidence_argv(out_path: Path, rung: str, device: str) -> list:
+    return [sys.executable, "-c", "import sys, chip_smoke as cs; "
+            "sys.exit(cs._evidence_child(*sys.argv[1:]))",
+            str(out_path), rung, device]
+
+
+def _evidence_result(rung: str, path: Path, out: str, card: str) -> dict:
+    """Check one learning run's child (``_evidence_child``): the script's
+    row, a finite update on every iteration, K2 once an iteration, K1
+    exactly Σ(cheap cg_iterations + 1) on a Gaussian rung and never
+    elsewhere, K1-bf16 and the plain versions never. Prints the rung's
+    line and returns its summary: wall, median iteration ms, first → last
+    and best reading, launches, and every audit's update, cosine and
+    fallback."""
+    from trpo_torch.config import get_preset
+    from trpo_torch.scripts import learning_evidence
+
+    tag = f"evidence {rung}"
+    iters, chunk = learning_evidence.RUNGS[rung]
+    max_kl = get_preset(rung).max_kl
+    res = json.loads(path.read_text())
+    rows = res["rows"]
+    launches = {k: v for k, v in res["launches"].items() if v}
+    m = re.search(rf"^\| {re.escape(rung)} \| {iters} \| ([0-9.]+) s \| "
+                  r"(-?[0-9]+) → (-?[0-9]+) \|$", out, re.M)
+    _check(m is not None and len(rows) == iters,
+           f"[{tag}] {len(rows)} rows, the row {m}:\n{out[-2000:]}")
+    for i, r in enumerate(rows):
+        _check(math.isfinite(r["entropy"]) and math.isfinite(r["kl_old_new"])
+               and r["kl_old_new"] <= 2 * max_kl,
+               f"[{tag}] update {i + 1}: entropy {r['entropy']}, "
+               f"kl_old_new {r['kl_old_new']}")
+    _check(launches.get("reverse_scan", 0) == iters,
+           f"[{tag}] K2 launched {launches.get('reverse_scan', 0)} times "
+           f"over {iters} iterations")
+    stray = {k: n for k, n in launches.items()
+             if k.endswith("_plain") or k == "fused_fvp_bf16"}
+    _check(not stray, f"[{tag}] launches of {stray}")
+    if rung in K1_RUNGS:
+        log = [(u["launched"], u["cheap"], u["used"], u["fallback"])
+               for u in res["updates"]]
+        _exact_fvp_launches(tag, "fused_fvp", rows, log, launches)
+    else:
+        _check(not launches.get("fused_fvp"),
+               f"[{tag}] K1 ran on a policy it does not cover: {launches}")
+    rewards = np.asarray([r["mean_episode_reward"] for r in rows], float)
+    audits = [(i + 1, r["solve_cosine"], r["solve_fallback"])
+              for i, r in enumerate(rows) if r.get("solve_audited")]
+    summary = {
+        "rung": rung, "iterations": iters, "chunk": chunk,
+        "wall_s": float(m.group(1)),
+        "median_iteration_ms": float(np.median(
+            [r["iteration_ms"] for r in rows])),
+        "first": int(m.group(2)), "last": int(m.group(3)),
+        "best": float(np.nanmax(rewards)),
+        "best_at": int(np.nanargmax(rewards)) + 1,
+        "launches": launches,
+        "cg_iterations_total": sum(r["cg_iterations"] for r in rows),
+        "audits": audits, "card": card}
+    print(f"[{tag}] {iters} iterations in chunks of {chunk}: wall "
+          f"{summary['wall_s']} s, median iteration "
+          f"{summary['median_iteration_ms']:.1f} ms (a chunk's wall over its "
+          f"iterations); mean episode reward {summary['first']} → "
+          f"{summary['last']}, best {summary['best']:.1f} at iteration "
+          f"{summary['best_at']}; launches {launches}; audits (update, "
+          f"cosine, fallback) {audits} ({card})", flush=True)
+    return summary
+
+
+def phase_examples(torch, dev, beside=None):
+    """The user examples (``trpo_torch/scripts``) as users run them, each
+    in a counted child on the card, all side by side: ``quickstart`` as
+    published; ``pomdp_recurrent --iterations 2``; ``mujoco_host --env
+    native:pendulum --iterations 2`` (K1 and K2), and on its default
+    ``gym:`` env, refused (the card's machine has no gymnasium);
+    ``population_sweep --chunks 1 --iters-per-chunk 2``;
+    ``reference_style`` (``COMPAT_ITERS`` iterations of the reference's
+    hand-written loop on ``trpo_torch.compat``); and
+    ``learning_evidence``'s cartpole rung as published (300 iterations in
+    chunks of 50), held to a best reading ≥ 400. ``beside``, when given,
+    runs in this process while the children run. Returns the children's
+    launches, with ``beside``'s."""
+    card = _card_line()
+    work = WORK / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True, exist_ok=True)
+    sweep = work / "sweep.json"
+    runs = {
+        "quickstart": ("quickstart", []),
+        "pomdp_recurrent": ("pomdp_recurrent", ["--iterations", "2"]),
+        "mujoco_host": ("mujoco_host", ["--env", "native:pendulum",
+                                        "--iterations", "2"]),
+        "mujoco_host gym:": ("mujoco_host", []),
+        "population_sweep": ("population_sweep", [
+            "--chunks", "1", "--iters-per-chunk", "2", "--out", str(sweep)]),
+        "reference_style": ("reference_style", [
+            "--iterations", str(COMPAT_ITERS)]),
+    }
+    t0 = time.perf_counter()
+    evidence = work / "learning_evidence.json"
+    children = {"learning_evidence": (
+        _spawn(_evidence_argv(evidence, "cartpole", dev.type),
+               work / "learning_evidence.log"),
+        work / "learning_evidence.log")}
+    for name, (script, args) in runs.items():
+        tag = name.replace(" gym:", "_gym")
+        log = work / f"{tag}.log"
+        children[name] = (_spawn(
+            [sys.executable, "-c", "import sys, chip_smoke as cs; "
+             "sys.exit(cs._counted_child(sys.argv.pop(1), sys.argv.pop(1)))",
+             str(work / f"{tag}.json"), f"trpo_torch.scripts.{script}",
+             "--device", dev.type, *args], log), log)
+    side = {}
+    try:
+        if beside is not None:
+            side = beside() or {}
+    finally:
+        done = _finish(children, timeout=EXAMPLES_S)
+    wall = time.perf_counter() - t0
+
+    def counted(name, pattern):
+        code, out = done[name]
+        _check(code == 0, f"[examples] {name} exit {code}:\n{out[-3000:]}")
+        m = re.search(pattern, out, re.M)
+        _check(m is not None, f"[examples] {name} printed:\n{out[-2000:]}")
+        res = json.loads((work / f"{name}.json").read_text())
+        res["launches"] = {k: v for k, v in res["launches"].items() if v}
+        stray = {k: n for k, n in res["launches"].items()
+                 if k.endswith("_plain") or k == "fused_fvp_bf16"}
+        _check(not stray, f"[examples] {name}: launches of {stray}")
+        print(f"[examples] {' '.join([name, *runs[name][1]])}: exit 0 in "
+              f"{res['wall_s']:.1f} s, {len(res['updates'])} updates, "
+              f"launches {res['launches']}; \"{m.group(0).strip()}\" "
+              f"({card})", flush=True)
+        return m, res
+
+    total = side
+    m, res = counted("quickstart", r"^finished at iteration ([0-9]+)$")
+    n = int(m.group(1))
+    _check(1 <= n <= 30 and len(res["updates"]) == n
+           and res["launches"] == {"reverse_scan": n},
+           f"[examples] quickstart: {n} iterations, launches "
+           f"{res['launches']} (K2 once an iteration; no K1 on a "
+           "categorical policy)")
+    total = _add(total, res["launches"])
+    _, res = counted("pomdp_recurrent", r"^GRU policy on velocity-masked "
+                     r"CartPole after 2 iterations: greedy eval -?[0-9.]+.*$")
+    _check(res["launches"] == {"reverse_scan": 2},
+           f"[examples] pomdp_recurrent launches {res['launches']}")
+    total = _add(total, res["launches"])
+    _, res = counted("mujoco_host", r"^finished at iteration 2; greedy eval "
+                     r"return -?[0-9.]+ .*$")
+    k1 = sum(u["cheap"] + 1 for u in res["updates"] if u["cheap"] >= 0)
+    _check(len(res["updates"]) == 2 and k1 > 0
+           and res["launches"] == {"reverse_scan": 2, "fused_fvp": k1},
+           f"[examples] mujoco_host on native:pendulum launches "
+           f"{res['launches']}; expected K2 2 and K1 {k1} = Σ(cheap "
+           "cg_iterations + 1)")
+    total = _add(total, res["launches"])
+    code, out = done["mujoco_host gym:"]
+    _check(code not in (0, None)
+           and "gymnasium is required for gym:* envs" in out
+           and "finished at iteration" not in out,
+           f"[examples] mujoco_host on gym:HalfCheetah-v4 without "
+           f"gymnasium: exit {code}:\n{out[-2000:]}")
+    print(f"[examples] mujoco_host on its default gym:HalfCheetah-v4: exit "
+          f"{code}, the adapter's ImportError naming gymnasium (not on the "
+          f"card's machine), no other env tried", flush=True)
+    _, res = counted("population_sweep", r"^4 members x 2 iterations in .*"
+                     r"best member: s[0-3]$")
+    row = json.loads(sweep.read_text())
+    _check(set(row) == SWEEP_KEYS and row["members"] == 4
+           and row["iterations"] == 2
+           and res["launches"] == {"reverse_scan": 8},
+           f"[examples] population_sweep row {row}, launches "
+           f"{res['launches']} (K2 once a member's iteration)")
+    total = _add(total, res["launches"])
+    total = _add(total, _reference_style_result(
+        *done["reference_style"], work / "reference_style.json", card))
+    code, out = done["learning_evidence"]
+    _check(code == 0, f"[examples] learning_evidence exit {code}:\n"
+           f"{out[-3000:]}")
+    summary = _evidence_result("cartpole", evidence, out, card)
+    _check(summary["best"] >= EVIDENCE_BAR,
+           f"[examples] learning_evidence cartpole best reading "
+           f"{summary['best']} < {EVIDENCE_BAR}")
+    total = _add(total, summary["launches"])
+    print(f"[examples] {len(children)} children side by side in "
+          f"{wall:.1f} s; launches {total}; logs in "
+          f"{work.relative_to(ROOT)}", flush=True)
+    return total
+
+
+def run_evidence(rungs: list) -> int:
+    """The learning runs (``--evidence=``): each rung of
+    ``learning_evidence`` at its published length, seed 0, in its own
+    child, one after another, each checked as ``_evidence_result`` checks
+    it; a rung that fails is named and the next one runs. Prints a line
+    per rung and the table; each rung's rows, update records and summary
+    stay under ``build/chip_smoke/evidence/``."""
+    from trpo_torch.scripts import learning_evidence
+
+    card = _card_line()
+    work = WORK / "evidence"
+    work.mkdir(parents=True, exist_ok=True)
+    done, failed = [], []
+    for rung in rungs:
+        iters, _ = learning_evidence.RUNGS[rung]
+        out, log = work / f"{rung}.json", work / f"{rung}.log"
+        child = _spawn(_evidence_argv(out, rung, "cuda"), log)
+        try:
+            code = child.wait(timeout=EVIDENCE_S[0] + EVIDENCE_S[1] * iters)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+            code = "killed at its deadline"
+        text = log.read_text()
+        try:
+            _check(code == 0, f"[evidence {rung}] exit {code}:\n"
+                   f"{text[-3000:]}")
+            summary = _evidence_result(rung, out, text, card)
+        except SmokeFailure as e:
+            print(f"[evidence {rung}] FAILED: {e}", flush=True)
+            failed.append(rung)
+            continue
+        (work / f"{rung}.summary.json").write_text(json.dumps(summary))
+        done.append(summary)
+    print(f"[evidence] ({card})\n| rung | iterations | wall s | median "
+          "iteration ms | first → last | best (at) | K1 | K2 | audits "
+          "(update: cosine, fallback) |\n|---|---|---|---|---|---|---|---|"
+          "---|")
+    for s in done:
+        audits = "; ".join(f"{u}: {c:.5f}{' fell back' if f else ''}"
+                           for u, c, f in s["audits"]) or "none"
+        print(f"| {s['rung']} | {s['iterations']} | {s['wall_s']} | "
+              f"{s['median_iteration_ms']:.1f} | {s['first']} → {s['last']} "
+              f"| {s['best']:.1f} ({s['best_at']}) | "
+              f"{s['launches'].get('fused_fvp', 0)} | "
+              f"{s['launches'].get('reverse_scan', 0)} | {audits} |")
+    print(f"[evidence] failed: {failed or 'none'}", flush=True)
+    return 1 if failed else 0
 
 
 # ---------------------------------------------------------------------------
@@ -6377,9 +6705,9 @@ def _mesh_gloo_child(out_prefix: str, device: str) -> int:
 
 
 def _mesh_tp_child(out_prefix: str, ck4: str, device: str) -> int:
-    """In one of two ranks sharing the one card over gloo: leg 4's layout
-    and checkpoint (``ck4`` a directory), or legs 5 and 6 (``ck4`` is
-    ``-``)."""
+    """In one of two ranks sharing the one card over gloo: legs 5 and 6,
+    then, once leg 4's train child (beside this one) has completed its
+    step 2 in ``ck4``, leg 4's layout and checkpoint."""
     import torch
     import torch.distributed as dist
 
@@ -6420,10 +6748,15 @@ def _mesh_tp_child(out_prefix: str, ck4: str, device: str) -> int:
         counts.skip()
         return got
 
-    if ck4 == "-":
-        _mesh_legs56(res, counts, iterate, one_rank, dev, rank)
-    else:
-        _mesh_leg4_layout(res, ck4, dev, rank, flat)
+    _mesh_legs56(res, counts, iterate, one_rank, dev, rank)
+    t0 = time.perf_counter()
+    while not (Path(ck4) / "step_2.complete").exists():
+        if time.perf_counter() - t0 > MESH_COLLECTIVE_S:
+            raise SmokeFailure(f"leg 4's step 2 never completed in {ck4}")
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    _mesh_leg4_layout(res, ck4, dev, rank, flat)
+    res["leg4_layout_s"] = time.perf_counter() - t0
     res["path_launches"] = counts.total
     Path(f"{out_prefix}.{rank}.json").write_text(json.dumps(res))
     dist.destroy_process_group()
@@ -6552,7 +6885,7 @@ def _mesh_child(mode: str, argv: list) -> int:
     return _mesh_gloo_child(*argv)
 
 
-def phase_mesh(torch, dev):
+def phase_mesh(torch, dev, beside=None):
     """Data and sequence parallelism on the card, in child processes (the
     parent never holds a process group): leg 1 the flagship through the
     train CLI under torchrun on an NCCL world of one (3 iterations, a
@@ -6562,8 +6895,13 @@ def phase_mesh(torch, dev):
     against K1 / K1-bf16 alone, with its all-reduce timed; leg 3 two ranks
     on the one card over gloo: the FVP over two halves, the
     sequence-parallel GAE on K2, cartpole-fleet on data x seq against one
-    rank, and Population(mesh) with member 1 bitwise its solo run. Returns
-    the children's path launches."""
+    rank, and Population(mesh) with member 1 bitwise its solo run; legs
+    4-6 on parameter axes and host envs. ``beside``, when given, runs in
+    this process while the first wave of children (legs 1, 3, 4, 5-6) runs:
+    the second wave (leg 2's timings) starts after it returns. Returns the
+    children's path launches, with ``beside``'s."""
+    import threading
+
     card = _card_line()
     work = WORK / "mesh"
     shutil.rmtree(work, ignore_errors=True)
@@ -6572,11 +6910,16 @@ def phase_mesh(torch, dev):
     ck2.mkdir()
     total, secs = {}, {}
 
+    ended = {}
+
     def start(tag, argv):
         log = open(work / f"{tag}.log", "w")
-        return (tag, time.perf_counter(), log, subprocess.Popen(
-            argv, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
-            text=True))
+        proc = subprocess.Popen(argv, cwd=ROOT, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        # the child's own end, which a caller busy ``beside`` reads late
+        threading.Thread(target=lambda: ended.setdefault(
+            tag, (proc.wait(), time.perf_counter())[1]), daemon=True).start()
+        return (tag, time.perf_counter(), log, proc)
 
     def finish(started, timeout):
         tag, t0, log, proc = started
@@ -6587,7 +6930,7 @@ def phase_mesh(torch, dev):
                 proc.kill()
                 proc.wait()
             log.close()
-        secs[tag] = time.perf_counter() - t0
+        secs[tag] = ended.get(tag, time.perf_counter()) - t0
         out = (work / f"{tag}.log").read_text()
         _check(code == 0, f"[mesh] {tag} exit {code}:\n{out[-3000:]}")
         return out
@@ -6597,9 +6940,10 @@ def phase_mesh(torch, dev):
     prefix = work / "gloo"
     leg3 = start("leg3_gloo", _torchrun(2, "--mesh-child=gloo", prefix,
                                         dev.type))
-    # legs 5-6 (two gloo ranks) beside them
+    # legs 5-6 (two gloo ranks) beside them, then leg 4's layout and
+    # checkpoint once leg 4's train child has written its step 2
     legs56 = start("legs56_gloo", _torchrun(2, "--mesh-child=tp",
-                                            work / "legs56", "-", dev.type))
+                                            work / "legs56", ck4, dev.type))
     # leg 4: the train CLI on data x model, two gloo ranks on the card
     leg4 = start("leg4_train", _torchrun(
         2, "--mesh-child=train", work / "tp_counts.{rank}.json", "--preset",
@@ -6609,10 +6953,13 @@ def phase_mesh(torch, dev):
     # leg 1: python -m trpo_torch.train under torchrun, NCCL world of one
     counts_path = work / "train_counts.json"
     try:
-        train_out = finish(start("leg1_train", _torchrun(
+        leg1 = start("leg1_train", _torchrun(
             1, "--mesh-child=train", counts_path, "--preset", "humanoid-sim",
             "--device", dev.type, "--mesh-shape", "1", "--iterations", "3",
-            "--checkpoint-dir", ck1, "--checkpoint-every", "1")), 300)
+            "--checkpoint-dir", ck1, "--checkpoint-every", "1"))
+        if beside is not None:
+            total = _add(total, beside() or {})
+        train_out = finish(leg1, 300)
     finally:
         try:
             finish(leg3, 300)
@@ -6665,14 +7012,7 @@ def phase_mesh(torch, dev):
     total = _add(total, r["path_launches"])
     _check(r["leg4_close"], "[mesh] leg 4 step 1 on data x model against "
            f"the meshless GGN run: max|diff| {r['leg4_maxdiff']:.3e}")
-    # leg 4's layout and checkpoint: two gloo ranks on the card
-    finish(start("leg4_layout", _torchrun(2, "--mesh-child=tp",
-                                          work / "leg4", ck4, dev.type)), 300)
-    tpr = [{**json.loads((work / f"leg4.{i}.json").read_text()),
-            **json.loads((work / f"legs56.{i}.json").read_text()),
-            "path_launches": _add(*(json.loads((work / f"{p}.{i}.json")
-                                               .read_text())["path_launches"]
-                                    for p in ("leg4", "legs56")))}
+    tpr = [json.loads((work / f"legs56.{i}.json").read_text())
            for i in (0, 1)]
     d_in, h1, h2, d_out = MESH_DIMS   # a head of odd width stays whole
     _check(tpr[0]["leg4_shapes"] == [[d_in, h1 // 2], [h1 // 2, h2],
@@ -6773,7 +7113,8 @@ def phase_mesh(torch, dev):
           f"{[x['leg6_expert_launches'] for x in tpr]}, "
           f"{[x['leg6_gru_launches'] for x in tpr]}; legs 5-6's child "
           f"{secs['legs56_gloo']:.1f} s beside legs 1, 3 and 4, leg 4's "
-          f"layout child {secs['leg4_layout']:.1f} s ({card})", flush=True)
+          f"layout and checkpoint after them in the same child "
+          f"{tpr[0]['leg4_layout_s']:.1f} s ({card})", flush=True)
     print(f"[mesh] child seconds {json.dumps(secs)}; path launches {total}",
           flush=True)
     return total
@@ -6811,6 +7152,14 @@ def main() -> int:
 
     kernels_only = "--kernels-only" in sys.argv[1:]
     phase_build(torch)
+    evidence = [a.split("=", 1)[1] for a in sys.argv[1:]
+                if a.startswith("--evidence=")]
+    if evidence:
+        # the learning runs alone (no kernel phases, no result lines)
+        from trpo_torch.scripts.learning_evidence import RUNGS
+
+        rungs = evidence[0].split(",")
+        return run_evidence(list(RUNGS) if rungs == ["all"] else rungs)
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
             if a.startswith("--phases=")]
     if only:
@@ -6845,7 +7194,6 @@ def main() -> int:
                 ("overlap", lambda: phase_overlap(torch, dev)),
                 ("population", lambda: phase_population(torch, dev)),
                 ("host", lambda: phase_host(torch, np, dev)),
-                ("preempt", lambda: phase_preempt(torch, dev)),
                 ("serve", lambda: phase_serve(torch, dev)),
                 ("control", lambda: phase_control(torch, dev)),
                 ("obs", lambda: phase_obs(torch, dev)),
@@ -6853,7 +7201,14 @@ def main() -> int:
                 ("replay", lambda: phase_replay(torch, dev)),
                 ("flywheel", lambda: phase_flywheel(torch, dev)),
                 ("compat", lambda: phase_compat(torch, dev)),
-                ("mesh", lambda: phase_mesh(torch, dev)),
+                # children that run side by side, their checks functional:
+                # [examples]' children (with [preempt]'s child beside them)
+                # run beside [mesh]'s first wave; [mesh]'s timed second
+                # wave starts once they are all done
+                ("examples+preempt+mesh", lambda: phase_mesh(
+                    torch, dev, beside=lambda: phase_examples(
+                        torch, dev,
+                        beside=lambda: phase_preempt(torch, dev)))),
                 ("bench", lambda: phase_bench(torch))):
             t0 = time.perf_counter()
             total = _add(total, phase() or {})
