@@ -1356,8 +1356,7 @@ class TRPOAgent:
                 logger, telemetry = StatsLogger(stream=quiet), None
         own_logger = logger is None
         logger = logger or StatsLogger(jsonl_path=cfg.log_jsonl)
-        timer = PhaseTimer(use_profiler=telemetry is not None
-                           and telemetry.profile_dir is not None)
+        timer = PhaseTimer()
         bus = telemetry.bus if telemetry is not None else None
         if telemetry is not None:
             telemetry.attach_timer(timer)

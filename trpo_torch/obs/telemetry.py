@@ -21,7 +21,9 @@ one optional argument and the CLI wiring lives in one place:
 * ``--profile-dir D [--profile-iteration N]`` → a ``torch.profiler``
   trace (CPU and, on the card, CUDA activity) written to ``D`` as a
   Chrome trace: of the window around iteration N, or of the whole run
-  without N. ``PhaseTimer(use_profiler=True)`` names the phases inside.
+  without N. The trace names the ``PhaseTimer`` phases inside and, on
+  the thread the profiler records, the update's ``trpo/*`` spans
+  (``utils/timers.span``).
 
 Lifecycle (driven by ``agent.learn``): ``start_run(cfg, ...)`` emits the
 run manifest (and the ``status`` announcement) and starts the recompile

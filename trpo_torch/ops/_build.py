@@ -12,6 +12,13 @@ with the compiler's output; nothing falls back.
 where it launches its kernel, a plain version adds one under
 ``"<name>_plain"`` where it runs. A caller that wants to show a run went
 through the kernels resets it, runs, and reads it.
+
+Beside it, what ``utils/timers.span`` and ``utils/timers.host_read``
+record while a profiler records on the calling thread (and only then):
+``SPAN_COUNTS``, the spans opened, by name; ``HOST_READS``, the host's
+reads of a CUDA value, by site; ``SPANS``, the device-timed spans with
+their CUDA events, up to ``SPAN_CAP`` of them. :func:`reset_launches`
+clears all of them: one reset for every counter of the program.
 """
 
 from __future__ import annotations
@@ -25,13 +32,15 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import List, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
 from trpo_torch.obs import recompile
 
-__all__ = ["LAUNCHES", "build", "check", "kernel", "reset_launches", "stream_of"]
+__all__ = ["HOST_READS", "LAUNCHES", "SPANS", "SPAN_CAP", "SPAN_COUNTS",
+           "SpanRecord", "build", "check", "kernel", "reset_launches",
+           "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "trpo_torch_kernels"
@@ -40,6 +49,49 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: collections.Counter = collections.Counter()
+SPAN_COUNTS: collections.Counter = collections.Counter()
+HOST_READS: collections.Counter = collections.Counter()
+# device-timed spans kept at most: a 3 s traced stretch of the flagship's
+# updates keeps about 1,200; a profiled training run that never resets
+# stops keeping them here (and counts each one dropped)
+SPAN_CAP = 1 << 16
+
+
+class SpanRecord(NamedTuple):
+    """One device-timed span: its name, the innermost span open around it
+    on its thread (None at the top), and the CUDA events recorded on the
+    current stream at its edges."""
+    name: str
+    parent: Optional[str]
+    start: "torch.cuda.Event"
+    end: "torch.cuda.Event"
+
+    def device_ms(self) -> float:
+        """The device time between the span's edges; the events must have
+        completed (synchronize first)."""
+        return self.start.elapsed_time(self.end)
+
+
+class SpanBuffer:
+    """The device-timed spans, kept in order up to ``SPAN_CAP``; each one
+    past it is counted in ``dropped``."""
+
+    def __init__(self):
+        self.records: List[SpanRecord] = []
+        self.dropped = 0
+
+    def add(self, record: SpanRecord) -> None:
+        if len(self.records) < SPAN_CAP:
+            self.records.append(record)
+        else:
+            self.dropped += 1
+
+    def clear(self) -> None:
+        self.records.clear()
+        self.dropped = 0
+
+
+SPANS = SpanBuffer()
 
 _lock = threading.Lock()
 _lib = None
@@ -47,7 +99,12 @@ _fns: dict = {}
 
 
 def reset_launches() -> None:
+    """Clear the launch counts, the span and host-read counts and the
+    span buffer."""
     LAUNCHES.clear()
+    SPAN_COUNTS.clear()
+    HOST_READS.clear()
+    SPANS.clear()
 
 
 def _nvcc() -> str:

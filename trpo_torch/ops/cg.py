@@ -22,6 +22,11 @@ that loop runs its full count with no sync.
 budget (``cfg.cg_budget_adaptive``): it is read once per solve (one sync)
 and bounds the loop, so iterations past the budget cost nothing either.
 
+Each loop body that runs is a ``trpo/cg_solve/iteration`` span
+(``utils/timers.span``), and the host's reads of the exit mask and of the
+budget are counted as ``cg.exit`` and ``cg.budget``
+(``utils/timers.host_read``) while a profiler records.
+
 Everything this module owns — ``x``, ``r``, ``p``, the dot products and
 the residual test — is f32. ``dot`` replaces ``torch.dot`` where the
 vectors are this rank's blocks of a sharded one (``parallel/tp.py``).
@@ -32,6 +37,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+
+from trpo_torch.utils.timers import host_read, span
 
 __all__ = ["CGResult", "conjugate_gradient"]
 
@@ -66,7 +73,8 @@ def conjugate_gradient(
     if isinstance(cg_iters, torch.Tensor):
         if max_iters is None:
             raise ValueError("a tensor cg_iters needs max_iters")
-        n_loop = max(0, min(int(max_iters), int(cg_iters.item())))
+        n_loop = max(0, min(int(max_iters),
+                            int(host_read(cg_iters, "cg.budget"))))
     else:
         n_loop = int(cg_iters)
     every = CHECK_EVERY
@@ -85,21 +93,23 @@ def conjugate_gradient(
     iterations = torch.zeros((), dtype=torch.int32, device=b.device)
     for i in range(n_loop):
         active = rdotr > stop
-        if every and i % every == 0 and not bool(active):
+        if (every and i % every == 0
+                and not bool(host_read(active, "cg.exit"))):
             break  # converged: no later iteration takes effect
-        w = f_Ax(p).float()
-        alpha = rdotz / dot(p, w)
-        x_new = x + alpha * p
-        r_new = r - alpha * w
-        z = r_new if M_inv is None else M_inv(r_new).float()
-        rdotr_new = dot(r_new, r_new)
-        rdotz_new = rdotr_new if M_inv is None else dot(r_new, z)
-        mu = rdotz_new / rdotz
-        p_new = z + mu * p
-        x = torch.where(active, x_new, x)
-        r = torch.where(active, r_new, r)
-        p = torch.where(active, p_new, p)
-        rdotz = torch.where(active, rdotz_new, rdotz)
-        rdotr = torch.where(active, rdotr_new, rdotr)
-        iterations = iterations + active.to(torch.int32)
+        with span("trpo/cg_solve/iteration"):
+            w = f_Ax(p).float()
+            alpha = rdotz / dot(p, w)
+            x_new = x + alpha * p
+            r_new = r - alpha * w
+            z = r_new if M_inv is None else M_inv(r_new).float()
+            rdotr_new = dot(r_new, r_new)
+            rdotz_new = rdotr_new if M_inv is None else dot(r_new, z)
+            mu = rdotz_new / rdotz
+            p_new = z + mu * p
+            x = torch.where(active, x_new, x)
+            r = torch.where(active, r_new, r)
+            p = torch.where(active, p_new, p)
+            rdotz = torch.where(active, rdotz_new, rdotz)
+            rdotr = torch.where(active, rdotr_new, rdotr)
+            iterations = iterations + active.to(torch.int32)
     return CGResult(x=x, residual_norm_sq=rdotr, iterations=iterations)

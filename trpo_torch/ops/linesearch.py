@@ -6,7 +6,9 @@ every trial runs and the first acceptance is latched by ``torch.where``, so
 no trial waits on the host; ``trials`` counts the trials the reference
 would have evaluated. Acceptance is the reference's: ``actual_improve > 0``
 and ``actual_improve / (expected_improve_rate · frac) > accept_ratio``, and
-the original point comes back when nothing is accepted.
+the original point comes back when nothing is accepted. Each trial is a
+``trpo/linesearch/trial`` span (``utils/timers.span``), so a profiled
+update counts every evaluation, the ones after the acceptance included.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from trpo_torch.ops.treemath import tree_where
+from trpo_torch.utils.timers import span
 
 __all__ = ["LinesearchResult", "backtracking_linesearch"]
 
@@ -63,28 +66,29 @@ def backtracking_linesearch(
     x_acc, f_acc, aux_acc = x, fval, aux_x
     frac_acc = torch.zeros((), dtype=torch.float32, device=device)
     for k in range(max_backtracks):
-        frac = torch.tensor(
-            backtrack_factor, dtype=torch.float32, device=device
-        ) ** float(k)
-        xnew = x + frac.to(x.dtype) * fullstep
-        if has_aux:
-            newfval, aux = loss_fn(xnew)
-        else:
-            newfval, aux = loss_fn(xnew), None
-        actual_improve = fval - newfval
-        ratio = actual_improve / (expected_improve_rate * frac)
-        ok = (ratio > accept_ratio) & (actual_improve > 0.0)
-        if constraint_fn is not None:
-            ok = ok & (constraint_fn(xnew, aux) if has_aux
-                       else constraint_fn(xnew))
-        take = ok & ~accepted
-        trials = trials + (~accepted).to(torch.int32)
-        x_acc = torch.where(take, xnew, x_acc)
-        f_acc = torch.where(take, newfval, f_acc)
-        frac_acc = torch.where(take, frac, frac_acc)
-        if has_aux:
-            aux_acc = tree_where(take, aux, aux_acc)
-        accepted = accepted | ok
+        with span("trpo/linesearch/trial"):
+            frac = torch.tensor(
+                backtrack_factor, dtype=torch.float32, device=device
+            ) ** float(k)
+            xnew = x + frac.to(x.dtype) * fullstep
+            if has_aux:
+                newfval, aux = loss_fn(xnew)
+            else:
+                newfval, aux = loss_fn(xnew), None
+            actual_improve = fval - newfval
+            ratio = actual_improve / (expected_improve_rate * frac)
+            ok = (ratio > accept_ratio) & (actual_improve > 0.0)
+            if constraint_fn is not None:
+                ok = ok & (constraint_fn(xnew, aux) if has_aux
+                           else constraint_fn(xnew))
+            take = ok & ~accepted
+            trials = trials + (~accepted).to(torch.int32)
+            x_acc = torch.where(take, xnew, x_acc)
+            f_acc = torch.where(take, newfval, f_acc)
+            frac_acc = torch.where(take, frac, frac_acc)
+            if has_aux:
+                aux_acc = tree_where(take, aux, aux_acc)
+            accepted = accepted | ok
     return LinesearchResult(
         x=x_acc,
         success=accepted,

@@ -24,6 +24,13 @@ and the line-search acceptance are device-side predicates
 (adapted on the device with ``cfg.adaptive_damping``), and the head-block
 refresh cadence is a Python counter.
 
+The stages carry the reference's ``jax.named_scope`` names as
+``utils/timers.span`` ranges, which record only under a profiler:
+``trpo/grad_and_surrogate``, ``trpo/precond_refresh``, ``trpo/cg_solve``
+(each solve; its iterations are ``trpo/cg_solve/iteration``),
+``trpo/fvp`` (every operator call), ``trpo/linesearch`` (its trials are
+``trpo/linesearch/trial``) and ``trpo/kl_rollback_and_stats``.
+
 The Fisher operator under ``fvp_mode="auto"`` or ``"fused"`` is the fused
 kernel (``ops/fused_fvp.py``: K1 in f32, K1-bf16 for the ladder's bf16
 rung or a bfloat16 policy) for a plain-MLP diagonal-Gaussian policy. An
@@ -84,6 +91,7 @@ from trpo_torch.ops.precond import (
     rademacher_probes,
 )
 from trpo_torch.ops.treemath import tree_where
+from trpo_torch.utils.timers import host_read, span
 
 __all__ = [
     "LadderState",
@@ -415,7 +423,8 @@ def _head_block_inv(policy: Policy, cfg: TRPOConfig, params0, fb: TRPOBatch,
                                  spec["activation"], tp=ttp))
 
     def fresh():
-        with torch.no_grad():
+        with torch.no_grad(), span("trpo/precond_refresh",
+                                   fb.weight.device):
             S = gaussian_head_gram(torso_apply, params0["net"], fb.obs,
                                    fb.weight, group)
             return head_gram_eigh(S)
@@ -451,24 +460,25 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                  else (space.dot, space.norm))
     x0 = x0.detach()
     dev = x0.device
-    with torch.no_grad():
-        logp_old = policy.dist.logp(batch.old_dist, batch.actions)
-    xg = x0.clone().requires_grad_(True)
-    # each rank differentiates its rows' share of the global mean; the
-    # gradient and the surrogate are summed in one collective
-    wtot = weight_total(batch.weight, group)
-    with torch.enable_grad():
-        dist0 = policy.apply(to_params(xg), batch.obs)
-        surr_local = -wshare(_ratio_adv(policy, dist0, batch, logp_old),
-                             batch.weight, wtot)
-        (g,) = torch.autograd.grad(surr_local, xg)
-    red = all_sum(torch.cat([g.float(), surr_local.detach().reshape(1)]),
-                  group)
-    g, surr_before = red[:-1], red[-1]
-    surr_before = surr_before.detach()
-    dist0 = tree_map(torch.Tensor.detach, dist0)
-    grad_norm = norm(g)
-    neg_g = -1.0 * g
+    with span("trpo/grad_and_surrogate", dev):
+        with torch.no_grad():
+            logp_old = policy.dist.logp(batch.old_dist, batch.actions)
+        xg = x0.clone().requires_grad_(True)
+        # each rank differentiates its rows' share of the global mean; the
+        # gradient and the surrogate are summed in one collective
+        wtot = weight_total(batch.weight, group)
+        with torch.enable_grad():
+            dist0 = policy.apply(to_params(xg), batch.obs)
+            surr_local = -wshare(_ratio_adv(policy, dist0, batch, logp_old),
+                                 batch.weight, wtot)
+            (g,) = torch.autograd.grad(surr_local, xg)
+        red = all_sum(torch.cat([g.float(),
+                                 surr_local.detach().reshape(1)]), group)
+        g, surr_before = red[:-1], red[-1]
+        surr_before = surr_before.detach()
+        dist0 = tree_map(torch.Tensor.detach, dist0)
+        grad_norm = norm(g)
+        neg_g = -1.0 * g
 
     if damping is None:
         damping = torch.full((), float(cfg.cg_damping), device=dev)
@@ -519,7 +529,12 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                               b.weight, damping=damping, group=group)
         if skew:
             op = _skewed_operator(op, skew, x0.shape[0], dev, space)
-        return op
+
+        def traced(v):
+            with span("trpo/fvp", dev):
+                return op(v)
+
+        return traced
 
     fvp = build_fvp(fb, torch.bfloat16 if cfg.fvp_dtype == "bf16" else None,
                     True, cfg.solve_fault_skew)
@@ -553,11 +568,12 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
     def solve(op, iters):
         """One CG solve and the step-scale FVP ``shs = ½ sᵀ(F+λI)s`` on the
         operator that produced it."""
-        cg = conjugate_gradient(
-            op, neg_g, cg_iters=iters, residual_tol=cfg.cg_residual_tol,
-            M_inv=M_inv, residual_rtol=cfg.cg_residual_rtol,
-            max_iters=max(ceiling, cfg.cg_iters), dot=dot,
-        )
+        with span("trpo/cg_solve", dev):
+            cg = conjugate_gradient(
+                op, neg_g, cg_iters=iters, residual_tol=cfg.cg_residual_tol,
+                M_inv=M_inv, residual_rtol=cfg.cg_residual_rtol,
+                max_iters=max(ceiling, cfg.cg_iters), dot=dot,
+            )
         shs = 0.5 * dot(cg.x, op(cg.x))
         return cg.x, shs, cg.iterations, cg.residual_norm_sq
 
@@ -650,8 +666,8 @@ def _solve_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
                 fallbacks=ladder.fallbacks + fallback.to(torch.int32),
                 step_host=ladder.step_host + 1,
                 # pinned changes only on an audited update: one read-back
-                pinned_host=bool(pinned_next.item()) if do_audit
-                else ladder.pinned_host,
+                pinned_host=bool(host_read(pinned_next, "ladder.pinned"))
+                if do_audit else ladder.pinned_host,
             )
 
         shs = torch.clamp(shs, min=1e-12)
@@ -704,68 +720,70 @@ def _finish_stage(policy: Policy, cfg: TRPOConfig, to_params: Callable,
             <= kl_cap
         )
     with torch.no_grad():
-        ls = backtracking_linesearch(
-            surr_with_dist,
-            x0,
-            pack.fullstep,
-            pack.expected_improve_rate,
-            max_backtracks=cfg.linesearch_backtracks,
-            accept_ratio=cfg.linesearch_accept_ratio,
-            constraint_fn=ls_constraint,
-            has_aux=True,
-            f0=pack.surr_before,
-            aux0=pack.dist0,
-        )
-        dist_ls = ls.aux
-        kl_after = wmean(policy.dist.kl(batch.old_dist, dist_ls),
-                         batch.weight, group)
-        rollback = kl_after > cfg.kl_rollback_factor * cfg.max_kl
-        x_new = torch.where(rollback, x0, ls.x)
-        final_dist = tree_where(rollback, pack.dist0, dist_ls)
-        logp_new = policy.dist.logp(final_dist, batch.actions)
-        ratio_new = torch.exp(logp_new - logp_old)
-        if batch.is_weight is not None:
-            # the same weighting as the surrogate the search optimized
-            ratio_new = ratio_new * batch.is_weight
-        surr_after = -wmean(ratio_new * batch.advantages, batch.weight,
+        with span("trpo/linesearch", x0.device):
+            ls = backtracking_linesearch(
+                surr_with_dist,
+                x0,
+                pack.fullstep,
+                pack.expected_improve_rate,
+                max_backtracks=cfg.linesearch_backtracks,
+                accept_ratio=cfg.linesearch_accept_ratio,
+                constraint_fn=ls_constraint,
+                has_aux=True,
+                f0=pack.surr_before,
+                aux0=pack.dist0,
+            )
+        with span("trpo/kl_rollback_and_stats", x0.device):
+            dist_ls = ls.aux
+            kl_after = wmean(policy.dist.kl(batch.old_dist, dist_ls),
+                             batch.weight, group)
+            rollback = kl_after > cfg.kl_rollback_factor * cfg.max_kl
+            x_new = torch.where(rollback, x0, ls.x)
+            final_dist = tree_where(rollback, pack.dist0, dist_ls)
+            logp_new = policy.dist.logp(final_dist, batch.actions)
+            ratio_new = torch.exp(logp_new - logp_old)
+            if batch.is_weight is not None:
+                # the same weighting as the surrogate the search optimized
+                ratio_new = ratio_new * batch.is_weight
+            surr_after = -wmean(ratio_new * batch.advantages, batch.weight,
+                                group)
+            entropy = wmean(policy.dist.entropy(final_dist), batch.weight,
                             group)
-        entropy = wmean(policy.dist.entropy(final_dist), batch.weight,
-                        group)
-        damping_next = (
-            _next_damping(cfg, pack.damping, ls.success, rollback)
-            if cfg.adaptive_damping else pack.damping
-        )
-        nan_guard = ~(
-            torch.isfinite(pack.grad_norm)
-            & torch.isfinite(surr_after)
-            & torch.isfinite(entropy)
-        )
-        stats = TRPOStats(
-            surrogate_before=pack.surr_before,
-            surrogate_after=surr_after,
-            kl=wmean(policy.dist.kl(batch.old_dist, final_dist),
-                     batch.weight, group),
-            entropy=entropy,
-            grad_norm=pack.grad_norm,
-            step_norm=norm(x_new - x0),
-            cg_iterations=pack.cg_iterations,
-            cg_residual=pack.cg_residual,
-            linesearch_success=ls.success,
-            step_fraction=ls.step_fraction,
-            rolled_back=rollback,
-            damping=pack.damping,
-            linesearch_trials=ls.trials,
-            nan_guard=nan_guard,
-            cg_budget=pack.cg_budget,
-            precond_next=pack.precond_next,
-            damping_next=damping_next,
-            solve_cosine=pack.solve_cosine,
-            solve_audited=pack.solve_audited,
-            solve_fallback=pack.solve_fallback,
-            solve_pinned=pack.solve_pinned,
-            ladder_next=pack.ladder_next,
-            cg_iterations_cheap=pack.cg_iterations_cheap,
-        )
+            damping_next = (
+                _next_damping(cfg, pack.damping, ls.success, rollback)
+                if cfg.adaptive_damping else pack.damping
+            )
+            nan_guard = ~(
+                torch.isfinite(pack.grad_norm)
+                & torch.isfinite(surr_after)
+                & torch.isfinite(entropy)
+            )
+            stats = TRPOStats(
+                surrogate_before=pack.surr_before,
+                surrogate_after=surr_after,
+                kl=wmean(policy.dist.kl(batch.old_dist, final_dist),
+                         batch.weight, group),
+                entropy=entropy,
+                grad_norm=pack.grad_norm,
+                step_norm=norm(x_new - x0),
+                cg_iterations=pack.cg_iterations,
+                cg_residual=pack.cg_residual,
+                linesearch_success=ls.success,
+                step_fraction=ls.step_fraction,
+                rolled_back=rollback,
+                damping=pack.damping,
+                linesearch_trials=ls.trials,
+                nan_guard=nan_guard,
+                cg_budget=pack.cg_budget,
+                precond_next=pack.precond_next,
+                damping_next=damping_next,
+                solve_cosine=pack.solve_cosine,
+                solve_audited=pack.solve_audited,
+                solve_fallback=pack.solve_fallback,
+                solve_pinned=pack.solve_pinned,
+                ladder_next=pack.ladder_next,
+                cg_iterations_cheap=pack.cg_iterations_cheap,
+            )
     return to_params(x_new), stats
 
 

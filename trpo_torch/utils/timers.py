@@ -3,8 +3,17 @@
 ``PhaseTimer`` keeps per-phase cumulative and last-call wall times. Phases
 nest: each thread carries a stack of open phase names, and a phase entered
 inside another records under the slash-joined path ("iteration/rollout").
-With ``use_profiler`` each phase is also a ``torch.profiler.record_function``
-range, so it shows up by name in a profiler trace.
+Each phase is also a :func:`span`, so a profiler trace names it.
+
+:func:`span` is the program's one tracing primitive: a
+``torch.profiler.record_function`` range while a profiler records on the
+calling thread, and nothing at all (one thread-local check) otherwise.
+Given a CUDA device it also records a pair of CUDA events at its edges
+into ``ops/_build.SPANS``, read once the device is synchronized; every
+span opened is counted by name in ``ops/_build.SPAN_COUNTS``.
+:func:`host_read` is ``Tensor.item()`` counted by site in
+``ops/_build.HOST_READS`` (a read of a CUDA value, which waits for the
+device) under the same rule.
 
 Stages that start on one thread and record on another (the pipelined
 rollout's group threads, the async driver's stats drain) use
@@ -20,19 +29,90 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd import _profiler_enabled
 
-from trpo_torch.ops.flat import tree_leaves
+# ``trpo_torch.ops`` imports this module (``ops/cg.py``, ``ops/linesearch.py``)
+# and ``ops/_build`` imports ``trpo_torch.obs``, which imports ``utils``: the
+# package's modules are imported where they are used, never at the top.
 
-__all__ = ["PhaseTimer", "synchronize_tree"]
+__all__ = ["PhaseTimer", "host_read", "span", "synchronize_tree"]
+
+_OFF = contextlib.nullcontext()
+_open = threading.local()   # this thread's open span names, innermost last
+
+
+class _Range:
+    """An open :func:`span` while a profiler records."""
+
+    __slots__ = ("name", "device", "_range", "_parent", "_start")
+
+    def __init__(self, name: str, device):
+        self.name = name
+        self.device = device
+
+    def __enter__(self):
+        from trpo_torch.ops import _build
+
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self._parent = stack[-1] if stack else None
+        stack.append(self.name)
+        _build.SPAN_COUNTS[self.name] += 1
+        self._range = torch.autograd.profiler.record_function(self.name)
+        self._range.__enter__()
+        self._start = None
+        if self.device is not None and self.device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(self.device))
+        return self
+
+    def __exit__(self, *exc):
+        if self._start is not None:
+            from trpo_torch.ops import _build
+
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.device))
+            _build.SPANS.add(_build.SpanRecord(self.name, self._parent,
+                                               self._start, end))
+        self._range.__exit__(*exc)
+        _open.stack.pop()
+        return False
+
+
+def span(name: str, device: Optional[torch.device] = None):
+    """A named range of the program: ``with span("trpo/cg_solve", dev):``.
+    With no profiler recording on this thread it returns one shared empty
+    context (no object is built, no clock read). While one records it is a
+    ``record_function(name)`` range, counted in ``SPAN_COUNTS``; with a
+    CUDA ``device`` it is also device-timed, by events on that device's
+    current stream kept in ``SPANS`` with the innermost enclosing span's
+    name."""
+    if not _profiler_enabled():
+        return _OFF
+    return _Range(name, device)
+
+
+def host_read(t: torch.Tensor, site: str):
+    """``t.item()``; while a profiler records on this thread, a read of a
+    CUDA ``t`` (a wait on the device) is counted under ``site`` in
+    ``ops/_build.HOST_READS``."""
+    if _profiler_enabled() and t.is_cuda:
+        from trpo_torch.ops import _build
+
+        _build.HOST_READS[site] += 1
+    return t.item()
 
 
 def synchronize_tree(tree) -> None:
     """Wait for every CUDA device that holds a tensor of ``tree``. CUDA
     calls return before the device finishes, so a host clock without this
     measures the enqueue."""
+    from trpo_torch.ops.flat import tree_leaves
+
     devices = {leaf.device for leaf in tree_leaves(tree)
                if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
     for dev in devices:
@@ -60,11 +140,10 @@ class _Span:
 
 
 class PhaseTimer:
-    def __init__(self, use_profiler: bool = False):
+    def __init__(self):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
         self.last = {}
-        self.use_profiler = use_profiler
         self._lock = threading.Lock()
         self._tls = threading.local()
 
@@ -97,12 +176,10 @@ class PhaseTimer:
         waited for before the clock stops (:func:`synchronize_tree`)."""
         stack = self._stack()
         full = "/".join(stack + [name])
-        ctx = (torch.profiler.record_function(full) if self.use_profiler
-               else contextlib.nullcontext())
         stack.append(name)
         start = time.perf_counter()
         try:
-            with ctx:
+            with span(full):
                 yield
                 if block_on is not None:
                     synchronize_tree(block_on)
