@@ -426,12 +426,31 @@ def test_cg_early_exit_is_bitwise_the_masked_loop(monkeypatch, check_every,
     assert len(calls) == 10
 
 
-@pytest.mark.parametrize("kl_cap", [None, 0.05])
-def test_linesearch_matches_reference(kl_cap):
+# (step along c, sign of the expected rate, KL cap, trials) for a loss
+# |x - c|² from 0 and the cap |x|² ≤ 100·kl_cap (|c|² = 16.3): a rate of
+# the wrong sign passes no trial; with the right one the half step passes
+# at once, and the 4c step overshoots to 1/4 (1/8 under the cap)
+LS_CASES = [
+    pytest.param(4.0, -1.0, None, 10, id="None"),
+    pytest.param(4.0, -1.0, 0.05, 10, id="0.05"),
+    pytest.param(0.5, 1.0, None, 1, id="first-None"),
+    pytest.param(0.5, 1.0, 0.05, 1, id="first-0.05"),
+    pytest.param(4.0, 1.0, None, 3, id="planted-None"),
+    pytest.param(4.0, 1.0, 0.05, 4, id="planted-0.05"),
+]
+
+
+def _ls_problem(scale, sign):
     rng = np.random.default_rng(6)
     c = rng.normal(size=8).astype(np.float32)
-    x0 = np.zeros(8, np.float32)
-    step = (4.0 * c).astype(np.float32)  # overshoots: backtracks a few times
+    step = (scale * c).astype(np.float32)
+    return c, np.zeros(8, np.float32), step, float(sign * 2.0
+                                                    * np.dot(c, step))
+
+
+@pytest.mark.parametrize("scale,sign,kl_cap,trials", LS_CASES)
+def test_linesearch_matches_reference(scale, sign, kl_cap, trials):
+    c, x0, step, rate = _ls_problem(scale, sign)
 
     def loss_j(x):
         return jnp.sum((x - jnp.asarray(c)) ** 2), {"x": x}
@@ -439,7 +458,6 @@ def test_linesearch_matches_reference(kl_cap):
     def loss_t(x):
         return torch.sum((x - torch.from_numpy(c)) ** 2), {"x": x}
 
-    rate = float(-2.0 * np.dot(c, step))
     cons_j = cons_t = None
     if kl_cap is not None:
         cons_j = lambda x, aux: jnp.sum(aux["x"] ** 2) <= kl_cap * 100
@@ -450,12 +468,83 @@ def test_linesearch_matches_reference(kl_cap):
                                   torch.from_numpy(step),
                                   torch.tensor(rate), has_aux=True,
                                   constraint_fn=cons_t)
-    assert bool(got.success) == bool(ref.success)
-    assert int(got.trials) == int(ref.trials)
+    assert bool(got.success) == bool(ref.success) == (trials < 10)
+    assert int(got.trials) == int(ref.trials) == trials
     assert float(got.step_fraction) == float(ref.step_fraction)
     np.testing.assert_allclose(got.x.numpy(), np.asarray(ref.x), rtol=RTOL)
     np.testing.assert_allclose(got.aux["x"].numpy(), np.asarray(ref.aux["x"]),
                                rtol=RTOL)
+    np.testing.assert_allclose(float(got.loss), float(ref.loss), rtol=RTOL)
+
+
+def _latched_linesearch(loss_fn, x, fullstep, rate, max_backtracks,
+                        accept_ratio, factor, constraint_fn, f0, aux0):
+    """Every trial evaluated and the first acceptance latched by
+    ``torch.where``: the result the early exit must equal bit for bit."""
+    accepted = torch.zeros((), dtype=torch.bool)
+    trials = torch.zeros((), dtype=torch.int32)
+    x_acc, f_acc, aux_acc = x, f0, aux0
+    frac_acc = torch.zeros((), dtype=torch.float32)
+    for k in range(max_backtracks):
+        frac = torch.tensor(factor, dtype=torch.float32) ** float(k)
+        xnew = x + frac.to(x.dtype) * fullstep
+        newfval, aux = loss_fn(xnew)
+        actual = f0 - newfval
+        ok = (actual / (rate * frac) > accept_ratio) & (actual > 0.0)
+        if constraint_fn is not None:
+            ok = ok & constraint_fn(xnew, aux)
+        take = ok & ~accepted
+        trials = trials + (~accepted).to(torch.int32)
+        x_acc = torch.where(take, xnew, x_acc)
+        f_acc = torch.where(take, newfval, f_acc)
+        frac_acc = torch.where(take, frac, frac_acc)
+        aux_acc = {"x": torch.where(take, aux["x"], aux_acc["x"])}
+        accepted = accepted | ok
+    return x_acc, accepted, frac_acc, f_acc, aux_acc, trials
+
+
+@pytest.mark.parametrize("factor", [0.5, 0.7])
+@pytest.mark.parametrize("scale,sign,kl_cap,trials", LS_CASES)
+def test_linesearch_early_exit_is_bitwise_the_latch(scale, sign, kl_cap,
+                                                    trials, factor):
+    """The loss runs exactly ``trials`` times (``max_backtracks`` with no
+    acceptance, returning ``x``, ``f0`` and ``aux0``), and every field is
+    bitwise the all-trials latch's, for a factor that is not a power of
+    two too."""
+    c, x0, step, rate = _ls_problem(scale, sign)
+    ct, x, fullstep = (torch.from_numpy(v) for v in (c, x0, step))
+    calls = []
+
+    def loss(v):
+        calls.append(1)
+        return torch.sum((v - ct) ** 2), {"x": v}
+
+    cons = None
+    if kl_cap is not None:
+        cons = lambda v, aux: torch.sum(aux["x"] ** 2) <= kl_cap * 100
+    f0, aux0 = loss(x)
+    calls.clear()
+    rate_t = torch.tensor(rate)
+    got = backtracking_linesearch(loss, x, fullstep, rate_t,
+                                  backtrack_factor=factor,
+                                  constraint_fn=cons, has_aux=True, f0=f0,
+                                  aux0=aux0)
+    evals = len(calls)
+    assert evals == int(got.trials)
+    if factor == 0.5:
+        assert evals == trials
+    want = _latched_linesearch(loss, x, fullstep, rate_t, 10, 0.1, factor,
+                               cons, f0, aux0)
+    for a, b in zip((got.x, got.success, got.step_fraction, got.loss,
+                     got.aux["x"], got.trials),
+                    (want[0], want[1], want[2], want[3], want[4]["x"],
+                     want[5])):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a, b)
+    if not bool(got.success):
+        assert evals == 10
+        assert torch.equal(got.x, x) and torch.equal(got.loss, f0)
+        assert got.aux is aux0
 
 
 def test_head_block_preconditioner_matches_reference():

@@ -130,6 +130,21 @@ def _build_cases():
               lambda vv: tpu_sharded_fvp(policy, TpuConfig(), mesh)(
                   params, tpu_shard_batch(mesh, _tpu_batch(a)), vv),
               jnp.asarray(b)).x))
+    # actions 30 standard deviations out: the search backtracks, and the
+    # ranks must leave it at the same trial
+    g_policy, g_params, g = _problem(GAUSS, 240, seed=3)
+    noise = np.random.default_rng(5).normal(size=g["actions"].shape)
+    g["actions"] = (g["d_mean"] + 30.0 * np.exp(g["d_log_std"])
+                    * noise).astype(np.float32)
+
+    def planted_ref():
+        p_ref, s_ref = tpu_sharded_update(g_policy, TpuConfig(), mesh)(
+            g_params, tpu_shard_batch(mesh, _tpu_batch(g)))
+        return (np.asarray(tpu_flatten(p_ref)[0]),
+                int(s_ref.linesearch_trials), float(s_ref.step_fraction))
+
+    _case("planted_search", "counted_update", {"policy": GAUSS}, g,
+          planted_ref)
     _case("fused_mode", "sharded_update",
           {"policy": CAT, "cfg": {"fvp_mode": "fused"}}, a)
     _case("subsample", "sharded_update",
@@ -197,6 +212,20 @@ def test_two_rank_update_agrees_bitwise_across_ranks(group):
     # hold the same KL to the bit, and the same params
     outs = _out(group, "update")
     assert str(outs[0]["kl_hex"]) == str(outs[1]["kl_hex"])
+    np.testing.assert_array_equal(outs[0]["flat"], outs[1]["flat"])
+
+
+def test_planted_backtrack_leaves_every_rank_at_the_same_trial(group):
+    """Each rank reads its own accept predicate, made of all-reduced
+    values: both evaluate the reference's trials and no more, and hold
+    the same params to the bit."""
+    outs = _out(group, "planted_search")
+    flat_ref, trials_ref, frac_ref = REFS["planted_search"]
+    assert trials_ref > 1
+    for o in outs:
+        assert int(o["evals"]) == int(o["trials"]) == trials_ref
+        assert float(o["fraction"]) == frac_ref
+        np.testing.assert_allclose(o["flat"], flat_ref, rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(outs[0]["flat"], outs[1]["flat"])
 
 

@@ -6,12 +6,15 @@ reference's named stages and their children in its Chrome trace, nested
 and counted as the update ran them; with no profiler nothing is recorded;
 the profiler changes no output bit; ``reset_launches`` clears every
 counter; the buffer's cap drops records and counts them. The ``gpu``
-tests check the host-read count of a CUDA solve and that device-timed
-spans resolve; on the card: ``python -m pytest tests/test_torch_spans.py
--q -m gpu --noconftest``. This file imports nothing of JAX.
+tests check the host-read count of a CUDA solve, that a CUDA line
+search syncs once a trial it evaluates and nowhere else, and that
+device-timed spans resolve; on the card: ``python -m pytest
+tests/test_torch_spans.py -q -m gpu --noconftest``. This file imports
+nothing of JAX.
 """
 
 import json
+import warnings
 
 import pytest
 import torch
@@ -22,6 +25,7 @@ from trpo_torch.models.policy import BoxSpec, make_policy
 from trpo_torch.ops import _build
 from trpo_torch.ops.cg import conjugate_gradient
 from trpo_torch.ops.flat import tree_leaves, tree_map
+from trpo_torch.ops.linesearch import backtracking_linesearch
 from trpo_torch.ops.precond import init_gaussian_head_precond
 from trpo_torch.trpo import TRPOBatch, init_ladder, make_trpo_update
 from trpo_torch.utils.timers import host_read, span
@@ -90,7 +94,7 @@ def test_profiled_update_carries_the_stages_nested(tmp_path, pinned):
     """The cheap solve (the fused operator's plain version here) and the
     pinned ladder's full-batch GGN solve: every stage once, a CG iteration
     span per iteration that ran, one product per iteration plus the step
-    scale's, every line-search trial."""
+    scale's, every line-search trial evaluated (up to the accepted one)."""
     cfg, update, params, batch, precond, ladder = _setup("cpu", pinned)
     _build.reset_launches()
     with profile() as prof:
@@ -100,7 +104,7 @@ def test_profiled_update_carries_the_stages_nested(tmp_path, pinned):
     assert iters >= 1
     expected = {n: 1 for n in PARENT}
     expected["trpo/cg_solve/iteration"] = iters
-    expected["trpo/linesearch/trial"] = cfg.linesearch_backtracks
+    expected["trpo/linesearch/trial"] = int(stats.linesearch_trials)
     assert {n: sum(1 for name, _ in spans if name == n)
             for n in PARENT} == expected
     for name, parent in spans:
@@ -115,7 +119,7 @@ def test_profiled_update_carries_the_stages_nested(tmp_path, pinned):
     assert _build.SPAN_COUNTS["trpo/cg_solve/iteration"] == iters
     assert _build.SPAN_COUNTS["trpo/fvp"] == iters + 1
     assert (_build.SPAN_COUNTS["trpo/linesearch/trial"]
-            == cfg.linesearch_backtracks)
+            == int(stats.linesearch_trials))
     assert not _build.HOST_READS
     assert not _build.SPANS.records   # no CUDA device: nothing to time
 
@@ -224,3 +228,50 @@ def test_cuda_update_spans_resolve(card):
         else:
             assert rec.parent is None
     assert _build.HOST_READS["cg.exit"] == min(iters + 1, cfg.cg_iters)
+    assert _build.HOST_READS["ls.accept"] == int(stats.linesearch_trials)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale,trials", [(0.5, 1), (4.0, 3), (-1.0, 10)],
+                         ids=["first", "planted", "none"])
+def test_cuda_linesearch_syncs_once_a_trial(card, scale, trials):
+    """On the card the search waits on the device once a trial it
+    evaluates, at its ``ls.accept`` read, and nowhere else: the loss
+    |x - c|² from 0 along ``scale``·c passes the first trial, the third
+    (4c overshoots to a quarter) or none (-c climbs)."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    c = torch.randn(64, device=card, generator=gen)
+    x, step = torch.zeros(64, device=card), scale * c
+    rate = 2.0 * torch.dot(c, step)
+
+    def loss(v):
+        return torch.sum((v - c) ** 2), {"x": v}
+
+    def cap(v, aux):
+        return torch.sum(aux["x"] ** 2) <= 1e6
+
+    f0, aux0 = loss(x)
+
+    def search():
+        return backtracking_linesearch(loss, x, step, rate,
+                                       constraint_fn=cap, has_aux=True,
+                                       f0=f0, aux0=aux0)
+
+    search()   # the first launches of each kernel
+    torch.cuda.synchronize(card)
+    _build.reset_launches()
+    with profile():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = search()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    assert int(res.trials) == trials
+    assert bool(res.success) == (trials < 10)
+    assert len(syncs) == trials
+    assert dict(_build.HOST_READS) == {"ls.accept": trials}
+    assert _build.SPAN_COUNTS["trpo/linesearch/trial"] == trials

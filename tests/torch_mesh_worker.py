@@ -194,6 +194,29 @@ def job_sharded_update(args, inp):
     return out
 
 
+def job_counted_update(args, inp):
+    """The data-parallel update under a profiler: the new params, the
+    line search's trials and its evaluations (the trial spans opened)."""
+    from torch.profiler import profile
+
+    from trpo_torch.config import TRPOConfig
+    from trpo_torch.ops import _build
+    from trpo_torch.parallel import make_sharded_update, shard_batch
+
+    mesh = _mesh(args)
+    policy = _policy(args["policy"])
+    update = make_sharded_update(policy, TRPOConfig(**args.get("cfg", {})),
+                                 mesh)
+    _build.reset_launches()
+    with profile():
+        new, stats = update(_params(policy, inp["flat"]),
+                            shard_batch(mesh, _batch(inp)))
+    return {"flat": _flat(new), "trials": stats.linesearch_trials.numpy(),
+            "evals": np.asarray(
+                _build.SPAN_COUNTS["trpo/linesearch/trial"]),
+            "fraction": stats.step_fraction.numpy()}
+
+
 def job_tp_update(args, inp):
     """The tree update of a policy sharded over ``args["axis"]`` on a
     data×axis mesh: the gathered new params and the stats."""

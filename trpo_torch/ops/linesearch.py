@@ -1,14 +1,27 @@
-"""Backtracking line search with a device-side accept predicate
+"""Backtracking line search with an early exit
 (counterpart: ``trpo_tpu/ops/linesearch.py``).
 
-The reference's ``lax.while_loop`` stops at the first accepted trial. Here
-every trial runs and the first acceptance is latched by ``torch.where``, so
-no trial waits on the host; ``trials`` counts the trials the reference
-would have evaluated. Acceptance is the reference's: ``actual_improve > 0``
-and ``actual_improve / (expected_improve_rate · frac) > accept_ratio``, and
-the original point comes back when nothing is accepted. Each trial is a
-``trpo/linesearch/trial`` span (``utils/timers.span``), so a profiled
-update counts every evaluation, the ones after the acceptance included.
+Trial k steps to ``x + frac_k · fullstep`` with ``frac_k =
+backtrack_factor ** k`` (f32 on ``x``'s device, as the reference), and
+the host reads that trial's accept predicate once (``ls.accept``,
+``utils/timers.host_read``): the first accepted trial comes back as it
+was computed, and the next trial runs only if it was rejected. So the
+search evaluates exactly ``trials`` candidates, as the reference's
+``lax.while_loop`` does, and waits on the device once per trial and
+nowhere else: the step fraction's base is filled on the device, not
+copied from the host. A latch over every trial (a ``torch.where`` on
+the point, loss, aux and fraction, with no read) would cost
+``max_backtracks`` evaluations whatever the acceptance, nine wasted
+when the first trial is taken, as it usually is.
+
+Acceptance is the reference's: ``actual_improve > 0`` and
+``actual_improve / (expected_improve_rate · frac) > accept_ratio``, and
+``constraint_fn`` on the trial's own aux when given; the original point,
+loss and aux come back when nothing is accepted. On a mesh every term
+of the predicate is all-reduced, so every rank reads the same answer,
+leaves at the same trial and keeps its collectives matched. Each trial
+is a ``trpo/linesearch/trial`` span (``utils/timers.span``), so a
+profiled update counts the evaluations.
 """
 
 from __future__ import annotations
@@ -17,8 +30,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from trpo_torch.ops.treemath import tree_where
-from trpo_torch.utils.timers import span
+from trpo_torch.utils.timers import host_read, span
 
 __all__ = ["LinesearchResult", "backtracking_linesearch"]
 
@@ -29,7 +41,7 @@ class LinesearchResult(NamedTuple):
     step_fraction: torch.Tensor   # accepted 0.5**k (0.0 on failure)
     loss: torch.Tensor            # loss at the returned point
     aux: Any = None               # loss_fn's aux at the returned point
-    trials: Any = 0               # int32: trials up to the first acceptance
+    trials: Any = 0               # int32: trials evaluated
 
 
 def backtracking_linesearch(
@@ -61,15 +73,22 @@ def backtracking_linesearch(
         fval, aux_x = loss_fn(x), None
 
     device = x.device
-    accepted = torch.zeros((), dtype=torch.bool, device=device)
-    trials = torch.zeros((), dtype=torch.int32, device=device)
-    x_acc, f_acc, aux_acc = x, fval, aux_x
-    frac_acc = torch.zeros((), dtype=torch.float32, device=device)
+    base = torch.full((), backtrack_factor, dtype=torch.float32,
+                      device=device)
+
+    def result(x_out, ok, frac, loss, aux, trials):
+        return LinesearchResult(
+            x=x_out,
+            success=torch.full((), ok, dtype=torch.bool, device=device),
+            step_fraction=frac,
+            loss=loss,
+            aux=aux if has_aux else None,
+            trials=torch.full((), trials, dtype=torch.int32, device=device),
+        )
+
     for k in range(max_backtracks):
         with span("trpo/linesearch/trial"):
-            frac = torch.tensor(
-                backtrack_factor, dtype=torch.float32, device=device
-            ) ** float(k)
+            frac = base ** float(k)
             xnew = x + frac.to(x.dtype) * fullstep
             if has_aux:
                 newfval, aux = loss_fn(xnew)
@@ -81,19 +100,7 @@ def backtracking_linesearch(
             if constraint_fn is not None:
                 ok = ok & (constraint_fn(xnew, aux) if has_aux
                            else constraint_fn(xnew))
-            take = ok & ~accepted
-            trials = trials + (~accepted).to(torch.int32)
-            x_acc = torch.where(take, xnew, x_acc)
-            f_acc = torch.where(take, newfval, f_acc)
-            frac_acc = torch.where(take, frac, frac_acc)
-            if has_aux:
-                aux_acc = tree_where(take, aux, aux_acc)
-            accepted = accepted | ok
-    return LinesearchResult(
-        x=x_acc,
-        success=accepted,
-        step_fraction=frac_acc,
-        loss=f_acc,
-        aux=aux_acc if has_aux else None,
-        trials=trials,
-    )
+            if host_read(ok, "ls.accept"):
+                return result(xnew, True, frac, newfval, aux, k + 1)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return result(x, False, zero, fval, aux_x, max_backtracks)

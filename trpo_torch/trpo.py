@@ -18,11 +18,16 @@ here a name for it) keeps its leaves sharded the same way; where it
 applies pytree arithmetic the port applies the flat ops to the local
 blocks.
 
-As in the reference, nothing in the update waits on the host: the CG exit
-and the line-search acceptance are device-side predicates
-(``ops/cg.py``, ``ops/linesearch.py``), the damping λ is a device scalar
-(adapted on the device with ``cfg.adaptive_damping``), and the head-block
-refresh cadence is a Python counter.
+The update waits on the device only where the reference exits a loop
+or picks a branch on a device value, at four host reads
+(``utils/timers.host_read``, named by site): ``cg.exit``, CG's exit mask
+once an iteration; ``cg.budget``, the ladder's adaptive CG budget once
+a solve (``ops/cg.py``); ``ladder.pinned``, once after each audited
+update; and ``ls.accept``, the line search's accept predicate once a
+trial it evaluates (``ops/linesearch.py``). Nothing else syncs: the
+damping λ is a device scalar (adapted on the device with
+``cfg.adaptive_damping``), and the head-block refresh cadence is a
+Python counter.
 
 The stages carry the reference's ``jax.named_scope`` names as
 ``utils/timers.span`` ranges, which record only under a profiler:
