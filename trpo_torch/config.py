@@ -36,7 +36,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Tuple
 
-__all__ = ["TRPOConfig", "PRESETS", "get_preset"]
+__all__ = ["MLAMoEArch", "PORT_PRESETS", "PRESETS", "TRPOConfig",
+           "get_preset"]
 
 
 @dataclasses.dataclass
@@ -706,7 +707,67 @@ PRESETS.update({
 })
 
 
+@dataclasses.dataclass(frozen=True)
+class MLAMoEArch:
+    """A DeepSeek-V3 decoder as a policy (``models/mla_moe.py``): latent
+    attention with decoupled RoPE, a leading dense SwiGLU, then sparse
+    expert layers with shared experts, over one rank's slice of the
+    vocabulary and of the routed experts. Field names follow the
+    published ``config.json``'s where it has one."""
+    hidden_size: int
+    num_hidden_layers: int
+    first_k_dense_replace: int
+    num_attention_heads: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+    kv_lora_rank: int
+    intermediate_size: int
+    moe_intermediate_size: int
+    router_experts: int          # the router's width: every routed expert
+    num_experts_per_tok: int
+    n_shared_experts: int
+    routed_scaling_factor: float
+    norm_topk_prob: bool
+    held_experts: Tuple[int, ...]  # the routed experts this rank computes
+    vocab_size: int              # this rank's slice of the vocabulary
+    rope_theta: float
+    rms_norm_eps: float
+    kv_norm_eps: float           # the latent's RMSNorm (the code's default)
+
+
+# The TRPO block of policy families the reference package does not have;
+# the architecture comes with the benchmark configuration that runs it
+# (benchmark/configs/, as MLAMoEArch). The trainer's --preset offers only
+# PRESETS: these are driven on given batches, with no environment.
+PORT_PRESETS = {
+    # Moonlight-16B-A3B (huggingface.co/moonshotai/Moonlight-16B-A3B,
+    # config.json), one chip's share of a layer divided over 8 chips by
+    # expert parallelism: experts 0-7 of 64 and ids 0-20,479 of 163,840; 5
+    # of 27 layers (the others are further pipeline stages). Rows are
+    # sequences (one response an action); there is no environment: the
+    # update is driven on given batches (benchmark/mixes/update.py)
+    "moonlight-ep8": TRPOConfig(
+        env="tokens",
+        n_envs=8,
+        batch_timesteps=8,
+        max_kl=0.01,
+        cg_iters=10,
+        # the curvature is one sequence's: at 0.1 a full step's KL over
+        # the batch read 3-17x max_kl; at 3.0 it reads 0.6-0.9x
+        cg_damping=3.0,
+        fvp_subsample=0.125,
+        linesearch_backtracks=10,
+        linesearch_accept_ratio=0.1,
+        kl_rollback_factor=2.0,
+        policy_hidden=(),
+        policy_activation="silu",
+    ),
+}
+
+
 def get_preset(name: str) -> TRPOConfig:
-    if name not in PRESETS:
-        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
-    return dataclasses.replace(PRESETS[name])
+    table = {**PRESETS, **PORT_PRESETS}
+    if name not in table:
+        raise KeyError(f"unknown preset {name!r}; have {sorted(table)}")
+    return dataclasses.replace(table[name])

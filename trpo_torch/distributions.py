@@ -3,6 +3,8 @@
 Distribution parameters are plain dicts of tensors — Categorical
 ``{"logits": (..., K)}``, DiagGaussian ``{"mean": (..., D), "log_std":
 (..., D)}`` — and every op returns per-sample values over the leading axes.
+SequenceCategorical (``{"logits": (B, T, V), "mask": (B, T)}``) is one
+action per sequence: a response of tokens scored at the masked positions.
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Categorical", "DiagGaussian", "make_distribution"]
+__all__ = ["Categorical", "DiagGaussian", "SequenceCategorical",
+           "make_distribution"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
 
@@ -134,12 +137,60 @@ class DiagGaussian:
         return params["mean"]
 
 
-_REGISTRY = {d.name: d for d in (Categorical, DiagGaussian)}
+class SequenceCategorical:
+    """A whole response as one action: a categorical over the vocabulary at
+    each position of a ``(B, T)`` sequence, scored where ``mask`` (a float
+    ``(B, T)`` of 0 and 1 beside the logits) is 1 — the response's tokens,
+    not the prompt or the padding. ``logp`` is the mean of the scored
+    tokens' log-probabilities and ``kl`` the mean of the scored positions'
+    categorical KLs: the contextual-bandit form of TRPO, one reward a
+    response, with the length-normalised sequence ratio
+    ``exp(mean_t Δlog π)`` (GSPO's) and the trust region on the mean
+    token KL. ``actions`` is ``(B, T)``: the token each position
+    predicts."""
+
+    name = "sequence_categorical"
+
+    @staticmethod
+    def _mean(x, mask):
+        return torch.sum(x * mask, dim=-1) / torch.clamp(
+            torch.sum(mask, dim=-1), min=1.0)
+
+    @staticmethod
+    def logp(params, actions):
+        return SequenceCategorical._mean(Categorical.logp(params, actions),
+                                         params["mask"])
+
+    @staticmethod
+    def kl(params_old, params_new):
+        return SequenceCategorical._mean(
+            Categorical.kl(params_old, params_new), params_old["mask"])
+
+    @staticmethod
+    def entropy(params):
+        return SequenceCategorical._mean(Categorical.entropy(params),
+                                         params["mask"])
+
+    @staticmethod
+    def fisher_weight(params0, tangent):
+        """The categorical's ``diag(p) − p pᵀ`` at each scored position over
+        the sequence's scored count, 0 elsewhere (the Hessian of
+        :meth:`kl`); the mask is data and carries no curvature."""
+        mask = params0["mask"]
+        per = mask / torch.clamp(torch.sum(mask, dim=-1, keepdim=True),
+                                 min=1.0)
+        m = Categorical.fisher_weight(params0, tangent)["logits"]
+        return {"logits": m * per[..., None],
+                "mask": torch.zeros_like(tangent["mask"])}
+
+
+_REGISTRY = {d.name: d for d in (Categorical, DiagGaussian,
+                                 SequenceCategorical)}
 
 
 def make_distribution(name: str):
     """The distribution class named ``name`` (``"categorical"``,
-    ``"diag_gaussian"``)."""
+    ``"diag_gaussian"``, ``"sequence_categorical"``)."""
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown distribution {name!r}; have {sorted(_REGISTRY)}")

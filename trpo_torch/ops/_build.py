@@ -17,8 +17,10 @@ Beside it, what ``utils/timers.span`` and ``utils/timers.host_read``
 record while a profiler records on the calling thread (and only then):
 ``SPAN_COUNTS``, the spans opened, by name; ``HOST_READS``, the host's
 reads of a CUDA value, by site; ``SPANS``, the device-timed spans with
-their CUDA events, up to ``SPAN_CAP`` of them. :func:`reset_launches`
-clears all of them: one reset for every counter of the program.
+their CUDA events, up to ``SPAN_CAP`` of them; ``TALLIES``, host values
+kept by name (``utils/timers.tally``), up to ``SPAN_CAP`` a name.
+:func:`reset_launches` clears all of them: one reset for every counter
+of the program.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ import torch
 from trpo_torch.obs import recompile
 
 __all__ = ["HOST_READS", "LAUNCHES", "SPANS", "SPAN_CAP", "SPAN_COUNTS",
-           "SpanRecord", "build", "check", "kernel", "reset_launches",
-           "stream_of"]
+           "SpanRecord", "TALLIES", "build", "check", "kernel",
+           "reset_launches", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "trpo_torch_kernels"
@@ -51,6 +53,7 @@ FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LAUNCHES: collections.Counter = collections.Counter()
 SPAN_COUNTS: collections.Counter = collections.Counter()
 HOST_READS: collections.Counter = collections.Counter()
+TALLIES: collections.defaultdict = collections.defaultdict(list)
 # device-timed spans kept at most: a 3 s traced stretch of the flagship's
 # updates keeps about 1,200; a profiled training run that never resets
 # stops keeping them here (and counts each one dropped)
@@ -99,12 +102,13 @@ _fns: dict = {}
 
 
 def reset_launches() -> None:
-    """Clear the launch counts, the span and host-read counts and the
-    span buffer."""
+    """Clear the launch counts, the span and host-read counts, the span
+    buffer and the tallies."""
     LAUNCHES.clear()
     SPAN_COUNTS.clear()
     HOST_READS.clear()
     SPANS.clear()
+    TALLIES.clear()
 
 
 def _nvcc() -> str:

@@ -52,7 +52,9 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 def _unravel_fn(tree: Any) -> Callable[[torch.Tensor], Any]:
     """``flat -> tree`` with leaves as VIEWS of ``flat`` (so autograd and
-    ``torch.func`` transforms see through the unflatten)."""
+    ``torch.func`` transforms see through the unflatten). One ``split``
+    makes them: its backward concatenates the leaves' gradients once,
+    where a slice per leaf would fill and add a whole-vector zero each."""
     shapes = []
 
     def number(t):
@@ -71,11 +73,11 @@ def _unravel_fn(tree: Any) -> Callable[[torch.Tensor], Any]:
     for s in shapes:
         offsets.append(offsets[-1] + math.prod(s))
 
+    sizes = [b - a for a, b in zip(offsets, offsets[1:])]
+
     def unravel(flat: torch.Tensor) -> Any:
-        return tree_map(
-            lambda i: flat[offsets[i]:offsets[i + 1]].view(shapes[i]),
-            index_tree,
-        )
+        parts = torch.split(flat, sizes)
+        return tree_map(lambda i: parts[i].view(shapes[i]), index_tree)
 
     unravel.offsets = offsets
     unravel.shapes = shapes

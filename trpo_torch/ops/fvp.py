@@ -67,6 +67,12 @@ def materialize_fisher(kl_fn: Callable[[torch.Tensor], torch.Tensor],
     return torch.func.hessian(kl_fn)(flat_params.detach())
 
 
+def _rows(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The row weight ``w`` shaped to broadcast over ``t``'s trailing axes
+    (``(B, K)``, ``(T, N, K)``, a sequence's ``(B, T, V)``)."""
+    return w.reshape(w.shape + (1,) * (t.ndim - w.ndim))
+
+
 def make_ggn_fvp(
     apply_fn: Callable[[Any], Any],
     fisher_weight: Callable[[Any, Any], Any],
@@ -79,7 +85,8 @@ def make_ggn_fvp(
 
     ``apply_fn(x) -> dist params`` closes over the batch obs; ``weight`` is
     the per-sample weight column (normalized to a weighted mean here, over
-    every rank of ``group``). The primal forward and the pullback are built
+    every rank of ``group``), broadcast over each dist param's trailing
+    axes. The primal forward and the pullback are built
     once; each call runs one tangent forward and one pullback."""
     x0 = x0.detach()
     d0, pullback = torch.func.vjp(apply_fn, x0)
@@ -89,7 +96,7 @@ def make_ggn_fvp(
     def fvp(v: torch.Tensor) -> torch.Tensor:
         _, d = torch.func.jvp(apply_fn, (x0,), (v,))
         m = fisher_weight(d0, d)
-        m = tree_map(lambda t: t.float() * w_norm.unsqueeze(-1), m)
+        m = tree_map(lambda t: t.float() * _rows(w_norm, t), m)
         (hv,) = pullback(m)
         return all_sum(hv.float(), group) + damping * v
 

@@ -11,9 +11,11 @@ calling thread, and nothing at all (one thread-local check) otherwise.
 Given a CUDA device it also records a pair of CUDA events at its edges
 into ``ops/_build.SPANS``, read once the device is synchronized; every
 span opened is counted by name in ``ops/_build.SPAN_COUNTS``.
-:func:`host_read` is ``Tensor.item()`` counted by site in
-``ops/_build.HOST_READS`` (a read of a CUDA value, which waits for the
-device) under the same rule.
+:func:`host_read` is ``Tensor.item()`` (``tolist()`` for more than one
+element) counted by site in ``ops/_build.HOST_READS`` (a read of a CUDA
+value, which waits for the device) under the same rule, and
+:func:`tally` keeps a host value a span's reader needs (the positions a
+call ran on, the tokens an expert took) in ``ops/_build.TALLIES``.
 
 Stages that start on one thread and record on another (the pipelined
 rollout's group threads, the async driver's stats drain) use
@@ -38,7 +40,7 @@ from torch.autograd import _profiler_enabled
 # and ``ops/_build`` imports ``trpo_torch.obs``, which imports ``utils``: the
 # package's modules are imported where they are used, never at the top.
 
-__all__ = ["PhaseTimer", "host_read", "span", "synchronize_tree"]
+__all__ = ["PhaseTimer", "host_read", "span", "synchronize_tree", "tally"]
 
 _OFF = contextlib.nullcontext()
 _open = threading.local()   # this thread's open span names, innermost last
@@ -97,14 +99,28 @@ def span(name: str, device: Optional[torch.device] = None):
 
 
 def host_read(t: torch.Tensor, site: str):
-    """``t.item()``; while a profiler records on this thread, a read of a
-    CUDA ``t`` (a wait on the device) is counted under ``site`` in
-    ``ops/_build.HOST_READS``."""
+    """``t.item()``, or ``t.tolist()`` for a ``t`` of more than one
+    element: one transfer either way. While a profiler records on this
+    thread, a read of a CUDA ``t`` (a wait on the device) is counted under
+    ``site`` in ``ops/_build.HOST_READS``."""
     if _profiler_enabled() and t.is_cuda:
         from trpo_torch.ops import _build
 
         _build.HOST_READS[site] += 1
-    return t.item()
+    return t.item() if t.numel() == 1 else t.tolist()
+
+
+def tally(name: str, value) -> None:
+    """While a profiler records on this thread, append the host value
+    ``value`` to ``ops/_build.TALLIES[name]`` (up to ``SPAN_CAP`` of them
+    a name); nothing otherwise. A span that tallies once a call keeps its
+    values in the order of its device-timed records."""
+    if _profiler_enabled():
+        from trpo_torch.ops import _build
+
+        kept = _build.TALLIES[name]
+        if len(kept) < _build.SPAN_CAP:
+            kept.append(value)
 
 
 def synchronize_tree(tree) -> None:
